@@ -1,0 +1,390 @@
+"""Chip smoke test of the PyTorch/CUDA port (rspt_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ops/csrc, holds each kernel against
+its plain PyTorch version on the card (bit-exact, tolerance 0: every
+output is integer), then drives the main path — the xdelta_hzr packer's
+compress and decompress at the full width of BASELINE config 2, a
+12-channel, 32-bit, 34,199-sample ECG-like signal made from seed 1234 —
+and checks that the container from the card equals the one from the
+CPU (plain versions), that decompress round-trips it exactly, and that
+every kernel of the path launched. It then times each kernel with CUDA
+events beside its bound, its plain version and a library yardstick,
+and the host stages. The last two lines are a JSON object of the
+kernels and the result line. Exits nonzero, with no result line, when
+there is no CUDA card or any check fails. Imports nothing of JAX or of
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+INT_OPS_PER_S = 67e12          # H100 SXM non-tensor fp32 rate, for int ops
+REPS = 30
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def make_ecg(channels=12, samples=34199, seed=1234):
+    """ECG-like synthetic of BASELINE config 2's shape (the formula of
+    bench.py's make_ecg fallback)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples)
+    wander = 200000.0 * np.sin(t / 700.0)[None, :] \
+        + 150000.0 * np.sin(t / 1300.0 + np.arange(channels)[:, None])
+    beat = 800000.0 * (np.sin(t / 37.0) ** 63)[None, :]
+    noise = np.cumsum(rng.normal(0, 800.0, (channels, samples)), axis=1)
+    sig = (wander + beat + noise).astype(np.int64)
+    lim = 2 ** 31 - 1
+    sig = np.clip(sig, -lim, lim).astype(np.int32)
+    return sig, np.ascontiguousarray(sig.T).astype("<i4").tobytes()
+
+
+def to_native(sig: np.ndarray, bps: int) -> bytes:
+    """Channel-major int32 → interleaved little-endian bps-byte samples."""
+    v = np.ascontiguousarray(sig.T).astype(np.uint32)
+    return np.stack([(v >> np.uint32(8 * k)) & np.uint32(255)
+                     for k in range(bps)], -1).astype(np.uint8).tobytes()
+
+
+def equal(name, got, want):
+    """Bit-exact comparison of tensors (or tuples of them)."""
+    if isinstance(got, (tuple, list)):
+        for k, (g, w) in enumerate(zip(got, want)):
+            equal(f"{name}[{k}]", g, w)
+        return 0
+    g, w = got.cpu(), want.cpu()
+    if g.shape != w.shape or g.dtype != w.dtype:
+        raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
+                             f"{w.shape}/{w.dtype}")
+    diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
+    err = int(diff.max()) if diff.numel() else 0
+    if err:
+        first = int(torch.nonzero(diff.reshape(-1))[0])
+        raise AssertionError(f"{name}: differs, max |err| {err}, first at "
+                             f"flat index {first}")
+    return err
+
+
+def cuda_ms(fn, reps=REPS, warm=3):
+    """Median of per-launch CUDA-event times, after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps=REPS, kernel=None):
+    """Device time per call from torch.profiler's CUDA activity: the
+    median of the kernel named `kernel`, else the sum of every device
+    activity of the call. None if the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and (kernel is None or kernel in e.name)]
+    if not evs:
+        return None
+    us = [e.time_range.elapsed_us() for e in evs]
+    return (statistics.median(us) if kernel else sum(us) / reps) / 1e3
+
+
+def wall_s(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def kernel_inputs(ck, tc, gpu, raw, ns, ch, planes, swizzle=True,
+                  tokenize_raw=False):
+    """Every kernel's inputs along the pass-1 → plan → pass-2 chain, made
+    with the plain versions (so a kernel fault cannot feed the next).
+    tokenize_raw: tokenize `raw` itself (crafted edge inputs) instead of
+    its xdelta."""
+    enc, ok = ck.xdelta_swizzle_plain(raw, ns, ch, planes, swizzle)
+    if tokenize_raw:
+        enc = raw
+    tokw, bwords, hist = ck.tokenize_planes_plain(enc, planes)
+    _, lengths = gpu.block_layout(enc.numel(), planes)
+    plan = tc.flat_plan(hist.cpu().numpy(), lengths)
+    dev = raw.device
+
+    def d(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    bases = d(plan.bases)
+    tokc = ck.compact_tokens_plain(tokw, bases, plan.T)
+    return dict(enc=enc, tokw=tokw, hist=hist, plan=plan, bases=bases,
+                tokc=tokc, ntok=d(plan.ntok), bit0=d(plan.bit0),
+                lut=d(plan.lut))
+
+
+def check_chain(ck, tc, gpu, name, raw, ns, ch, planes, swizzle=True,
+                tokenize_raw=False):
+    """Each kernel against its plain version along one input's chain."""
+    x = kernel_inputs(ck, tc, gpu, raw, ns, ch, planes, swizzle,
+                      tokenize_raw)
+    p = x["plan"]
+    equal(f"{name}/xdelta_swizzle",
+          ck.xdelta_swizzle(raw, ns, ch, planes, swizzle),
+          ck.xdelta_swizzle_plain(raw, ns, ch, planes, swizzle))
+    equal(f"{name}/tokenize_planes", ck.tokenize_planes(x["enc"], planes),
+          ck.tokenize_planes_plain(x["enc"], planes))
+    equal(f"{name}/compact_tokens",
+          ck.compact_tokens(x["tokw"], x["bases"], p.T), x["tokc"])
+    args = (x["tokc"], x["bases"], x["ntok"], x["bit0"], x["lut"], p.nwords)
+    equal(f"{name}/pack_flat", ck.pack_flat(*args), ck.pack_flat_plain(*args))
+    torch.cuda.synchronize()
+    return x
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    from rspt_tpu_torch import packers
+    from rspt_tpu_torch.formats.crc32c import crc32c
+    from rspt_tpu_torch.hzr import torch_coder as tc
+    from rspt_tpu_torch.ops import _build
+    from rspt_tpu_torch.ops import cuda_kernels as ck
+    from rspt_tpu_torch.ops import torch_ops as tops
+    from rspt_tpu_torch.packers import gpu
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    # phase 1: build
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    log(f"phase 1: kernels built/loaded in {time.perf_counter() - t0:.2f} s "
+        f"({lib._name})")
+    ptxas = _build.BUILD_ROOT / _build.source_hash() / "ptxas.log"
+    if ptxas.exists():
+        for line in ptxas.read_text().splitlines():
+            if "Used" in line or line.startswith("=="):
+                log("  " + line.strip())
+
+    # phase 2: each kernel vs its plain version on the card, bit-exact
+    ch, ns = 12, 34199
+    sig, native = make_ecg(ch, ns)
+    words = torch.from_numpy(np.frombuffer(native, "<i4").copy()).to(dev)
+    main_x = check_chain(ck, tc, gpu, "main", words, ns, ch, 3)
+    log(f"phase 2: main-path shapes ok: tokw {tuple(main_x['tokw'].shape)}, "
+        f"T {main_x['plan'].T}, payload {main_x['plan'].total_payload} B, "
+        f"COPY blocks {int(main_x['plan'].is_copy.sum())}")
+    rng = np.random.default_rng(7)
+    n2 = 65536 + 12345                       # odd tail, two slabs a plane
+    edge = rng.integers(-(1 << 23), 1 << 23, n2).astype(np.int32)
+    edge[rng.random(n2) < 0.5] = 0
+    edge[100:40100] = 0                      # zero run > 16,662
+    edge[65536 + 1000:65536 + 5000] = 0x01010101 * 7   # literal stretch
+    cases = {
+        "edge_runs_tail": edge,
+        "all_zero_slab": np.concatenate([np.zeros(65536, np.int32),
+                                         edge[:5000]]),
+        "all_literal_slab": (rng.integers(1, 256, (65536 + 77, 4))
+                             * (1 << np.arange(0, 32, 8))).sum(1)
+        .astype(np.uint32).view(np.int32),
+        # plane 0 random (COPY), plane 1 constant (FILL), plane 2 sparse
+        "fill_copy": (rng.integers(0, 256, 70001)
+                      | (5 << 8)
+                      | ((rng.random(70001) < 0.02) << 16)).astype(np.int32),
+    }
+    for name, x in cases.items():
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        for planes in (1, 3, 4):
+            check_chain(ck, tc, gpu, f"{name}/p{planes}", t, x.size, 1,
+                        planes, swizzle=False, tokenize_raw=True)
+    toks = torch.from_numpy(rng.integers(-5, 5, (3, 65536)).astype(
+        np.int32)).to(dev)
+    tb = torch.tensor([0, 200000, 70000], dtype=torch.int32, device=dev)
+    equal("nonzero_valid", ck.compact_tokens(toks, tb, 150000, True),
+          ck.compact_tokens_plain(toks, tb, 150000, True))
+    for bps in (2, 3):
+        small = (sig >> (32 - 8 * bps)) if bps < 4 else sig
+        u8 = torch.from_numpy(np.frombuffer(to_native(small, bps),
+                                            np.uint8).copy()).to(dev)
+        sig32 = tops.native_to_i32(u8, ns, ch, bps).reshape(-1)
+        check_chain(ck, tc, gpu, f"bps{bps}", sig32, ns, ch, bps,
+                    swizzle=False)
+    torch.cuda.synchronize()
+    log("phase 2: all kernels bit-exact against their plain versions "
+        "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
+        "FILL/COPY planes, nonzero_valid, bps 2 and 3)")
+
+    # phase 3: the main path through the packer's entry points
+    for k in ck.KERNELS:
+        k.launches = 0
+    p = packers.new_xdelta_hzr(4, ch, ns, 3)
+    comp = p.compress(native)
+    torch.cuda.synchronize()
+    comp_stages = dict(p.stage_seconds)
+    out, used = p.decompress(comp)
+    dec_stages = dict(p.stage_seconds)
+    launches = {k.__name__: k.launches for k in ck.KERNELS}
+    log(f"phase 3: main-path launches {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"main path did not launch {missing}")
+    if out != native or used != len(comp):
+        raise AssertionError("main path: decompress did not round-trip")
+    pc = packers.new_xdelta_hzr(4, ch, ns, 3, device="cpu")
+    comp_cpu = pc.compress(native)
+    if comp != comp_cpu:
+        raise AssertionError("main path: card and CPU containers differ")
+    plan = main_x["plan"]
+    n_copy = int(plan.is_copy.sum())
+    if n_copy != 7:
+        raise AssertionError(f"expected 7 COPY blocks, got {n_copy}")
+    log(f"phase 3: {len(native)} B -> {len(comp)} B (CR "
+        f"{len(native) / len(comp):.4f}), container equal to CPU's, exact "
+        f"round trip, {n_copy} COPY blocks, planes {p.nr_planes}")
+    # verify-and-grow: 1 plane does not fit the ECG's xdelta values
+    pg = packers.new_xdelta_hzr(4, ch, ns, 1)
+    pg_cpu = packers.new_xdelta_hzr(4, ch, ns, 1, device="cpu")
+    cg = pg.compress(native)
+    if cg != pg_cpu.compress(native) or pg.nr_planes != pg_cpu.nr_planes:
+        raise AssertionError("growth: card and CPU differ")
+    if pg.decompress(cg)[0] != native or pg.nr_planes < 2:
+        raise AssertionError(f"growth: planes {pg.nr_planes} / round trip")
+    for bps in (2, 3):
+        small = to_native(sig >> (32 - 8 * bps), bps)
+        a = packers.new_xdelta_hzr(bps, ch, ns, 2)
+        b = packers.new_xdelta_hzr(bps, ch, ns, 2, device="cpu")
+        ca = a.compress(small)
+        if ca != b.compress(small) or a.decompress(ca)[0] != small:
+            raise AssertionError(f"bps {bps}: card/CPU or round trip")
+    log(f"phase 3: growth 1 -> {pg.nr_planes} planes equal to CPU; bps 2 "
+        f"and 3 containers equal to CPU, exact round trips")
+
+    # phase 4: timings at main-path shapes
+    x = main_x
+    e = x["enc"]
+    tokw, hist = x["tokw"], x["hist"]
+    nb = tokw.shape[0]
+    huff = torch.from_numpy(plan.ntok > 0).to(dev)
+    n_huff = int(huff.sum())
+    n = ch * ns
+    ntok_total = int(plan.ntok.sum())
+    pk_args = (x["tokc"], x["bases"], x["ntok"], x["bit0"], x["lut"],
+               plan.nwords)
+    valid = ((tokw >> 27) & 1) != 0
+    sym_idx = (torch.where(valid, tokw & 511, 261).to(torch.int64)
+               + 262 * torch.arange(nb, device=dev)[:, None]).reshape(-1)
+    tok_huff = tokw[huff]
+    valid_huff = valid[huff]
+    # ops: a nominal count of integer operations per element, an
+    # estimate; every kernel's byte bound is the larger
+    rows = {
+        "xdelta_swizzle": dict(
+            replaces="rspt_tpu/ops/pallas_kernels.py:1615",
+            source="rspt_tpu_torch/ops/csrc/xdelta.cu",
+            fn=lambda: ck.xdelta_swizzle(words, ns, ch, 3),
+            plain=lambda: ck.xdelta_swizzle_plain(words, ns, ch, 3, True),
+            library=None,
+            bytes=2 * 4 * n + 4, ops=8 * n),
+        "tokenize_planes": dict(
+            replaces="rspt_tpu/ops/pallas_kernels.py:1813",
+            source="rspt_tpu_torch/ops/csrc/tokenize.cu",
+            fn=lambda: ck.tokenize_planes(e, 3),
+            plain=lambda: ck.tokenize_planes_plain(e, 3),
+            library=lambda: torch.bincount(sym_idx, minlength=nb * 262),
+            bytes=4 * n + nb * 4 * (65536 + 16384 + 261),
+            ops=nb * 65536 * 30),
+        "compact_tokens": dict(
+            replaces="rspt_tpu/ops/pallas_kernels.py:1237",
+            source="rspt_tpu_torch/ops/csrc/compact.cu",
+            fn=lambda: ck.compact_tokens(tokw, x["bases"], plan.T),
+            plain=lambda: ck.compact_tokens_plain(tokw, x["bases"], plan.T),
+            library=lambda: torch.masked_select(tok_huff, valid_huff),
+            bytes=4 * n_huff * 65536 + 4 * plan.T + 4 * nb,
+            ops=n_huff * 65536 * 6),
+        "pack_flat": dict(
+            replaces="rspt_tpu/ops/pallas_kernels.py:835",
+            source="rspt_tpu_torch/ops/csrc/pack_flat.cu",
+            fn=lambda: ck.pack_flat(*pk_args),
+            plain=lambda: ck.pack_flat_plain(*pk_args),
+            library=None,
+            bytes=4 * ntok_total + nb * (4 * 261 + 16) + 4 * plan.nwords,
+            ops=ntok_total * 30),
+    }
+    kernels = []
+    for name, r in rows.items():
+        # device times from the profiler; CUDA events around one call
+        # (host launch cost included) where it sees no device activity
+        call_ms = cuda_ms(r["fn"])
+        ms = device_ms(r["fn"], kernel=name + "_kernel") or call_ms
+        plain_ms = device_ms(r["plain"], reps=10) or cuda_ms(r["plain"], 10)
+        lib_ms = None
+        if r["library"]:
+            lib_ms = device_ms(r["library"]) or cuda_ms(r["library"])
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / INT_OPS_PER_S * 1e3
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], launches=launches[name], max_abs_err=0,
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib_ms))
+        log(f"phase 4: {name}: kernel {ms:.4f} ms on the device, "
+            f"{call_ms:.4f} ms a call with launch (bound "
+            f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
+            f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    # host stages and end to end
+    crc_s = wall_s(lambda: crc32c(np.frombuffer(comp, np.uint8)), reps=3)
+    enc_s = wall_s(lambda: p.compress(native))
+    enc_stages = dict(p.stage_seconds)
+    dec_s = wall_s(lambda: p.decompress(comp), reps=2)
+    dec_stages = dict(p.stage_seconds)
+    log(f"phase 4: host stages, first compress {comp_stages}")
+    log(f"phase 4: host stages, compress (last of 3) {enc_stages}")
+    log(f"phase 4: host stages, decompress (last of 2) {dec_stages}")
+    log(f"phase 4: crc32c over the {len(comp)} B container: {crc_s:.4f} s")
+    log(f"phase 4: end to end compress {enc_s:.4f} s, decompress "
+        f"{dec_s:.4f} s (median wall, {len(native)} B payload)")
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,22 @@
+"""rspt_tpu_torch — the PyTorch/CUDA port of rspt_tpu for NVIDIA Hopper.
+
+A second package beside the JAX one (which stays the reference). It
+imports torch and numpy, never jax and nothing of ``rspt_tpu``; each
+Pallas TPU kernel on a ported path is a CUDA C++ kernel for sm_90a
+(``ops/csrc``), built with nvcc at first use and bound with ctypes.
+
+Quick start (on a CUDA card; pass ``device="cpu"`` to run the kernels'
+plain PyTorch versions instead)::
+
+    from rspt_tpu_torch import packers
+    p = packers.new_xdelta_hzr(4, 12, 34199, 3)   # bps, ch, n, planes
+    comp = p.compress(native_bytes)
+    out, consumed = p.decompress(comp)
+
+Streams and containers are byte-identical to ``rspt_tpu``'s.
+"""
+
+from . import packers  # noqa: F401
+
+__version__ = "0.1.0"
+__all__ = ["packers", "formats", "hzr", "ops"]

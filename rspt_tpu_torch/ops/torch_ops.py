@@ -1,0 +1,107 @@
+"""Exact int32 signal ops on torch tensors (counterpart of
+rspt_tpu/ops/jax_ops.py:43-172).
+
+All arithmetic is int32 two's-complement wraparound, as in the
+reference's C loops (utils.cpp:123-236, signal_packer_base.cpp:40-138).
+Torch gives no wrap guarantee for signed int32 overflow and its ``>>``
+on int32 is arithmetic, so every op that can overflow or needs a
+logical shift widens to int64, masks, and wraps back with ``_wrap32``.
+The ops run on whatever device their input lies on.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def _wrap32(x64: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 modulo 2**32 (two's complement)."""
+    return (((x64 + (1 << 31)) & _M32) - (1 << 31)).to(torch.int32)
+
+
+def _sign_extend(v64: torch.Tensor, bits: int) -> torch.Tensor:
+    """Non-negative int64 holding ``bits`` bits → its signed value."""
+    return v64 - (((v64 >> (bits - 1)) & 1) << bits)
+
+
+def native_to_i32(native: torch.Tensor, nr_samples: int, nr_channels: int,
+                  bytes_per_sample: int) -> torch.Tensor:
+    """Interleaved native samples → (channels, samples) int32.
+
+    ``native`` is either the '<i4' word view (bps 4: pure layout) or the
+    flat u8 bytes ``[s0c0][s0c1]...`` (any bps), sign-extended from bit
+    8*bps-1. The word path returns a transposed view."""
+    n = nr_samples * nr_channels
+    if native.dtype == torch.int32:
+        if bytes_per_sample != 4:
+            raise ValueError("int32 word input needs bytes_per_sample=4")
+        return native[:n].reshape(nr_samples, nr_channels).T
+    bps = bytes_per_sample
+    b = native[:n * bps].reshape(nr_samples, nr_channels, bps).to(torch.int64)
+    v = torch.zeros((nr_samples, nr_channels), dtype=torch.int64,
+                    device=native.device)
+    for k in range(bps):
+        v |= b[..., k] << (8 * k)
+    return _wrap32(_sign_extend(v, 8 * bps)).T
+
+
+def i32_to_native(arr: torch.Tensor, bytes_per_sample: int) -> torch.Tensor:
+    """(channels, samples) int32 → interleaved native low bytes, flat u8."""
+    v = arr.T.to(torch.int64) & _M32
+    b = torch.stack([(v >> (8 * k)) & 255 for k in range(bytes_per_sample)],
+                    dim=-1)
+    return b.to(torch.uint8).reshape(-1)
+
+
+def delta_encode(a: torch.Tensor) -> torch.Tensor:
+    a = a.to(torch.int64)
+    prev = torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+    return _wrap32(a - prev)
+
+
+def delta_decode(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of delta_encode: int32 wraparound prefix sum (torch's
+    int32 cumsum returns int64, so the wrap is explicit)."""
+    return _wrap32(torch.cumsum(a.reshape(-1).to(torch.int64), 0))
+
+
+def offset32(a: torch.Tensor, val: int) -> torch.Tensor:
+    return _wrap32(a.to(torch.int64) + int(val))
+
+
+def xor_encode(a: torch.Tensor) -> torch.Tensor:
+    a = a.to(torch.int32)
+    prev = torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+    return a ^ prev
+
+
+def xor_decode(a: torch.Tensor) -> torch.Tensor:
+    """Prefix-xor (inverse of xor_encode) as a log-step doubling scan:
+    torch has no prefix-xor."""
+    x = a.reshape(-1).to(torch.int32).clone()
+    p = 1
+    while p < x.numel():
+        x[p:] = x[p:] ^ x[:-p]
+        p *= 2
+    return x
+
+
+def plane_split(flat_i32: torch.Tensor, nr_planes: int) -> torch.Tensor:
+    """(N,) int32 → (nr_planes, N) uint8, plane k = byte k (LSB first).
+    The arithmetic shift fills only bits above byte k, which the mask
+    drops."""
+    v = flat_i32.to(torch.int32)
+    return torch.stack([((v >> (8 * k)) & 255).to(torch.uint8)
+                        for k in range(nr_planes)])
+
+
+def plane_merge(planes: torch.Tensor) -> torch.Tensor:
+    """(nr_planes, N) uint8 → (N,) int32, sign-extended from the top
+    plane (signal_packer_base.cpp:122-138)."""
+    p = planes.shape[0]
+    v = torch.zeros(planes.shape[1], dtype=torch.int64, device=planes.device)
+    for k in range(p):
+        v |= planes[k].to(torch.int64) << (8 * k)
+    return _wrap32(_sign_extend(v, 8 * p))

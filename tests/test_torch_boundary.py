@@ -1,0 +1,55 @@
+"""The port's boundaries: what importing it loads, what its entry
+points do without a card, and that chip_smoke.py refuses to report
+without one."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rspt_tpu_torch import packers as gpack  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_loads_neither_jax_nor_rspt_tpu():
+    """The port's modules import no jax and nothing of rspt_tpu."""
+    code = (
+        "import sys\n"
+        "import rspt_tpu_torch\n"
+        "from rspt_tpu_torch.packers import gpu\n"
+        "from rspt_tpu_torch.hzr import pyref, torch_coder\n"
+        "from rspt_tpu_torch.ops import _build, cuda_kernels, torch_ops\n"
+        "from rspt_tpu_torch.formats import crc32c, hzr_constants\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'rspt_tpu' or m.startswith('rspt_tpu.')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_default_device_raises_without_card(monkeypatch):
+    """No device argument and no card: the factory raises, it does not
+    fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpack.new_xdelta_hzr(4, 2, 100, 3)
+    assert gpack.new_xdelta_hzr(4, 2, 100, 3, device="cpu").nr_planes == 3
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    """chip_smoke.py exits nonzero and prints no result line with no
+    visible card, and alone in a directory without the repo."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout

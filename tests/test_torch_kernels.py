@@ -1,0 +1,185 @@
+"""The port's kernels, by their plain PyTorch versions (the wrappers take
+them for CPU tensors), against the Pallas kernels they replace, run in
+interpret mode on the CPU.
+
+All outputs are integer words, so every comparison is bit-exact
+(tolerance 0). Inputs are made with numpy from a seed. Shapes stay at
+one or two 64 KiB slabs a plane: interpret-mode tokenize is slow.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from rspt_tpu.hzr import jax_coder  # noqa: E402
+from rspt_tpu.ops import jax_ops as jops  # noqa: E402
+from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
+from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
+from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from rspt_tpu_torch.packers import gpu  # noqa: E402
+
+B = 65536
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _runs_signal(rng, n, zero_frac=0.6, amp=2 ** 23):
+    """int32 signal with long zero runs: one > MAX_ZERO_RUN at the start,
+    and a stretch of one repeated literal."""
+    x = rng.integers(-amp, amp, n, dtype=np.int64)
+    x[rng.random(n) < zero_frac] = 0
+    x[:min(n, 17000)] = 0
+    if n > 30000:
+        x[25000:29000] = 0x01010101 * 9
+    return x.astype(np.int32)
+
+
+def _ecg_words(rng, ch, ns, scale):
+    sig = np.cumsum(rng.normal(0, scale, (ch, ns)), axis=1).astype(np.int32)
+    return np.ascontiguousarray(sig.T).reshape(-1)
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+def test_xdelta_swizzle_vs_pallas(rng, planes):
+    """K1 xdelta_preprocess_pallas on the native_to_i32 layout, and the
+    verify flag of packers/tpu.py:169-174; tolerance 0."""
+    ch, ns = 3, 5001
+    words = _ecg_words(rng, ch, ns, 3000.0)
+    words[:4] = [2 ** 31 - 1, -(2 ** 31), -1, 0]
+    enc, ok = ck.xdelta_swizzle(_t(words), ns, ch, planes)
+    flat = jops.native_to_i32(jnp.asarray(words), ns, ch, 4).reshape(-1)
+    want = np.asarray(pk.xdelta_preprocess_pallas(flat, interpret=True))
+    np.testing.assert_array_equal(enc.numpy(), want)
+    sh = 32 - 8 * planes
+    want_ok = planes == 4 or bool(((want << sh) >> sh == want).all())
+    assert int(ok[0]) == int(want_ok)
+    # channel-major input without the swizzle gives the same values
+    enc2, ok2 = ck.xdelta_swizzle(_t(np.asarray(flat)), ns, ch, planes,
+                                  swizzle=False)
+    assert torch.equal(enc2, enc) and torch.equal(ok2, ok)
+
+
+@pytest.mark.parametrize("planes,plane_len", [(3, B + 4321), (2, 1000)])
+def test_tokenize_planes_vs_pallas(rng, planes, plane_len):
+    """K2 tokenize_planes_pallas: token words and plane bytes, and the
+    histograms vs jax_coder.hist_from_tokw; tolerance 0. Covers a run
+    > 16,662, runs across slab rows, an odd tail and a literal stretch."""
+    x = _runs_signal(rng, plane_len)
+    tokw, bwords, hist = ck.tokenize_planes(_t(x), planes)
+    jt, jb = pk.tokenize_planes_pallas(jnp.asarray(x), planes, plane_len,
+                                       interpret=True)
+    np.testing.assert_array_equal(tokw.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(bwords.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(hist.numpy(),
+                                  np.asarray(jax_coder.hist_from_tokw(jt)))
+
+
+def test_tokenize_all_zero_and_all_literal_slabs(rng):
+    """The TPU kernel's closed-form branches: an all-zero slab and an
+    all-literal slab; tolerance 0."""
+    lit = (rng.integers(1, 256, (B, 4)) * (1 << np.arange(0, 32, 8))).sum(1)
+    x = np.concatenate([np.zeros(B, np.int64), lit[:999]])
+    x = x.astype(np.uint32).view(np.int32)
+    tokw, bwords, hist = ck.tokenize_planes(_t(x), 1)
+    jt, jb = pk.tokenize_planes_pallas(jnp.asarray(x), 1, x.size,
+                                       interpret=True)
+    np.testing.assert_array_equal(tokw.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(bwords.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(hist.numpy(),
+                                  np.asarray(jax_coder.hist_from_tokw(jt)))
+
+
+def _plan(x, planes):
+    tokw, bwords, hist = ck.tokenize_planes(_t(x), planes)
+    _, lengths = gpu.block_layout(x.size, planes)
+    hist_np = hist.numpy()
+    return tokw, hist_np, tc.flat_plan(hist_np, lengths)
+
+
+def test_compact_tokens_vs_pallas(rng):
+    """K3 compact_tokens_pallas on the flat pack's layout, compared on
+    [:T] (JAX adds every non-HUFF block at the trash base T); FILL and
+    COPY blocks included; tolerance 0."""
+    n = B + 3000
+    x = (rng.integers(0, 256, n)                     # plane 0: COPY
+         | (3 << 8)                                  # plane 1: FILL
+         | ((rng.random(n) < 0.05) << 16)).astype(np.int32)
+    tokw, hist_np, plan = _plan(x, 3)
+    assert plan.is_copy.any() and plan.is_fill.any() and plan.T > 0
+    got = ck.compact_tokens(tokw, _t(plan.bases), plan.T)
+    want = pk.compact_tokens_pallas(jnp.asarray(tokw.numpy()),
+                                    jnp.asarray(plan.bases),
+                                    plan.T // 128 + 512 + 24,
+                                    interpret=True, r_ct=256)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).reshape(-1)[:plan.T])
+
+
+def test_compact_tokens_nonzero_valid_vs_pallas(rng):
+    """K3 in its decode form (valid = word != 0); tolerance 0."""
+    w = rng.integers(-3, 3, (3, 2 * 128 * 128)).astype(np.int32)
+    bases = np.array([0, 40000, 70000], np.int32)
+    T = 110000
+    got = ck.compact_tokens(_t(w), _t(bases), T, nonzero_valid=True)
+    want = pk.compact_tokens_pallas(jnp.asarray(w), jnp.asarray(bases),
+                                    T // 128 + 512 + 24, interpret=True,
+                                    nonzero_valid=True)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).reshape(-1)[:T])
+
+
+def test_pack_tokens_flat_vs_pallas(rng):
+    """K3 + K4 + glue + K5 through jax_coder.pack_tokens_flat2 against
+    the port's compact_tokens + pack_flat: payload words compared on
+    [:total_payload] bytes; tolerance 0."""
+    ch, ns = 2, 40000
+    x = np.asarray(jops.xor_encode(jops.offset32(jops.delta_encode(
+        jnp.asarray(_ecg_words(rng, ch, ns, 40.0))), -128)))
+    tokw, hist_np, plan = _plan(x, 3)
+    assert plan.T > 0 and not plan.is_copy.any()
+    words = tc.pack_tokens_flat(tokw, _t(plan.bases), plan.T,
+                                _t(plan.ntok), _t(plan.bit0), _t(plan.lut),
+                                plan.nwords)
+
+    _, T, ng, g2b, gfirst = tc.flat_compact_layout(
+        hist_np, plan.ntok > 0)
+    lut3 = np.zeros((ng, 3 * 128), np.int32)
+    lut3[:, :261] = plan.lut[g2b]
+    desc_bits = plan.bit0 - plan.hoff * 8
+    nrows_f = -(-(plan.total_payload // 4 + 2) // 128) + pk.ACC_ROWS
+    nrows_f = -(-nrows_f // 8) * 8
+    want = jax_coder.pack_tokens_flat2(
+        jnp.asarray(tokw.numpy()), jnp.asarray(plan.bases),
+        jnp.asarray(lut3.reshape(ng, 3, 128)),
+        jnp.asarray(desc_bits[g2b].astype(np.int32)),
+        jnp.asarray(plan.hoff[g2b].astype(np.int32)), jnp.asarray(gfirst),
+        t_rows=T // 128 + 512 + 24, T=T, nrows_f=nrows_f, interpret=True)
+    nbytes = plan.total_payload
+    np.testing.assert_array_equal(
+        words.numpy().view(np.uint8)[:nbytes],
+        np.asarray(want).reshape(-1).view(np.uint8)[:nbytes])
+
+
+def test_wrappers_validate_inputs():
+    """Wrong dtype, layout or shape raises before any kernel work."""
+    x = torch.zeros(64, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        ck.xdelta_swizzle(x, 8, 8, 3)
+    with pytest.raises(ValueError):
+        ck.tokenize_planes(torch.zeros((4, 8), dtype=torch.int32)[:, ::2]
+                           .reshape(-1)[:0], 3)
+    tokw = torch.zeros((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ck.compact_tokens(tokw.T, torch.zeros(16, dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        ck.compact_tokens(tokw, torch.zeros(3, dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        ck.pack_flat(tokw.reshape(-1), torch.zeros(2, dtype=torch.int32),
+                     torch.zeros(2, dtype=torch.int32),
+                     torch.zeros(2, dtype=torch.int64),
+                     torch.zeros((2, 260), dtype=torch.int32), 4)

@@ -1,0 +1,102 @@
+"""GpuXdeltaHzrPacker(device="cpu") — the port's packer on the kernels'
+plain versions — against the JAX packer (Pallas in interpret mode) and
+the host packer: containers byte-identical, round trips exact
+(tolerance 0 throughout: the containers are a byte format).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from rspt_tpu.packers import host as hpack  # noqa: E402
+from rspt_tpu_torch import packers as gpack  # noqa: E402
+
+
+@pytest.fixture()
+def tpack(monkeypatch):
+    """rspt_tpu.packers.tpu with its fused pass 1 and flat pack in
+    interpret mode (as tests/test_pallas.py runs them)."""
+    monkeypatch.setenv("RSPT_FUSED_PASS1", "interp")
+    from rspt_tpu.hzr import jax_coder
+    monkeypatch.setattr(jax_coder, "_PACK_MODE", "interp")
+    from rspt_tpu.packers import tpu
+    return tpu
+
+
+def _native(sig, bps):
+    return np.ascontiguousarray(sig.T).astype(f"<i{bps}").tobytes()
+
+
+def _check_all(tpack, native, bps, ch, n, planes):
+    """Port == JAX == host, with exact round trips and equal growth."""
+    pg = gpack.new_xdelta_hzr(bps, ch, n, planes, device="cpu")
+    pt = tpack.new_xdelta_hzr(bps, ch, n, planes)
+    ph = hpack.new_xdelta_hzr(bps, ch, n, planes)
+    comp = pg.compress(native)
+    assert comp == pt.compress(native)
+    assert comp == ph.compress(native)
+    assert pg.nr_planes == pt.nr_planes == ph.nr_planes
+    out, used = pg.decompress(comp)
+    assert out == native and used == len(comp)
+    return pg, comp
+
+
+def test_fill_and_copy_planes(rng, tpack):
+    """FILL planes (constant after xdelta) and an incompressible COPY
+    plane, which JAX sends down its per-block path and the port packs
+    on its one flat path (cases of test_flat_pack_fill_and_copy_routing)."""
+    ch, n = 2, 19000
+    sig = rng.normal(0, 2, (ch, n)).astype(np.int32)
+    _check_all(tpack, _native(sig, 4), 4, ch, n, 3)
+    ch2, n2 = 2, 17011
+    sig2 = rng.integers(-(1 << 23), 1 << 23, (ch2, n2)).astype(np.int32)
+    _check_all(tpack, _native(sig2, 4), 4, ch2, n2, 4)
+
+
+@pytest.mark.parametrize("ch,n,bps,planes,sigma", [
+    (1, 70001, 4, 2, 900.0),    # multi-block single channel
+    (5, 13000, 4, 3, 3.0),      # tiny amplitude (FILL planes)
+    (2, 33333, 4, 4, 2e6),      # wide dynamic range
+    (3, 8192, 2, 2, 120.0),     # 16-bit samples
+    (7, 11111, 4, 1, 0.4),      # 1 plane, near-constant
+])
+def test_fuzz_shapes(rng, tpack, ch, n, bps, planes, sigma):
+    """The cases of test_flat_pack_fuzz_shapes."""
+    sig = np.cumsum(rng.normal(0, sigma, (ch, n)), axis=1).astype(np.int32)
+    if bps < 4:
+        sig >>= 16
+    _check_all(tpack, _native(sig, bps), bps, ch, n, planes)
+
+
+def test_bps3_samples(rng, tpack):
+    """24-bit samples through the u8 native_to_i32 path."""
+    from conftest import make_ecg_like, to_native
+    sig = make_ecg_like(rng, 3, 9000, 300.0, 24)
+    _check_all(tpack, to_native(sig, 3), 3, 3, 9000, 3)
+
+
+def test_plane_growth(rng, tpack):
+    """1 plane does not fit the xdelta values, 2 do: every packer grows
+    to 2, and the grown count persists into the next call."""
+    ch, n = 2, 9000
+    sig = np.cumsum(rng.normal(0, 30, (ch, n)), axis=1).astype(np.int32)
+    native = _native(sig, 4)
+    pg, _ = _check_all(tpack, native, 4, ch, n, 1)
+    assert pg.nr_planes == 2
+    quiet = np.zeros((ch, n), np.int32)
+    comp = pg.compress(_native(quiet, 4))
+    assert pg.nr_planes == 2
+    assert comp == hpack.new_xdelta_hzr(4, ch, n, 2).compress(
+        _native(quiet, 4))
+
+
+def test_zero_run_longer_than_cap(rng, tpack):
+    """A constant stretch gives an xdelta zero run > 16,662 in every
+    plane, cut at the cap."""
+    ch, n = 1, 40000
+    sig = np.full((ch, n), 12345, np.int32)
+    sig[0, 30000:] += np.cumsum(rng.integers(-9, 9, n - 30000)).astype(
+        np.int32)
+    _check_all(tpack, _native(sig, 4), 4, ch, n, 3)
