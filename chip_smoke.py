@@ -9,12 +9,17 @@ compress and decompress at the full width of BASELINE config 2, a
 12-channel, 32-bit, 34,199-sample ECG-like signal made from seed 1234 —
 and checks that the container from the card equals the one from the
 CPU (plain versions), that decompress round-trips it exactly, and that
-every kernel of the path launched. It then times each kernel with CUDA
-events beside its bound, its plain version and a library yardstick,
-and the host stages. The last two lines are a JSON object of the
-kernels and the result line. Exits nonzero, with no result line, when
-there is no CUDA card or any check fails. Imports nothing of JAX or of
-the JAX package.
+every kernel of the path launched.
+
+Phases: 1 build; 2 encode kernels vs plain; 3 compress / host-decode
+decompress; 5 decode kernels (hzr_decode, place_literals) vs plain at
+the main-path shape and on edge inputs; 6 decompress(device_decode=True)
+and decompress_many with and without hints; 4, last, times each kernel
+(profiler device time) beside its bound, its plain version and a
+library yardstick, and the host stages. The last two lines are a JSON
+object of the kernels and the result line. Exits nonzero, with no
+result line, when there is no CUDA card or any check fails. Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -125,7 +130,7 @@ def wall_s(fn, reps=3):
     return statistics.median(times)
 
 
-def kernel_inputs(ck, tc, gpu, raw, ns, ch, planes, swizzle=True,
+def kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle=True,
                   tokenize_raw=False):
     """Every kernel's inputs along the pass-1 → plan → pass-2 chain, made
     with the plain versions (so a kernel fault cannot feed the next).
@@ -135,7 +140,7 @@ def kernel_inputs(ck, tc, gpu, raw, ns, ch, planes, swizzle=True,
     if tokenize_raw:
         enc = raw
     tokw, bwords, hist = ck.tokenize_planes_plain(enc, planes)
-    _, lengths = gpu.block_layout(enc.numel(), planes)
+    _, lengths = tc.block_layout(enc.numel(), planes)
     plan = tc.flat_plan(hist.cpu().numpy(), lengths)
     dev = raw.device
 
@@ -149,10 +154,10 @@ def kernel_inputs(ck, tc, gpu, raw, ns, ch, planes, swizzle=True,
                 lut=d(plan.lut))
 
 
-def check_chain(ck, tc, gpu, name, raw, ns, ch, planes, swizzle=True,
+def check_chain(ck, tc, name, raw, ns, ch, planes, swizzle=True,
                 tokenize_raw=False):
     """Each kernel against its plain version along one input's chain."""
-    x = kernel_inputs(ck, tc, gpu, raw, ns, ch, planes, swizzle,
+    x = kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle,
                       tokenize_raw)
     p = x["plan"]
     equal(f"{name}/xdelta_swizzle",
@@ -168,6 +173,70 @@ def check_chain(ck, tc, gpu, name, raw, ns, ch, planes, swizzle=True,
     return x
 
 
+def fibonacci_bytes(nsym, rng):
+    """Symbol k (1..nsym) fib(k) times, shuffled: the deepest Huffman
+    tree for its size (22 symbols: 21-bit codes, four nibble levels)."""
+    fib = [1, 1]
+    while len(fib) < nsym:
+        fib.append(fib[-1] + fib[-2])
+    x = np.repeat(np.arange(1, nsym + 1, dtype=np.uint8), fib)
+    rng.shuffle(x)
+    return x
+
+
+def decode_inputs(gd, streams, dev):
+    """hzr_decode's inputs for a stream batch, made by gpu_decoder's host
+    half (the kernels' own path), and the batch's output size."""
+    _, out, huff = gd._walk_all(streams)
+    blocks, _ = gd._device_blocks(huff)
+    la = gd.lane_arrays(blocks)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in la.kernel_inputs()]
+    return la, args, out.size, blocks
+
+
+def place_inputs(gd, la, counts, stats, dev):
+    live = torch.from_numpy(la.lane_live).to(dev)
+    base = gd.lane_out_base(counts, live,
+                            torch.from_numpy(la.out_off).to(dev),
+                            torch.from_numpy(la.block_first).to(dev))
+    return (stats[:, 0].contiguous(), base,
+            torch.from_numpy(la.out_limit).to(dev), live)
+
+
+def check_decode(ck, gd, name, la, args, total, dev):
+    """hzr_decode and place_literals against their plain versions on one
+    batch; returns the kernel's outputs."""
+    got = ck.hzr_decode(*args)
+    want = ck.hzr_decode_plain(*args)
+    equal(f"{name}/hzr_decode counts, entries, stats", got[1:], want[1:])
+    equal(f"{name}/hzr_decode emissions",
+          gd.valid_emissions(got[0], got[3][:, 0]),
+          gd.valid_emissions(want[0], want[3][:, 0]))
+    pa = place_inputs(gd, la, got[1], got[3], dev)
+    equal(f"{name}/place_literals",
+          ck.place_literals(got[0], *pa, total),
+          ck.place_literals_plain(
+              got[0], *pa, torch.zeros(total, dtype=torch.uint8, device=dev)))
+    torch.cuda.synchronize()
+    return got
+
+
+def symbols_decoded(emis, counts, steps):
+    """Symbols of the final sweep: every step below a lane's own step
+    count raises its output count (by 1 for a byte, >= 2 for a zero run);
+    the rows from there to the tile's step count repeat the final count,
+    and the rows past it are scratch."""
+    nt = emis.shape[0]
+    s_max = int(steps.max())
+    o = (emis[:, :s_max].reshape(nt, s_max, 1024) >> 9).long()
+    fin = counts.reshape(nt, 1, 1024).long()
+    s = torch.arange(s_max, device=emis.device)[None, :, None]
+    st = steps.reshape(nt, 1, 1)
+    nxt = torch.where(s + 1 < st, torch.cat([o[:, 1:], fin], 1), fin)
+    return int(((nxt != o) & (s < st)).sum())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -175,11 +244,11 @@ def main() -> int:
         return 1
     from rspt_tpu_torch import packers
     from rspt_tpu_torch.formats.crc32c import crc32c
+    from rspt_tpu_torch.hzr import gpu_decoder as gd
     from rspt_tpu_torch.hzr import torch_coder as tc
     from rspt_tpu_torch.ops import _build
     from rspt_tpu_torch.ops import cuda_kernels as ck
     from rspt_tpu_torch.ops import torch_ops as tops
-    from rspt_tpu_torch.packers import gpu
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -203,7 +272,7 @@ def main() -> int:
     ch, ns = 12, 34199
     sig, native = make_ecg(ch, ns)
     words = torch.from_numpy(np.frombuffer(native, "<i4").copy()).to(dev)
-    main_x = check_chain(ck, tc, gpu, "main", words, ns, ch, 3)
+    main_x = check_chain(ck, tc, "main", words, ns, ch, 3)
     log(f"phase 2: main-path shapes ok: tokw {tuple(main_x['tokw'].shape)}, "
         f"T {main_x['plan'].T}, payload {main_x['plan'].total_payload} B, "
         f"COPY blocks {int(main_x['plan'].is_copy.sum())}")
@@ -228,7 +297,7 @@ def main() -> int:
     for name, x in cases.items():
         t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         for planes in (1, 3, 4):
-            check_chain(ck, tc, gpu, f"{name}/p{planes}", t, x.size, 1,
+            check_chain(ck, tc, f"{name}/p{planes}", t, x.size, 1,
                         planes, swizzle=False, tokenize_raw=True)
     toks = torch.from_numpy(rng.integers(-5, 5, (3, 65536)).astype(
         np.int32)).to(dev)
@@ -240,7 +309,7 @@ def main() -> int:
         u8 = torch.from_numpy(np.frombuffer(to_native(small, bps),
                                             np.uint8).copy()).to(dev)
         sig32 = tops.native_to_i32(u8, ns, ch, bps).reshape(-1)
-        check_chain(ck, tc, gpu, f"bps{bps}", sig32, ns, ch, bps,
+        check_chain(ck, tc, f"bps{bps}", sig32, ns, ch, bps,
                     swizzle=False)
     torch.cuda.synchronize()
     log("phase 2: all kernels bit-exact against their plain versions "
@@ -258,7 +327,8 @@ def main() -> int:
     dec_stages = dict(p.stage_seconds)
     launches = {k.__name__: k.launches for k in ck.KERNELS}
     log(f"phase 3: main-path launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("xdelta_swizzle", "tokenize_planes",
+                           "compact_tokens", "pack_flat") if not launches[k]]
     if missing:
         raise AssertionError(f"main path did not launch {missing}")
     if out != native or used != len(comp):
@@ -291,6 +361,112 @@ def main() -> int:
             raise AssertionError(f"bps {bps}: card/CPU or round trip")
     log(f"phase 3: growth 1 -> {pg.nr_planes} planes equal to CPU; bps 2 "
         f"and 3 containers equal to CPU, exact round trips")
+
+    # phase 5: the decode kernels vs their plain versions on the card
+    main_streams, _ = p._streams(comp)
+    dla, dargs, dtotal, dblocks = decode_inputs(gd, main_streams, dev)
+    dec = check_decode(ck, gd, "decode main", dla, dargs, dtotal, dev)
+    ntiles = dargs[0].shape[0]
+    deep_levels = [k + 1 for k in range(4) if dla.ntc[:, k].max() > 0]
+    log(f"phase 5: main-path decode shapes ok: {ntiles} tiles, "
+        f"{ntiles * 1024} lanes, window {tuple(dargs[1].shape)}, nibble "
+        f"levels used {deep_levels}, step counts "
+        f"{dec[3][:, 0].tolist()}, fixpoint sweeps {dec[3][:, 1].tolist()}")
+    targs = list(dargs)
+    targs[0] = dargs[0].clone()
+    targs[0][:, 4] = 1
+    targs[8] = dec[2]
+    tdec = check_decode(ck, gd, "decode trusted", dla, targs, dtotal, dev)
+    if int(tdec[3][:, 1].max()) != 0:
+        raise AssertionError("trusted entries ran the fixpoint")
+    rng5 = np.random.default_rng(13)
+    r4 = np.random.default_rng(4)
+    pad_a = r4.integers(0, 8, 900).astype(np.uint8)
+    pad_b = np.zeros(600, np.uint8)
+    pad_b[::53] = r4.integers(1, 255, pad_b[::53].size)
+    sparse = np.zeros(2 * 65536, np.uint8)
+    idx = rng5.choice(sparse.size, 2500, replace=False)
+    sparse[idx] = rng5.integers(1, 255, idx.size)
+    super_sparse = np.zeros(65536, np.uint8)
+    super_sparse[8::5000] = rng5.integers(1, 255, super_sparse[8::5000].size)
+    edge_sets = {
+        # test_very_deep_codes_on_device's stream and 21-bit codes
+        "very_deep": [np.minimum(np.random.default_rng(13).geometric(
+            0.5, 250000), 255).astype(np.uint8),
+            fibonacci_bytes(22, rng5)],
+        # test_tier2_sparse_chunk_repack's dense, sparse and super-sparse
+        "sparse_tier2": [rng5.integers(0, 12, 3 * 65536).astype(np.uint8),
+                         sparse, super_sparse],
+        # several streams in one batch with the padding-bit pair
+        "multi_stream": [pad_a, pad_b, sparse[:40000],
+                         rng5.integers(0, 256, 3000).astype(np.uint8),
+                         np.full(2000, 9, np.uint8)],
+    }
+    for name, payloads in edge_sets.items():
+        streams = [tc.encode(x.tobytes(), dev) for x in payloads]
+        ela, eargs, etotal, _ = decode_inputs(gd, streams, dev)
+        e = check_decode(ck, gd, name, ela, eargs, etotal, dev)
+        if gd.decode_many(streams, hints=False) != [x.tobytes()
+                                                   for x in payloads]:
+            raise AssertionError(f"{name}: decode_many is not exact")
+        levels = [k + 1 for k in range(4) if ela.ntc[:, k].max() > 0]
+        log(f"phase 5: {name}: {eargs[0].shape[0]} tiles, nibble levels "
+            f"{levels}, steps max {int(e[3][:, 0].max())}, bit-exact, "
+            f"decode_many exact")
+    log("phase 5: hzr_decode and place_literals bit-exact against their "
+        "plain versions (main path, trusted entries, levels 3-4, sparse "
+        "and super-sparse tier-2 blocks, multi-stream padding-bit pair)")
+
+    # phase 6: the device-decode main path
+    for k in ck.KERNELS:
+        k.launches = 0
+    pd = packers.new_xdelta_hzr(4, ch, ns, 3, device_decode=True)
+    out6, used6 = pd.decompress(comp)
+    torch.cuda.synchronize()
+    dd_stages = dict(pd.stage_seconds)
+    dd_launches = {k.__name__: k.launches for k in ck.KERNELS}
+    info = pd.decode_info
+    log(f"phase 6: device-decode launches {dd_launches}")
+    for k in ("hzr_decode", "place_literals"):
+        if dd_launches[k] == 0:
+            raise AssertionError(f"device decode did not launch {k}")
+    if out6 != native or used6 != len(comp) or out6 != out:
+        raise AssertionError("device decode: not the native bytes")
+    if info["device_blocks"] != 14:
+        raise AssertionError(f"device decode blocks: {info}")
+    log(f"phase 6: decompress(device_decode=True) exact, equal to the host "
+        f"path; {info['tiles']} tiles, {info['lanes']} lanes, "
+        f"{info['device_blocks']} device blocks, step counts {info['steps']}, fixpoint sweeps "
+        f"{info['fp_iters']}, {info['literals']} literals")
+    sig3, native3 = make_ecg(ch, ns, seed=99)
+    comp3 = pd.compress(native3)
+    if pg.nr_planes != pd.nr_planes:
+        raise AssertionError("grown container has another plane count")
+    comps = [comp, cg, comp3]
+    seq = [pd.decompress(c)[0] for c in comps]
+    if seq != [native, native, native3] or pd.decompress_many(comps) != seq:
+        raise AssertionError("decompress_many differs from decompress")
+    log(f"phase 6: decompress_many of 3 containers (one grown from 1 "
+        f"plane) equals sequential decompress; one batch of "
+        f"{pd.decode_info['tiles']} tiles")
+    dd_s = wall_s(lambda: pd.decompress(comp), reps=3)
+    dd_stages_t = dict(pd.stage_seconds)
+    outs_h, hints = pd.decompress_many([comp], return_hints=True)
+    t6 = time.perf_counter()
+    outs_h2 = pd.decompress_many([comp], hints=hints)
+    torch.cuda.synchronize()
+    hd_first_s = time.perf_counter() - t6
+    hd_first_stages = dict(pd.stage_seconds)
+    if outs_h != [native] or outs_h2 != [native] \
+            or not pd.decode_info["hinted"] or max(pd.decode_info["fp_iters"]):
+        raise AssertionError("hinted decode: not exact or ran the fixpoint")
+    if "check" not in hd_first_stages:
+        raise AssertionError("first hinted decode was not cross-checked")
+    hd_s = wall_s(lambda: pd.decompress(comp), reps=3)
+    hd_stages = dict(pd.stage_seconds)
+    log(f"phase 6: hinted decode exact, fixpoint sweeps "
+        f"{pd.decode_info['fp_iters']}")
+    gd._hint_registry.clear()
 
     # phase 4: timings at main-path shapes
     x = main_x
@@ -343,13 +519,64 @@ def main() -> int:
             bytes=4 * ntok_total + nb * (4 * 261 + 16) + 4 * plan.nwords,
             ops=ntok_total * 30),
     }
+    # decode rows: the main path's batch (10 tiles, 14 HUFF blocks)
+    d_emis, d_counts, _, d_stats = dec
+    d_steps = d_stats[:, 0]
+    pa = place_inputs(gd, dla, d_counts, d_stats, dev)
+    payload_b = sum(int(b[0].size) for b in dblocks)
+    lut_b = sum(4 * (256 + sum(lv.size for lv in b[6])) for b in dblocks)
+    emis_b = int(d_steps.sum()) * 4096
+    n_sym = symbols_decoded(d_emis, d_counts, d_steps)
+    nl = ntiles * 1024
+    # the library yardstick: one index_put_ of the pre-masked literals
+    em = d_emis.reshape(ntiles, -1, 1024)
+    s_ix = torch.arange(em.shape[1], device=dev)[None, :, None]
+    e_pos = pa[1].reshape(ntiles, 1, 1024).long() + (em >> 9)
+    lit = ((s_ix < d_steps.reshape(-1, 1, 1)) & ((em & 0x1FF) != 0)
+           & pa[3].reshape(ntiles, 1, 1024)
+           & (e_pos < pa[2].reshape(ntiles, 1, 1024)))
+    lit_pos, lit_val = e_pos[lit], (em[lit] & 0xFF).to(torch.uint8)
+    n_placed = int(lit.sum())
+    lib_out = torch.zeros(dtotal, dtype=torch.uint8, device=dev)
+    launches = {**launches, "hzr_decode": dd_launches["hzr_decode"],
+                "place_literals": dd_launches["place_literals"]}
+    rows["hzr_decode"] = dict(
+        replaces="rspt_tpu/hzr/pallas_decoder.py:644",
+        source="rspt_tpu_torch/ops/csrc/hzr_decode.cu",
+        fn=lambda: ck.hzr_decode(*dargs),
+        plain=lambda: ck.hzr_decode_plain(*dargs), plain_reps=2,
+        library=None,
+        # payload and LUTs read once; emission rows, counts, entries
+        # and stats written once
+        bytes=payload_b + lut_b + emis_b + 8 * nl + 20 * ntiles,
+        ops=40 * n_sym)
+    rows["place_literals"] = dict(
+        replaces="rspt_tpu/ops/pallas_kernels.py:714",
+        source="rspt_tpu_torch/ops/csrc/place_literals.cu",
+        fn=lambda: ck.place_literals(d_emis, *pa, dtotal),
+        plain=lambda: ck.place_literals_plain(
+            d_emis, *pa, torch.zeros(dtotal, dtype=torch.uint8, device=dev)),
+        library=lambda: lib_out.index_put_((lit_pos,), lit_val),
+        # emission rows below the step counts and lane metadata read
+        # once, each literal byte stored once (the COPY, FILL and
+        # zero-run bytes are not this kernel's work)
+        bytes=emis_b + 9 * nl + 4 * ntiles + n_placed,
+        ops=8 * emis_b // 4)
+    huff_out_b = sum(int(b[4]) for b in dblocks)
+    pair_bound = (payload_b + huff_out_b) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 4: decode batch: {len(dblocks)} HUFF blocks, {payload_b} B "
+        f"of payload, {n_sym} symbols, {int(lit.sum())} literals placed, "
+        f"{huff_out_b} B decoded; bound of the pair (payload read and "
+        f"decoded bytes written once) {pair_bound:.6f} ms")
     kernels = []
     for name, r in rows.items():
         # device times from the profiler; CUDA events around one call
         # (host launch cost included) where it sees no device activity
         call_ms = cuda_ms(r["fn"])
         ms = device_ms(r["fn"], kernel=name + "_kernel") or call_ms
-        plain_ms = device_ms(r["plain"], reps=10) or cuda_ms(r["plain"], 10)
+        preps = r.get("plain_reps", 10)
+        plain_ms = (device_ms(r["plain"], reps=preps)
+                    or cuda_ms(r["plain"], preps))
         lib_ms = None
         if r["library"]:
             lib_ms = device_ms(r["library"]) or cuda_ms(r["library"])
@@ -378,6 +605,11 @@ def main() -> int:
     log(f"phase 4: crc32c over the {len(comp)} B container: {crc_s:.4f} s")
     log(f"phase 4: end to end compress {enc_s:.4f} s, decompress "
         f"{dec_s:.4f} s (median wall, {len(native)} B payload)")
+    log(f"phase 4: device-decode decompress {dd_s:.4f} s (median of 3), "
+        f"stages of the first {dd_stages}, of the last {dd_stages_t}; "
+        f"hinted {hd_s:.4f} s, stages {hd_stages}; first hinted decode "
+        f"(cross-checked against the unhinted one) {hd_first_s:.4f} s, "
+        f"stages {hd_first_stages}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

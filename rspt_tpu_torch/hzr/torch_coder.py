@@ -18,6 +18,7 @@ the raw plane bytes the tokenizer already wrote).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List
 
@@ -223,3 +224,74 @@ def pack_tokens_flat(tokw: torch.Tensor, bases: torch.Tensor, T: int,
     ORs them over each payload's first bytes."""
     tokc = ck.compact_tokens(tokw, bases, T)
     return ck.pack_flat(tokc, bases, ntok, bit0, lut, nwords)
+
+
+# ---------------------------------------------------------------------------
+# Streams
+# ---------------------------------------------------------------------------
+
+def block_layout(plane_len: int, nr_planes: int):
+    """(blocks per plane, (nr_planes * nb_per,) block lengths)."""
+    nb_per = max(1, -(-plane_len // B))
+    lengths = np.full(nr_planes * nb_per, B, np.int32)
+    if plane_len % B:
+        lengths[nb_per - 1::nb_per] = plane_len % B
+    return nb_per, lengths
+
+
+def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
+                    times: dict) -> List[bytes]:
+    """One hzr stream per plane from tokenize_planes' outputs: host
+    tables, the flat pack on tokw's device, one device→host copy of the
+    payload words (and of COPY blocks' raw plane bytes), headers. Adds
+    the wall time of its stages to ``times``."""
+    nb_per, lengths = block_layout(plane_len, nr_planes)
+    t0 = time.perf_counter()
+    plan = flat_plan(hist_np, lengths)
+    t1 = time.perf_counter()
+    times["tables"] = t1 - t0
+
+    def d(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(tokw.device)
+
+    words = pack_tokens_flat(tokw, d(plan.bases), plan.T, d(plan.ntok),
+                             d(plan.bit0), d(plan.lut), plan.nwords)
+    copy_rows = np.flatnonzero(plan.is_copy)
+    copy_len = np.where(plan.is_copy, lengths, 0).astype(np.int64)
+    copy_np = np.zeros(0, np.uint8)
+    if copy_rows.size:
+        raw = bwords[d(copy_rows)].cpu().numpy().view(np.uint8)
+        copy_np = np.concatenate([raw[j, :lengths[b]]
+                                  for j, b in enumerate(copy_rows)])
+    tight = words.cpu().numpy().view(np.uint8)[:plan.total_payload].copy()
+    t2 = time.perf_counter()
+    times["pack"] = t2 - t1
+
+    hoff, comp_len = plan.hoff, plan.comp_len
+    for i in np.flatnonzero(comp_len):
+        dlen = min(DESC_STRIDE, int(comp_len[i]))
+        tight[hoff[i]:hoff[i] + dlen] |= plan.desc_bytes[i, :dlen]
+    fill_byte = fill_bytes_from_hist(hist_np)
+    coff = np.cumsum(copy_len) - copy_len
+    streams = []
+    for k in range(nr_planes):
+        s = slice(k * nb_per, (k + 1) * nb_per)
+        streams.append(assemble_compact(
+            lengths[s], tight[hoff[s.start]:], comp_len[s],
+            copy_np[coff[s.start]:], copy_len[s], plan.is_fill[s],
+            fill_byte[s]))
+    times["assemble"] = time.perf_counter() - t2
+    return streams
+
+
+def encode(data, device) -> bytes:
+    """hzr_encode of a byte string on ``device`` (the streams equal
+    rspt_tpu.hzr.pyref.encode's): its bytes are tokenized as one plane
+    and packed by the flat path."""
+    raw = np.frombuffer(memoryview(data).cast("B"), np.uint8)
+    if raw.size == 0:
+        raise ValueError("hzr: nothing to encode")
+    x = torch.from_numpy(raw.astype(np.int32)).to(device)
+    tokw, bwords, hist = ck.tokenize_planes(x, 1)
+    return entropy_streams(tokw, bwords, hist.cpu().numpy(), raw.size, 1,
+                           {})[0]

@@ -16,6 +16,13 @@ Each replaces (rspt_tpu/ops/pallas_kernels.py):
   compact_tokens   K3 compact_tokens_pallas
   pack_flat        K4 token_group_windows_rows_pallas, the cumsum glue
                    and K5 super_place_flat_pallas
+and (rspt_tpu/hzr/pallas_decoder.py):
+  hzr_decode       K6 _run_kernel / _decode_kernel, the lockstep decoder
+  place_literals   the placement chain of _place_emissions: K7
+                   place_compact_pallas, K3 in its nonzero_valid form,
+                   K8a chunk_windows2_pallas, K8b super_place_pallas, K9a
+                   chunk_windows1_pallas, K9b merge_place_pallas and the
+                   scatter ladder
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ def _lib() -> ctypes.CDLL:
         "rspt_tokenize_planes": [P, P, P, P, I, I, I, P],
         "rspt_compact_tokens": [P, P, P, I, I, I, I, P],
         "rspt_pack_flat": [P, P, P, P, P, P, I, I, I, P],
+        "rspt_hzr_decode": [P] * 17 + [I] * 7 + [P],
+        "rspt_place_literals": [P] * 6 + [I] * 3 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -344,4 +353,282 @@ def pack_flat(tokc: torch.Tensor, tok_base: torch.Tensor, ntok: torch.Tensor,
 
 pack_flat.launches = 0
 
-KERNELS = (xdelta_swizzle, tokenize_planes, compact_tokens, pack_flat)
+
+# ---------------------------------------------------------------------------
+# Kernel 5 — hzr_decode (K6)
+# ---------------------------------------------------------------------------
+
+MAX_STEPS = 1088       # emission rows per tile: no legal segment needs more
+SEG_PER_BLOCK = 1024   # max segments per block; fixpoint cap is this + 2
+_DEEP = 1 << 30
+_RLE_EBITS = (0, 0, 2, 4, 8, 14)     # by clamp(sym - 255, 0, 5)
+_RLE_BASE = (0, 2, 3, 7, 23, 279)
+
+
+def _decode_sweep_plain(sel, entry, x, emis):
+    """One emitting lockstep sweep of the tiles `sel` from `entry`
+    ((len(sel), 1024) int64). Writes their emission rows; returns
+    (exits, lane step counts, counts, literal counts)."""
+    dev = entry.device
+    seg, pb, wb = x["segend"][sel], x["pbits"][sel], x["wbase"][sel]
+    win, row = x["win"][sel], x["row"][sel]
+    wseg = win.shape[1]
+    eb = torch.tensor(_RLE_EBITS, device=dev)
+    bs = torch.tensor(_RLE_BASE, device=dev)
+
+    def fetch(wp):
+        ok = (wp >= 0) & (wp < wseg)
+        g = torch.gather(win, 1, wp.clamp(0, wseg - 1)[:, None])[:, 0]
+        return torch.where(ok, g, 0)
+
+    pos = entry.clone()
+    active = (pos < seg) & (pos < pb)
+    wptr = (pos >> 5) - wb
+    c0 = fetch(wptr) >> (pos & 31)
+    c1 = torch.zeros_like(pos)
+    c2 = torch.zeros_like(pos)
+    navail = torch.where(active, 32 - (pos & 31), 0)
+    wptr = wptr + 1
+    outc = torch.zeros_like(pos)
+    lits = torch.zeros_like(pos)
+    lsteps = torch.zeros_like(pos)
+    step = 0
+    while step < MAX_STEPS and bool(active.any()):
+        for _ in range(2):   # refill to >= 40 bits: 2 -> 34 -> 66
+            need = active & (navail < 40)
+            w = fetch(wptr)
+            nv = navail
+            lo = torch.where(nv < 32, (w << nv.clamp(max=31)) & _M32, 0)
+            mid = torch.where(nv < 32, w >> (32 - nv).clamp(0, 32),
+                              (w << (nv - 32).clamp(min=0)) & _M32)
+            hi = torch.where(nv > 32, w >> (64 - nv).clamp(max=32), 0)
+            c0 = torch.where(need, c0 | lo, c0)
+            c1 = torch.where(need, c1 | mid, c1)
+            c2 = torch.where(need, c2 | hi, c2)
+            navail = torch.where(need, navail + 32, navail)
+            wptr = torch.where(need, wptr + 1, wptr)
+        ent = x["l1"].reshape(-1)[row * 256 + (c0 & 255)]
+        deep = active & ((ent & _DEEP) != 0)
+        for k in range(4):
+            if not bool(deep.any()):
+                break
+            lv = x["lv"][k]
+            i = (ent & 0xFFFF) * 16 + ((c0 >> (8 + 4 * k)) & 15)
+            n = lv.shape[1]
+            ek = lv.reshape(-1)[row * n + i.clamp(0, n - 1)]
+            ek = torch.where((i >= 0) & (i < n), ek, 0)
+            ent = torch.where(deep, ek, ent)
+            deep = deep & ((ek & _DEEP) != 0)
+        sym = ent & 0x1FF
+        cb = (ent >> 16) & 0xFF
+        ridx = (sym - 255).clamp(0, 5)
+        ebv, basev = eb[ridx], bs[ridx]
+        tail = (c0 >> cb) | torch.where(
+            cb > 0, (c1 << (32 - cb).clamp(0, 32)) & _M32, 0)
+        extra = torch.where(ebv > 0, tail & ((torch.ones_like(ebv) << ebv) - 1),
+                            0)
+        is_rle = sym >= 256
+        nout = torch.where(is_rle, basev + extra, 1)
+        is_lit = active & ~is_rle & (sym > 0)
+        emis[sel, step] = tops._wrap32((outc << 9) | torch.where(is_lit, sym, 0))
+        consume = cb + ebv
+        big = consume >= 32
+        d0 = torch.where(big, c1, c0)
+        d1 = torch.where(big, c2, c1)
+        d2 = torch.where(big, 0, c2)
+        cs = consume & 31
+        inv = (32 - cs).clamp(max=31)
+        n0 = torch.where(cs > 0, (d0 >> cs) | ((d1 << inv) & _M32), d0)
+        n1 = torch.where(cs > 0, (d1 >> cs) | ((d2 << inv) & _M32), d1)
+        n2 = torch.where(cs > 0, d2 >> cs, d2)
+        c0 = torch.where(active, n0, c0)
+        c1 = torch.where(active, n1, c1)
+        c2 = torch.where(active, n2, c2)
+        navail = torch.where(active, navail - consume, navail)
+        outc = torch.where(active, outc + nout, outc)
+        lits = lits + is_lit.long()
+        step += 1
+        lsteps = torch.where(active, step, lsteps)
+        pos = torch.where(active, pos + consume, pos)
+        active = active & (pos < seg) & (pos < pb)
+    return pos, lsteps, outc, lits
+
+
+def hzr_decode_plain(ntc, win, l1lo, l1hi, lv1, lv2, lv3, lv4, entry,
+                     segend, pbits, first, wbase):
+    dev = entry.device
+    nrows = entry.shape[0]
+    nt = nrows // 8
+    wseg = win.shape[0]
+
+    def lanes(a):
+        return a.reshape(nt, 1024).long()
+
+    x = dict(segend=lanes(segend), pbits=lanes(pbits), wbase=lanes(wbase),
+             win=(win.reshape(wseg, nt, 1024).permute(1, 0, 2).long()
+                  & _M32),
+             row=lanes(torch.arange(nrows, device=dev)[:, None]
+                       .expand(nrows, 128).contiguous()),
+             l1=torch.cat([l1lo, l1hi], 1).long(),
+             # level k as one flat table per row: (nrows, cap_k * 128)
+             lv=[lv.permute(1, 0, 2).reshape(nrows, -1).long()
+                 for lv in (lv1, lv2, lv3, lv4)])
+    e0 = lanes(entry)
+    pinned = lanes(first) != 0
+    emis = torch.zeros((nt, MAX_STEPS, 1024), dtype=torch.int32, device=dev)
+    counts = torch.zeros((nt, 1024), dtype=torch.int64, device=dev)
+    stats = torch.zeros((nt, 5), dtype=torch.int64, device=dev)
+
+    def sweep(sel, ent):
+        exits, lsteps, outc, lits = _decode_sweep_plain(sel, ent, x, emis)
+        counts[sel] = outc
+        stats[sel, 0] = lsteps.max(1).values
+        stats[sel, 2] = lits.sum(1)
+        stats[sel, 4] = outc.max(1).values
+        return exits
+
+    # alignment fixpoint: emitting sweeps with entry(s+1) = exit(s) of
+    # the previous lane until no entry changes; trusted tiles skip it,
+    # and a cap exit re-emits from the last entries
+    cur = e0.clone()
+    trust = ntc[:, 4] != 0
+    changed = ~trust
+    iters = torch.zeros(nt, dtype=torch.int64, device=dev)
+    while True:
+        sel = torch.nonzero(changed & (iters < SEG_PER_BLOCK + 2))[:, 0]
+        if sel.numel() == 0:
+            break
+        exits = sweep(sel, cur[sel])
+        new = torch.where(pinned[sel], e0[sel], torch.roll(exits, 1, 1))
+        changed[sel] = (new != cur[sel]).any(1)
+        cur[sel] = new
+        iters[sel] += 1
+    sel = torch.nonzero(trust | changed)[:, 0]
+    if sel.numel():
+        sweep(sel, cur[sel])
+    stats[:, 1] = iters
+    return (emis.reshape(nt, MAX_STEPS, 8, 128),
+            counts.reshape(nrows, 128).to(torch.int32),
+            cur.reshape(nrows, 128).to(torch.int32), stats.to(torch.int32))
+
+
+def hzr_decode(ntc, win, l1lo, l1hi, lv1, lv2, lv3, lv4, entry, segend,
+               pbits, first, wbase):
+    """Lockstep speculative hzr decode of every lane (one segment of a
+    HUFF block) with the in-kernel alignment fixpoint.
+
+    Inputs (int32, contiguous; nrows = 8 * tiles): ntc (tiles, 5) the
+    tile's max level-k chunk counts and trust flag; win (wseg, nrows,
+    128) each lane's payload words from wbase; l1lo/l1hi (nrows, 128)
+    the row's 8-bit root LUT; lv1..lv4 (cap_k, nrows, 128) its nibble
+    levels; entry, segend, pbits, first, wbase (nrows, 128).
+
+    Returns (emis (tiles, MAX_STEPS, 8, 128): outc << 9 | literal byte
+    (0 if the step was no literal) for every step below the tile's step
+    count, rows past it are scratch; counts (nrows, 128) bytes decoded
+    per lane; entry_out (nrows, 128) converged entries; stats (tiles,
+    5): step count, fixpoint sweeps, literals, 0, max count)."""
+    lvs = (lv1, lv2, lv3, lv4)
+    args = (ntc, win, l1lo, l1hi, *lvs, entry, segend, pbits, first, wbase)
+    for name, t in zip(("ntc", "win", "l1lo", "l1hi", "lv1", "lv2", "lv3",
+                        "lv4", "entry", "segend", "pbits", "first",
+                        "wbase"), args):
+        _check(t, name, torch.int32)
+    nrows = entry.shape[0]
+    if entry.dim() != 2 or nrows % 8 or entry.shape[1] != 128 or nrows == 0:
+        raise ValueError("entry: need (8 * tiles, 128)")
+    nt = nrows // 8
+    for name, t in (("l1lo", l1lo), ("l1hi", l1hi), ("segend", segend),
+                    ("pbits", pbits), ("first", first), ("wbase", wbase)):
+        _check(t, name, torch.int32, (nrows, 128))
+    _check(ntc, "ntc", torch.int32, (nt, 5))
+    if win.dim() != 3 or tuple(win.shape[1:]) != (nrows, 128) \
+            or not 1 <= win.shape[0] <= 64:
+        raise ValueError("win: need (wseg <= 64, nrows, 128)")
+    for k, lv in enumerate(lvs):
+        if lv.dim() != 3 or tuple(lv.shape[1:]) != (nrows, 128) \
+                or lv.shape[0] < 1:
+            raise ValueError(f"lv{k + 1}: need (cap >= 1, nrows, 128)")
+    if not _on_cuda(*args):
+        return hzr_decode_plain(*args)
+    kw = dict(dtype=torch.int32, device=entry.device)
+    emis = torch.empty((nt, MAX_STEPS, 8, 128), **kw)
+    counts = torch.empty((nrows, 128), **kw)
+    entry_out = torch.empty((nrows, 128), **kw)
+    stats = torch.empty((nt, 5), **kw)
+    _launch("hzr_decode", _lib().rspt_hzr_decode,
+            *[t.data_ptr() for t in args], emis.data_ptr(),
+            counts.data_ptr(), entry_out.data_ptr(), stats.data_ptr(), nt,
+            win.shape[0], *[lv.shape[0] for lv in lvs], MAX_STEPS,
+            device=entry.device)
+    hzr_decode.launches += 1
+    return emis, counts, entry_out, stats
+
+
+hzr_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6 — place_literals (K7, K8a/K8b, K9a/K9b and their glue)
+# ---------------------------------------------------------------------------
+
+def place_literals_plain(emis, steps, out_base, out_limit, lane_live, out):
+    nt, S = emis.shape[:2]
+    smax = min(int(steps.max()) if nt else 0, S)
+    e = emis[:, :smax].reshape(nt, smax, 1024).permute(0, 2, 1)
+    e = e.reshape(nt * 1024, smax).long()
+    s = torch.arange(smax, device=emis.device)
+    sym = e & 0x1FF
+    pos = out_base.long()[:, None] + (e >> 9)
+    live = ((s[None, :] < steps.long().repeat_interleave(1024)[:, None])
+            & lane_live[:, None] & (sym > 0) & (pos >= 0)
+            & (pos < out_limit.long()[:, None]) & (pos < out.numel()))
+    out.index_put_((pos[live],), (sym[live] & 0xFF).to(torch.uint8))
+    return out
+
+
+def place_literals(emis: torch.Tensor, steps: torch.Tensor,
+                   out_base: torch.Tensor, out_limit: torch.Tensor,
+                   lane_live: torch.Tensor, total: int,
+                   out: torch.Tensor = None) -> torch.Tensor:
+    """Write every literal of hzr_decode's emissions to its output byte:
+    at step s < steps[tile] of a live lane, an emission with byte
+    sym != 0 lands at pos = out_base[lane] + (emis >> 9) if pos <
+    out_limit[lane] (the guard that drops symbols decoded from a
+    block's padding bits). Positions are unique, so the stores need no
+    atomics.
+
+    emis (tiles, S, 8, 128) int32, steps (tiles,) int32, out_base and
+    out_limit (tiles * 1024,) int32, lane_live (tiles * 1024,) bool.
+    Writes into `out` ((total,) uint8) when given, else into zeros;
+    returns it."""
+    _check(emis, "emis", torch.int32)
+    if emis.dim() != 4 or tuple(emis.shape[2:]) != (8, 128):
+        raise ValueError("emis: need (tiles, S, 8, 128)")
+    nt = emis.shape[0]
+    nl = nt * 1024
+    _check(steps, "steps", torch.int32, (nt,))
+    _check(out_base, "out_base", torch.int32, (nl,))
+    _check(out_limit, "out_limit", torch.int32, (nl,))
+    _check(lane_live, "lane_live", torch.bool, (nl,))
+    if not 0 <= total < 2**31:
+        raise ValueError("total out of range")
+    if out is None:
+        out = torch.zeros(total, dtype=torch.uint8, device=emis.device)
+    _check(out, "out", torch.uint8, (total,))
+    args = (emis, steps, out_base, out_limit, lane_live, out)
+    if not _on_cuda(*args):
+        return place_literals_plain(*args)
+    if nt == 0 or total == 0:
+        return out
+    _launch("place_literals", _lib().rspt_place_literals,
+            *[t.data_ptr() for t in args], nt, emis.shape[1], total,
+            device=emis.device)
+    place_literals.launches += 1
+    return out
+
+
+place_literals.launches = 0
+
+KERNELS = (xdelta_swizzle, tokenize_planes, compact_tokens, pack_flat,
+           hzr_decode, place_literals)

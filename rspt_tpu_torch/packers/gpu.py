@@ -13,8 +13,11 @@ compress, two device passes with host work between them:
   host: tree descriptions OR-merged, headers, CRC32C, concatenation.
 
 decompress decodes each plane's hzr stream on the host (the port's
-pyref copy), then merges planes and undoes xor, offset and delta as
-torch ops on the packer's device.
+pyref copy) or, with device_decode, all planes' HUFF blocks in one
+device decode (hzr/gpu_decoder.py: hzr_decode + place_literals), then
+merges planes and undoes xor, offset and delta as torch ops on the
+packer's device. decompress_many puts every payload's planes into one
+device decode.
 
 The packer's state is its config and the plane count, which grows
 (and stays grown) when the xdelta values of a payload do not fit
@@ -26,12 +29,13 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..hzr import pyref
+from ..device import resolve_device
+from ..hzr import gpu_decoder, pyref
 from ..hzr import torch_coder as tc
 from ..ops import cuda_kernels as ck
 from ..ops import torch_ops as tops
@@ -50,27 +54,6 @@ class PackerConfig:
     @property
     def plane_len(self) -> int:
         return self.nr_channels * self.nr_samples
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names a device; no silent CPU
-    fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "rspt_tpu_torch: no CUDA device; pass device='cpu' to run "
-                "the kernels' plain PyTorch versions")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def block_layout(plane_len: int, nr_planes: int):
-    """(blocks per plane, (nr_planes * nb_per,) block lengths)."""
-    nb_per = max(1, -(-plane_len // tc.B))
-    lengths = np.full(nr_planes * nb_per, tc.B, np.int32)
-    if plane_len % tc.B:
-        lengths[nb_per - 1::nb_per] = plane_len % tc.B
-    return nb_per, lengths
 
 
 def _container(method: int, header: bytes, streams) -> bytes:
@@ -98,10 +81,16 @@ class GpuXdeltaHzrPacker:
     METHOD = 0
 
     def __init__(self, bytes_per_sample: int, nr_channels: int,
-                 nr_samples: int, nr_bytes_to_encode: int, device=None):
+                 nr_samples: int, nr_bytes_to_encode: int, device=None,
+                 device_decode: bool = False):
         self.cfg = PackerConfig(bytes_per_sample, nr_channels, nr_samples)
         self.nr_planes = int(nr_bytes_to_encode)
         self.device = resolve_device(device)
+        # entropy-decode on the device (hzr_decode + place_literals)
+        # instead of the host's pyref copy
+        self.device_decode = device_decode
+        # what the last device decode did (gpu_decoder.decode_device)
+        self.decode_info: dict = {}
         self.stage_seconds: Dict[str, float] = {}
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -133,68 +122,83 @@ class GpuXdeltaHzrPacker:
             self.nr_planes += 1
         times["pass1"] = time.perf_counter() - t0
         hist_np = small[:-1].reshape(-1, tc.NUM_SYMBOLS)
-        streams = self._entropy_streams(tokw, bwords, hist_np, times)
+        streams = tc.entropy_streams(tokw, bwords, hist_np, c.plane_len,
+                                     self.nr_planes, times)
         return _container(self.METHOD, b"", streams)
 
-    def _entropy_streams(self, tokw, bwords, hist_np, times):
-        nb_per, lengths = block_layout(self.cfg.plane_len, self.nr_planes)
-        t0 = time.perf_counter()
-        plan = tc.flat_plan(hist_np, lengths)
-        t1 = time.perf_counter()
-        times["tables"] = t1 - t0
-
-        words = tc.pack_tokens_flat(
-            tokw, self._to_dev(plan.bases), plan.T, self._to_dev(plan.ntok),
-            self._to_dev(plan.bit0), self._to_dev(plan.lut), plan.nwords)
-        copy_rows = np.flatnonzero(plan.is_copy)
-        copy_len = np.where(plan.is_copy, lengths, 0).astype(np.int64)
-        copy_np = np.zeros(0, np.uint8)
-        if copy_rows.size:
-            raw = bwords[self._to_dev(copy_rows)].cpu().numpy().view(np.uint8)
-            copy_np = np.concatenate([raw[j, :lengths[b]]
-                                      for j, b in enumerate(copy_rows)])
-        tight = words.cpu().numpy().view(np.uint8)[:plan.total_payload].copy()
-        t2 = time.perf_counter()
-        times["pack"] = t2 - t1
-
-        hoff, comp_len = plan.hoff, plan.comp_len
-        for i in np.flatnonzero(comp_len):
-            dlen = min(tc.DESC_STRIDE, int(comp_len[i]))
-            tight[hoff[i]:hoff[i] + dlen] |= plan.desc_bytes[i, :dlen]
-        fill_byte = tc.fill_bytes_from_hist(hist_np)
-        coff = np.cumsum(copy_len) - copy_len
+    def _streams(self, comp) -> Tuple[List[bytes], int]:
+        """The container's plane streams and the bytes it spans."""
+        src = memoryview(comp).cast("B")
+        if src[0] != self.METHOD:
+            raise ValueError("unsupported compression method")
+        pos = 1
         streams = []
-        for k in range(self.nr_planes):
-            s = slice(k * nb_per, (k + 1) * nb_per)
-            streams.append(tc.assemble_compact(
-                lengths[s], tight[hoff[s.start]:], comp_len[s],
-                copy_np[coff[s.start]:], copy_len[s], plan.is_fill[s],
-                fill_byte[s]))
-        times["assemble"] = time.perf_counter() - t2
-        return streams
+        for _ in range(self.nr_planes):
+            clen = int.from_bytes(src[pos:pos + 4], "little")
+            pos += 4
+            streams.append(bytes(src[pos:pos + clen]))
+            pos += clen
+        return streams, pos
+
+    def _decode_device(self, streams, hints=None, return_hints=False):
+        """Every stream's HUFF blocks in one device decode; returns
+        (planes (len(streams), plane_len) uint8 on the device, hints)."""
+        out, _, h, info = gpu_decoder.decode_device(
+            streams, self.device, hints, return_hints)
+        n = self.cfg.plane_len
+        if out.numel() != len(streams) * n:
+            raise ValueError("hzr: decoded size does not match the config")
+        self.decode_info = info
+        self.stage_seconds.update(info["times"])
+        return out.reshape(len(streams), n), h
+
+    def _postprocess(self, planes: torch.Tensor) -> bytes:
+        """Plane merge and the xdelta inverse on the device."""
+        c = self.cfg
+        merged = tops.plane_merge(planes)
+        flat = tops.delta_decode(tops.offset32(tops.xor_decode(merged), 128))
+        return tops.i32_to_native(flat.reshape(c.nr_channels, c.nr_samples),
+                                  c.bytes_per_sample).cpu().numpy().tobytes()
 
     def decompress(self, comp) -> Tuple[bytes, int]:
         """Returns (native bytes, bytes of comp consumed)."""
         c = self.cfg
         times = self.stage_seconds = {}
-        t0 = time.perf_counter()
-        src = memoryview(comp).cast("B")
-        if src[0] != self.METHOD:
-            raise ValueError("unsupported compression method")
-        pos = 1
-        planes = np.empty((self.nr_planes, c.plane_len), np.uint8)
-        for k in range(self.nr_planes):
-            clen = int.from_bytes(src[pos:pos + 4], "little")
-            pos += 4
-            planes[k] = np.frombuffer(
-                pyref.decode(bytes(src[pos:pos + clen]), c.plane_len),
-                np.uint8, count=c.plane_len)
-            pos += clen
+        streams, pos = self._streams(comp)
+        if self.device_decode:
+            planes, _ = self._decode_device(streams)
+        else:
+            t0 = time.perf_counter()
+            planes = self._to_dev(np.stack([
+                np.frombuffer(pyref.decode(s, c.plane_len), np.uint8,
+                              count=c.plane_len) for s in streams]))
+            times["decode"] = time.perf_counter() - t0
         t1 = time.perf_counter()
-        times["decode"] = t1 - t0
-        merged = tops.plane_merge(self._to_dev(planes))
-        flat = tops.delta_decode(tops.offset32(tops.xor_decode(merged), 128))
-        out = tops.i32_to_native(flat.reshape(c.nr_channels, c.nr_samples),
-                                 c.bytes_per_sample).cpu().numpy().tobytes()
+        out = self._postprocess(planes)
         times["postprocess"] = time.perf_counter() - t1
         return out, pos
+
+    def decompress_many(self, comps, hints=None, return_hints: bool = False):
+        """Decompress several containers (rspt_tpu/packers/tpu.py:905-970).
+        With device_decode, every payload's plane streams share one lane
+        batch: one hzr_decode and one place_literals launch in all.
+        Otherwise the payloads decompress one at a time.
+
+        hints / return_hints (device_decode only): DecodeHints from an
+        earlier decode of the same streams skip the alignment fixpoint;
+        return_hints=True returns (outs, hints)."""
+        if not self.device_decode:
+            outs = [self.decompress(cp)[0] for cp in comps]
+            return (outs, None) if return_hints else outs
+        if not comps:
+            return ([], None) if return_hints else []
+        self.stage_seconds = {}
+        streams = []
+        for comp in comps:
+            streams += self._streams(comp)[0]
+        planes, h = self._decode_device(streams, hints, return_hints)
+        planes = planes.reshape(len(comps), self.nr_planes, -1)
+        t1 = time.perf_counter()
+        outs = [self._postprocess(p) for p in planes]
+        self.stage_seconds["postprocess"] = time.perf_counter() - t1
+        return (outs, h) if return_hints else outs

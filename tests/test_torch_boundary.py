@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rspt_tpu_torch import packers as gpack  # noqa: E402
+from rspt_tpu_torch.hzr import gpu_decoder, torch_coder  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -22,7 +23,8 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "import sys\n"
         "import rspt_tpu_torch\n"
         "from rspt_tpu_torch.packers import gpu\n"
-        "from rspt_tpu_torch.hzr import pyref, torch_coder\n"
+        "from rspt_tpu_torch.hzr import gpu_decoder, pyref, torch_coder, "
+        "walk\n"
         "from rspt_tpu_torch.ops import _build, cuda_kernels, torch_ops\n"
         "from rspt_tpu_torch.formats import crc32c, hzr_constants\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -38,7 +40,19 @@ def test_default_device_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpack.new_xdelta_hzr(4, 2, 100, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpack.new_xdelta_hzr(4, 2, 100, 3, device_decode=True)
     assert gpack.new_xdelta_hzr(4, 2, 100, 3, device="cpu").nr_planes == 3
+
+
+def test_decoder_raises_without_card(monkeypatch):
+    """gpu_decoder.decode_many with no device and no card raises; with
+    device="cpu" it decodes on the plain versions."""
+    stream = torch_coder.encode(b"\x01\x02" * 50, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpu_decoder.decode_many([stream])
+    assert gpu_decoder.decode_many([stream], device="cpu") == [b"\x01\x02" * 50]
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -12,9 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rspt_tpu_torch import packers as gpack  # noqa: E402
+from rspt_tpu_torch.hzr import gpu_decoder as gd  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from rspt_tpu_torch.packers import gpu  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -44,7 +44,7 @@ def test_kernel_chain_matches_plain(rng, dev, planes):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     tokw, _, hist = want
-    _, lengths = gpu.block_layout(enc.numel(), planes)
+    _, lengths = tc.block_layout(enc.numel(), planes)
     plan = tc.flat_plan(hist.cpu().numpy(), lengths)
     bases = torch.from_numpy(plan.bases).to(dev)
     tokc = ck.compact_tokens(tokw, bases, plan.T)
@@ -64,3 +64,74 @@ def test_packer_card_equals_cpu(rng, dev):
     assert comp == gpack.new_xdelta_hzr(4, ch, ns, 1, device="cpu").compress(
         native)
     assert pc.decompress(comp)[0] == native
+
+
+def _decode_batch(rng, dev):
+    """hzr_decode's inputs for a mixed batch: ECG-like planes, a sparse
+    plane and 21-bit codes (all four nibble levels)."""
+    walk = np.cumsum(rng.normal(0, 3, 30000)).astype(np.int32)
+    sparse = np.zeros(40000, np.uint8)
+    sparse[rng.choice(40000, 300, replace=False)] = rng.integers(1, 255, 300)
+    fib = [1, 1]
+    while len(fib) < 22:
+        fib.append(fib[-1] + fib[-2])
+    deep = np.repeat(np.arange(1, 23, dtype=np.uint8), fib)
+    rng.shuffle(deep)
+    payloads = [(walk & 255).astype(np.uint8),
+                ((walk >> 8) & 255).astype(np.uint8), sparse, deep]
+    streams = [tc.encode(p.tobytes(), dev) for p in payloads]
+    _, out, huff = gd._walk_all(streams)
+    blocks, _ = gd._device_blocks(huff)
+    la = gd.lane_arrays(blocks)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in la.kernel_inputs()]
+    return la, args, out.size
+
+
+@pytest.mark.parametrize("trusted", [False, True])
+def test_hzr_decode_matches_plain(rng, dev, trusted):
+    """hzr_decode vs hzr_decode_plain: counts, converged entries, stats
+    and every emission below the tile's step count; with trusted
+    (converged) entries, one sweep."""
+    _, args, _ = _decode_batch(rng, dev)
+    if trusted:
+        args[8] = ck.hzr_decode_plain(*args)[2]
+        args[0][:, 4] = 1
+    got = ck.hzr_decode(*args)
+    want = ck.hzr_decode_plain(*args)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    assert torch.equal(gd.valid_emissions(got[0], got[3][:, 0]),
+                       gd.valid_emissions(want[0], want[3][:, 0]))
+    assert bool((got[3][:, 1] == 0).all()) == trusted
+
+
+def test_place_literals_matches_plain(rng, dev):
+    """place_literals vs place_literals_plain on the same emissions."""
+    la, args, total = _decode_batch(rng, dev)
+    emis, counts, _, stats = ck.hzr_decode_plain(*args)
+    live = torch.from_numpy(la.lane_live).to(dev)
+    base = gd.lane_out_base(counts, live,
+                            torch.from_numpy(la.out_off).to(dev),
+                            torch.from_numpy(la.block_first).to(dev))
+    limit = torch.from_numpy(la.out_limit).to(dev)
+    steps = stats[:, 0].contiguous()
+    got = ck.place_literals(emis, steps, base, limit, live, total)
+    want = ck.place_literals_plain(
+        emis, steps, base, limit, live,
+        torch.zeros(total, dtype=torch.uint8, device=dev))
+    assert torch.equal(got, want)
+
+
+def test_packer_device_decode(rng, dev):
+    """decompress(device_decode=True) on the card: exact, through both
+    kernels; decompress_many equals it."""
+    ch, ns = 3, 40000
+    native = _sig(rng, ch, ns, 700.0).astype("<i4").tobytes()
+    pc = gpack.new_xdelta_hzr(4, ch, ns, 3, device=dev, device_decode=True)
+    comp = pc.compress(native)
+    before = (ck.hzr_decode.launches, ck.place_literals.launches)
+    assert pc.decompress(comp)[0] == native
+    assert (ck.hzr_decode.launches, ck.place_literals.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert pc.decompress_many([comp, comp]) == [native, native]

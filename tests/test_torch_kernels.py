@@ -19,7 +19,6 @@ from rspt_tpu.ops import jax_ops as jops  # noqa: E402
 from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from rspt_tpu_torch.packers import gpu  # noqa: E402
 
 B = 65536
 
@@ -96,7 +95,7 @@ def test_tokenize_all_zero_and_all_literal_slabs(rng):
 
 def _plan(x, planes):
     tokw, bwords, hist = ck.tokenize_planes(_t(x), planes)
-    _, lengths = gpu.block_layout(x.size, planes)
+    _, lengths = tc.block_layout(x.size, planes)
     hist_np = hist.numpy()
     return tokw, hist_np, tc.flat_plan(hist_np, lengths)
 

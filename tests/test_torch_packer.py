@@ -100,3 +100,37 @@ def test_zero_run_longer_than_cap(rng, tpack):
     sig[0, 30000:] += np.cumsum(rng.integers(-9, 9, n - 30000)).astype(
         np.int32)
     _check_all(tpack, _native(sig, 4), 4, ch, n, 3)
+
+
+def test_device_decode_matches_jax_device_decode(rng, tpack, monkeypatch):
+    """decompress(device_decode=True) on the plain versions equals the JAX
+    packer's device decode (pallas_decoder in interpret mode) and the
+    input; decompress_many equals sequential decompress, with a payload
+    that made the packer grow its plane count."""
+    monkeypatch.setenv("RSPT_DECODER", "interp")
+    ch, n = 4, 5000
+    sig = np.cumsum(rng.normal(0, 300, (ch, n)), axis=1).astype(np.int32)
+    native = _native(sig, 4)
+    pg = gpack.new_xdelta_hzr(4, ch, n, 3, device="cpu", device_decode=True)
+    comp = pg.compress(native)
+    out, used = pg.decompress(comp)
+    assert out == native and used == len(comp)
+    assert set(pg.stage_seconds) == {"walk_luts", "kernel", "place",
+                                     "postprocess"}
+    pt = tpack.new_xdelta_hzr(4, ch, n, 3, device_decode=True)
+    assert pt.decompress(comp)[0] == out
+
+    # a packer that starts at 1 plane grows on the first payload
+    grow = gpack.new_xdelta_hzr(4, ch, n, 1, device="cpu", device_decode=True)
+    quiet = (sig // 97).astype(np.int32)
+    comps = [grow.compress(_native(s, 4)) for s in (sig, quiet, sig[::-1])]
+    assert grow.nr_planes == 2
+    seq = [grow.decompress(c)[0] for c in comps]
+    assert seq == [_native(s, 4) for s in (sig, quiet, sig[::-1])]
+    assert grow.decompress_many(comps) == seq
+    outs, hints = grow.decompress_many(comps, return_hints=True)
+    assert outs == seq and hints is not None
+    assert grow.decompress_many(comps, hints=hints) == seq
+    host = gpack.new_xdelta_hzr(4, ch, n, 2, device="cpu")
+    assert host.decompress_many(comps) == seq
+    assert host.decompress_many(comps, return_hints=True) == (seq, None)
