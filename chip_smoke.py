@@ -9,14 +9,20 @@ compress and decompress at the full width of BASELINE config 2, a
 12-channel, 32-bit, 34,199-sample ECG-like signal made from seed 1234 —
 and checks that the container from the card equals the one from the
 CPU (plain versions), that decompress round-trips it exactly, and that
-every kernel of the path launched.
+every kernel of the path launched. The other paths are driven the same
+way, each with the launch counts set to 0 just before it: the Hadamard
+packer at BASELINE config 3 (the same signal cut to 2^14 samples), the
+hzr packer at the main shape and on config 1's 8,192-sample sine, and
+compress_with_hints at the main shape.
 
-Phases: 1 build; 2 encode kernels vs plain; 3 compress / host-decode
-decompress; 5 decode kernels (hzr_decode, place_literals) vs plain at
-the main-path shape and on edge inputs; 6 decompress(device_decode=True)
-and decompress_many with and without hints; 4, last, times each kernel
-(profiler device time) beside its bound, its plain version and a
-library yardstick, and the host stages. The last two lines are a JSON
+Phases: 1 build; 2 encode kernels vs plain (pack_flat_lanes too); 3
+compress / host-decode decompress; 5 decode kernels (hzr_decode,
+place_literals) vs plain at the main-path shape and on edge inputs; 6
+decompress(device_decode=True) and decompress_many with and without
+hints; 7 fwht vs plain; 8 the Hadamard path; 9 the hzr path; 10 the
+hints path; 4, last, times each kernel (profiler device time) beside
+its bound, its plain version and a library yardstick, and the host
+stages and wall times of every path. The last two lines are a JSON
 object of the kernels and the result line. Exits nonzero, with no
 result line, when there is no CUDA card or any check fails. Imports
 nothing of JAX or of the JAX package.
@@ -132,6 +138,7 @@ def wall_s(fn, reps=3):
 
 def kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle=True,
                   tokenize_raw=False):
+    from rspt_tpu_torch.hzr import sidecar
     """Every kernel's inputs along the pass-1 → plan → pass-2 chain, made
     with the plain versions (so a kernel fault cannot feed the next).
     tokenize_raw: tokenize `raw` itself (crafted edge inputs) instead of
@@ -149,9 +156,12 @@ def kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle=True,
 
     bases = d(plan.bases)
     tokc = ck.compact_tokens_plain(tokw, bases, plan.T)
+    hp = sidecar.plan_hints(lengths, plan.comp_len, plan.desc_bits,
+                            plan.comp_len > 0)
+    lanes = None if hp is None else (d(hp.meta), d(hp.init))
     return dict(enc=enc, tokw=tokw, hist=hist, plan=plan, bases=bases,
                 tokc=tokc, ntok=d(plan.ntok), bit0=d(plan.bit0),
-                lut=d(plan.lut))
+                lut=d(plan.lut), lanes=lanes)
 
 
 def check_chain(ck, tc, name, raw, ns, ch, planes, swizzle=True,
@@ -168,7 +178,13 @@ def check_chain(ck, tc, name, raw, ns, ch, planes, swizzle=True,
     equal(f"{name}/compact_tokens",
           ck.compact_tokens(x["tokw"], x["bases"], p.T), x["tokc"])
     args = (x["tokc"], x["bases"], x["ntok"], x["bit0"], x["lut"], p.nwords)
-    equal(f"{name}/pack_flat", ck.pack_flat(*args), ck.pack_flat_plain(*args))
+    words = ck.pack_flat(*args)
+    equal(f"{name}/pack_flat", words, ck.pack_flat_plain(*args))
+    if x["lanes"] is not None:
+        got = ck.pack_flat_lanes(*args, *x["lanes"])
+        equal(f"{name}/pack_flat_lanes", got,
+              ck.pack_flat_lanes_plain(*args, *x["lanes"]))
+        equal(f"{name}/pack_flat_lanes words", got[0], words)
     torch.cuda.synchronize()
     return x
 
@@ -314,7 +330,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log("phase 2: all kernels bit-exact against their plain versions "
         "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
-        "FILL/COPY planes, nonzero_valid, bps 2 and 3)")
+        "FILL/COPY planes, nonzero_valid, bps 2 and 3); pack_flat_lanes "
+        "too, its words equal to pack_flat's")
 
     # phase 3: the main path through the packer's entry points
     for k in ck.KERNELS:
@@ -363,7 +380,7 @@ def main() -> int:
         f"and 3 containers equal to CPU, exact round trips")
 
     # phase 5: the decode kernels vs their plain versions on the card
-    main_streams, _ = p._streams(comp)
+    _, main_streams, _ = p._streams(comp, p.nr_planes, 0)
     dla, dargs, dtotal, dblocks = decode_inputs(gd, main_streams, dev)
     dec = check_decode(ck, gd, "decode main", dla, dargs, dtotal, dev)
     ntiles = dargs[0].shape[0]
@@ -468,6 +485,136 @@ def main() -> int:
         f"{pd.decode_info['fp_iters']}")
     gd._hint_registry.clear()
 
+    # phase 7: fwht vs its plain version, the global passes included
+    rng7 = np.random.default_rng(17)
+    fw_cases = {}
+    for rows, n in ((12, 2 ** 14), (3, 2 ** 17), (1, 2 ** 20), (5, 2),
+                    (7, 8)):
+        fw_cases[f"{rows}x{n}"] = rng7.integers(
+            -2 ** 31, 2 ** 31 - 1, (rows, n), dtype=np.int64).astype(np.int32)
+    ext = np.full((4, 1024), -2 ** 31, np.int32)
+    ext[1] = 2 ** 31 - 1
+    ext[2, 1::2] = 2 ** 31 - 1
+    ext[3, ::3] = -1
+    fw_cases["int32_extremes"] = ext
+    for name, a in fw_cases.items():
+        t = torch.from_numpy(a).to(dev)
+        equal(f"fwht {name}", ck.fwht(t), ck.fwht_plain(t))
+    torch.cuda.synchronize()
+    log(f"phase 7: fwht bit-exact against fwht_plain at {list(fw_cases)}")
+
+    # phase 8: the Hadamard path at BASELINE config 3
+    n3 = 2 ** 14
+    nat3 = native[:n3 * ch * 4]
+    for k in ck.KERNELS:
+        k.launches = 0
+    ph = packers.new_hadamard(4, ch, n3)
+    c_had = ph.compress(nat3)
+    torch.cuda.synchronize()
+    fw_c = ck.fwht.launches
+    o_had = ph.decompress(c_had)[0]
+    fw_d = ck.fwht.launches - fw_c
+    phd = packers.new_hadamard(4, ch, n3, device_decode=True)
+    o_had_dev = phd.decompress(c_had)[0]
+    torch.cuda.synchronize()
+    had_launches = {k.__name__: k.launches for k in ck.KERNELS}
+    log(f"phase 8: Hadamard path launches {had_launches}")
+    if (fw_c, fw_d, had_launches["fwht"]) != (1, 1, 3):
+        raise AssertionError("fwht: not one launch per compress and per "
+                             f"decompress ({fw_c}, {fw_d})")
+    missing = [k for k in ("tokenize_planes", "compact_tokens", "pack_flat",
+                           "hzr_decode", "place_literals")
+               if not had_launches[k]]
+    if missing:
+        raise AssertionError(f"Hadamard path did not launch {missing}")
+    hc = packers.new_hadamard(4, ch, n3, device="cpu")
+    if c_had != hc.compress(nat3):
+        raise AssertionError("Hadamard: card and CPU containers differ")
+    if not o_had == o_had_dev == hc.decompress(c_had)[0]:
+        raise AssertionError("Hadamard: decompress differs from the CPU's")
+    s_in = np.frombuffer(nat3, "<i4").reshape(n3, ch).T.astype(np.float64)
+    s_out = np.frombuffer(o_had, "<i4").reshape(n3, ch).T.astype(np.float64)
+    mean3 = tops.average32_host(s_in.astype(np.int64).sum(1), n3)
+    prdn3 = 100 * np.sqrt(((s_in - s_out) ** 2).sum()
+                          / ((s_in - mean3[:, None]) ** 2).sum())
+    if not 0 < prdn3 < 5:
+        raise AssertionError(f"Hadamard: PRDN {prdn3}%")
+    log(f"phase 8: Hadamard {len(nat3)} B -> {len(c_had)} B (CR "
+        f"{len(nat3) / len(c_had):.4f}), PRDN {prdn3:.4f}%, container and "
+        f"reconstruction (host and device decode) equal to the CPU's; "
+        f"{phd.decode_info['device_blocks']} device blocks")
+
+    # phase 9: the hzr path at the main shape and on config 1's sine
+    for k in ck.KERNELS:
+        k.launches = 0
+    pz = packers.new_hzr(4, ch, ns)
+    c_hzr = pz.compress(native)
+    torch.cuda.synchronize()
+    o_hzr = pz.decompress(c_hzr)[0]
+    pzd = packers.new_hzr(4, ch, ns, device_decode=True)
+    o_hzr_dev = pzd.decompress(c_hzr)[0]
+    torch.cuda.synchronize()
+    hzr_launches = {k.__name__: k.launches for k in ck.KERNELS}
+    log(f"phase 9: hzr path launches {hzr_launches}")
+    missing = [k for k in ("tokenize_planes", "compact_tokens", "pack_flat",
+                           "hzr_decode", "place_literals")
+               if not hzr_launches[k]]
+    if missing:
+        raise AssertionError(f"hzr path did not launch {missing}")
+    if c_hzr != packers.new_hzr(4, ch, ns, device="cpu").compress(native):
+        raise AssertionError("hzr: card and CPU containers differ")
+    if o_hzr != native or o_hzr_dev != native:
+        raise AssertionError("hzr: round trip not exact")
+    sine = (np.sin(np.arange(8192) / 100.0) * 1000.0).astype(
+        np.int32).astype("<i4").tobytes()
+    p1 = packers.new_hzr(4, 1, 8192)
+    c1 = p1.compress(sine)
+    if (p1.decompress(c1)[0] != sine
+            or packers.new_hzr(4, 1, 8192, device_decode=True)
+            .decompress(c1)[0] != sine):
+        raise AssertionError("hzr: config 1 sine round trip not exact")
+    log(f"phase 9: hzr {len(native)} B -> {len(c_hzr)} B (CR "
+        f"{len(native) / len(c_hzr):.4f}), container equal to the CPU's, "
+        f"exact on both decode paths, {pzd.decode_info['device_blocks']} "
+        f"device blocks; config 1 sine {len(sine)} B -> {len(c1)} B, exact")
+
+    # phase 10: encode-time decode hints at the main shape
+    gd._hint_registry.clear()
+    gd._validated_digests.clear()
+    for k in ck.KERNELS:
+        k.launches = 0
+    pw = packers.new_xdelta_hzr(4, ch, ns, 3, device_decode=True)
+    c_h, hints_h = pw.compress_with_hints(native)
+    torch.cuda.synchronize()
+    hint_launches = {k.__name__: k.launches for k in ck.KERNELS}
+    log(f"phase 10: compress_with_hints launches {hint_launches}")
+    if hint_launches["pack_flat_lanes"] != 1 or hint_launches["pack_flat"]:
+        raise AssertionError("compress_with_hints did not pack with lanes")
+    if c_h != comp or hints_h is None:
+        raise AssertionError("compress_with_hints: container differs")
+    gd._hint_registry.clear()
+    if pw.decompress_many([c_h], hints=hints_h) != [native]:
+        raise AssertionError("hinted decode not exact")
+    hinfo = dict(pw.decode_info)
+    if not hinfo["hinted"] or max(hinfo["fp_iters"]) != 0 \
+            or "check" not in pw.stage_seconds:
+        raise AssertionError(f"encode hints not trusted: {hinfo}")
+    outs_c, conv = pw.decompress_many([c_h], hints=False, return_hints=True)
+    if outs_c != [native] or max(pw.decode_info["fp_iters"]) == 0:
+        raise AssertionError("unhinted decode ran no fixpoint")
+    active = hints_h.entries < dla.segend
+    diff = hints_h.entries != conv.entries
+    if conv.digest != hints_h.digest or (diff & active).any():
+        raise AssertionError("encode entries differ from the converged "
+                             "ones on active lanes")
+    log(f"phase 10: container equal to compress()'s; hinted decode exact, "
+        f"trusted, fixpoint sweeps {hinfo['fp_iters']}; entries equal the "
+        f"converged ones on all {int(active.sum())} active lanes "
+        f"({int(diff.sum())} inactive lanes differ: "
+        f"{[(int(a), int(b), int(c)) for a, b, c in zip(hints_h.entries[diff], conv.entries[diff], dla.segend[diff])][:8]}"
+        f" as (hint, converged, segment end))")
+    gd._hint_registry.clear()
+
     # phase 4: timings at main-path shapes
     x = main_x
     e = x["enc"]
@@ -539,7 +686,9 @@ def main() -> int:
     n_placed = int(lit.sum())
     lib_out = torch.zeros(dtotal, dtype=torch.uint8, device=dev)
     launches = {**launches, "hzr_decode": dd_launches["hzr_decode"],
-                "place_literals": dd_launches["place_literals"]}
+                "place_literals": dd_launches["place_literals"],
+                "pack_flat_lanes": hint_launches["pack_flat_lanes"],
+                "fwht": had_launches["fwht"]}
     rows["hzr_decode"] = dict(
         replaces="rspt_tpu/hzr/pallas_decoder.py:644",
         source="rspt_tpu_torch/ops/csrc/hzr_decode.cu",
@@ -562,6 +711,34 @@ def main() -> int:
         # zero-run bytes are not this kernel's work)
         bytes=emis_b + 9 * nl + 4 * ntiles + n_placed,
         ops=8 * emis_b // 4)
+    # fwht at config 3: the centred signal the Hadamard compress gives it
+    w3 = torch.from_numpy(np.frombuffer(nat3, "<i4").copy()).to(dev)
+    sig3 = tops.native_to_i32(w3, n3, ch, 4).contiguous()
+    m3 = tops.average32_host(tops.row_sums64(sig3).cpu().numpy(), n3)
+    cen3 = tops._wrap32(sig3.long() - torch.from_numpy(
+        m3.astype(np.int64)).to(dev)[:, None])
+    rows["fwht"] = dict(
+        replaces="rspt_tpu/ops/pallas_kernels.py:56",
+        source="rspt_tpu_torch/ops/csrc/fwht.cu",
+        kernel="fwht_smem_kernel",
+        fn=lambda: ck.fwht(cen3),
+        plain=lambda: ck.fwht_plain(cen3),
+        library=None,
+        bytes=2 * 4 * ch * n3, ops=ch * n3 * 14)
+    nl_h = main_x["lanes"][1].numel()
+    rows["pack_flat_lanes"] = dict(
+        replaces="rspt_tpu/ops/pallas_kernels.py:871,1569",
+        source="rspt_tpu_torch/ops/csrc/pack_flat.cu",
+        fn=lambda: ck.pack_flat_lanes(*pk_args, *main_x["lanes"]),
+        plain=lambda: ck.pack_flat_lanes_plain(*pk_args, *main_x["lanes"]),
+        library=None,
+        # pack_flat's bytes, the lane meta and init plane read and the
+        # entry lanes written once
+        bytes=rows["pack_flat"]["bytes"] + 12 * nb + 8 * nl_h,
+        ops=ntok_total * 34)
+    log(f"phase 4: pack_flat_lanes' own bytes beyond pack_flat: "
+        f"{12 * nb + 8 * nl_h} B ({nl_h} lanes), bound "
+        f"{(12 * nb + 8 * nl_h) / HBM_BYTES_PER_S * 1e3:.6f} ms")
     huff_out_b = sum(int(b[4]) for b in dblocks)
     pair_bound = (payload_b + huff_out_b) / HBM_BYTES_PER_S * 1e3
     log(f"phase 4: decode batch: {len(dblocks)} HUFF blocks, {payload_b} B "
@@ -573,7 +750,8 @@ def main() -> int:
         # device times from the profiler; CUDA events around one call
         # (host launch cost included) where it sees no device activity
         call_ms = cuda_ms(r["fn"])
-        ms = device_ms(r["fn"], kernel=name + "_kernel") or call_ms
+        ms = device_ms(r["fn"], kernel=r.get("kernel", name + "_kernel")) \
+            or call_ms
         preps = r.get("plain_reps", 10)
         plain_ms = (device_ms(r["plain"], reps=preps)
                     or cuda_ms(r["plain"], preps))
@@ -610,6 +788,38 @@ def main() -> int:
         f"hinted {hd_s:.4f} s, stages {hd_stages}; first hinted decode "
         f"(cross-checked against the unhinted one) {hd_first_s:.4f} s, "
         f"stages {hd_first_stages}")
+    fw20 = torch.from_numpy(fw_cases["1x1048576"]).to(dev)
+    log(f"phase 4: fwht at 1 x 2^20 (a global pass, then shared memory): "
+        f"{device_ms(lambda: ck.fwht(fw20), reps=10):.4f} ms of device time "
+        f"a call (the input's clone included), "
+        f"{cuda_ms(lambda: ck.fwht(fw20), reps=10):.4f} ms a call")
+    # the new paths' wall times, medians of 3
+    had_c = wall_s(lambda: ph.compress(nat3))
+    had_c_st = dict(ph.stage_seconds)
+    had_d = wall_s(lambda: ph.decompress(c_had))
+    had_d_st = dict(ph.stage_seconds)
+    had_dd = wall_s(lambda: phd.decompress(c_had))
+    had_dd_st = dict(phd.stage_seconds)
+    log(f"phase 4: Hadamard compress {had_c:.4f} s {had_c_st}; decompress "
+        f"{had_d:.4f} s {had_d_st}; device-decode decompress {had_dd:.4f} s "
+        f"{had_dd_st}")
+    hzr_c = wall_s(lambda: pz.compress(native))
+    hzr_c_st = dict(pz.stage_seconds)
+    hzr_d = wall_s(lambda: pz.decompress(c_hzr))
+    hzr_d_st = dict(pz.stage_seconds)
+    hzr_dd = wall_s(lambda: pzd.decompress(c_hzr))
+    hzr_dd_st = dict(pzd.stage_seconds)
+    log(f"phase 4: hzr compress {hzr_c:.4f} s {hzr_c_st}; decompress "
+        f"{hzr_d:.4f} s {hzr_d_st}; device-decode decompress {hzr_dd:.4f} s "
+        f"{hzr_dd_st}")
+    cw, cwh = [], []
+    for _ in range(5):      # in turns: compress, compress_with_hints
+        cw.append(wall_s(lambda: pw.compress(native), reps=1))
+        cwh.append(wall_s(lambda: pw.compress_with_hints(native), reps=1))
+    gd._hint_registry.clear()
+    log(f"phase 4: compress {statistics.median(cw):.4f} s against "
+        f"compress_with_hints {statistics.median(cwh):.4f} s (medians of 5 "
+        f"in turns), stages of the last with hints {pw.stage_seconds}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ each block's bits are placed straight into the final payload layout
 (pack_flat). The JAX version's compaction splits and its flat-buffer
 and token-row caps are TPU VMEM limits; the port has none of them, and
 its flat path covers batches with COPY blocks too (their payload is
-the raw plane bytes the tokenizer already wrote).
+the raw plane bytes the tokenizer already wrote). With hints,
+``pack_flat_lanes`` also writes the device decoder's segment entries
+(hzr/sidecar.py, the want_hints branch of tpu.py:_entropy_streams).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..formats.hzr_constants import (
     SYMBOL_SIZE,
 )
 from ..ops import cuda_kernels as ck
-from . import pyref
+from . import pyref, sidecar
 
 B = MAX_BLOCK_SIZE  # 65536
 MAX_DESC_BITS = (2 * NUM_SYMBOLS - 1) + SYMBOL_SIZE * NUM_SYMBOLS
@@ -131,9 +133,10 @@ def fill_bytes_from_hist(hist_np: np.ndarray) -> np.ndarray:
 
 
 def assemble_compact(lengths_np, tight_np, comp_len_np, copy_np,
-                     copy_len_np, is_fill, fill_byte) -> bytes:
+                     copy_len_np, is_fill, fill_byte, crc_out=None) -> bytes:
     """One hzr stream from the packed payloads: 4-byte size, then per
-    block the 7-byte header (size-1, CRC32C, mode) and its payload."""
+    block the 7-byte header (size-1, CRC32C, mode) and its payload.
+    crc_out, if given, receives each non-empty block's stored CRC32C."""
     nb = lengths_np.shape[0]
     in_size = int(lengths_np.sum())
     parts: List[bytes] = [int(in_size).to_bytes(4, "little")]
@@ -160,6 +163,8 @@ def assemble_compact(lengths_np, tight_np, comp_len_np, copy_np,
             enc = ((blen - 1).to_bytes(2, "little")
                    + int(crc).to_bytes(4, "little")
                    + bytes([ENCODING_COPY]) + block.tobytes())
+        if crc_out is not None:
+            crc_out[i] = crc
         parts.append(enc)
     return b"".join(parts)
 
@@ -175,6 +180,7 @@ class FlatPlan:
     """Everything the host derives from a block batch's histograms: the
     tables, the exact stream layout, and pack_tokens_flat's inputs."""
     desc_bytes: np.ndarray   # (nb, DESC_STRIDE) packed tree descriptions
+    desc_bits: np.ndarray    # (nb,) int32 description bits
     is_fill: np.ndarray      # (nb,) FILL blocks (incl. empty)
     is_copy: np.ndarray      # (nb,) COPY-fallback blocks
     comp_len: np.ndarray     # (nb,) HUFF payload bytes, 0 otherwise
@@ -202,8 +208,8 @@ def flat_plan(hist_np: np.ndarray, lengths_np: np.ndarray) -> FlatPlan:
     hoff = np.cumsum(comp_len) - comp_len
     bases, T, _, _, _ = flat_compact_layout(hist_np, is_huff)
     return FlatPlan(
-        desc_bytes=desc_bytes, is_fill=is_fill, is_copy=is_copy,
-        comp_len=comp_len, hoff=hoff, bases=bases, T=T,
+        desc_bytes=desc_bytes, desc_bits=desc_bits, is_fill=is_fill,
+        is_copy=is_copy, comp_len=comp_len, hoff=hoff, bases=bases, T=T,
         ntok=np.where(is_huff, hist_np.sum(1), 0).astype(np.int32),
         bit0=(hoff * 8 + desc_bits).astype(np.int64),
         lut=lut_words(codes, cbits))
@@ -215,14 +221,19 @@ def flat_plan(hist_np: np.ndarray, lengths_np: np.ndarray) -> FlatPlan:
 
 def pack_tokens_flat(tokw: torch.Tensor, bases: torch.Tensor, T: int,
                      ntok: torch.Tensor, bit0: torch.Tensor,
-                     lut: torch.Tensor, nwords: int) -> torch.Tensor:
+                     lut: torch.Tensor, nwords: int, lanes=None):
     """(nb, 65536) token words → (nwords,) int32 flat payload words.
 
     bases/T: flat_compact_layout; ntok: block token counts (0 for
     non-HUFF blocks); bit0: 8 * payload offset + description bits; lut:
     lut_words. The tree descriptions are not in the output: the host
-    ORs them over each payload's first bytes."""
+    ORs them over each payload's first bytes. lanes = (meta, init) of a
+    sidecar.HintPlan on the device: returns (words, decode entry lanes)
+    through pack_flat_lanes instead."""
     tokc = ck.compact_tokens(tokw, bases, T)
+    if lanes is not None:
+        return ck.pack_flat_lanes(tokc, bases, ntok, bit0, lut, nwords,
+                                  *lanes)
     return ck.pack_flat(tokc, bases, ntok, bit0, lut, nwords)
 
 
@@ -240,22 +251,31 @@ def block_layout(plane_len: int, nr_planes: int):
 
 
 def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
-                    times: dict) -> List[bytes]:
+                    times: dict, want_hints: bool = False):
     """One hzr stream per plane from tokenize_planes' outputs: host
     tables, the flat pack on tokw's device, one device→host copy of the
     payload words (and of COPY blocks' raw plane bytes), headers. Adds
-    the wall time of its stages to ``times``."""
+    the wall time of its stages to ``times``.
+
+    Returns (streams, hints): with want_hints, the pack also writes the
+    decoder's segment entries (hzr/sidecar.py) and hints are the
+    DecodeHints of a decode of these streams in order (None when no
+    block is HUFF); else None."""
     nb_per, lengths = block_layout(plane_len, nr_planes)
     t0 = time.perf_counter()
     plan = flat_plan(hist_np, lengths)
+    hplan = (sidecar.plan_hints(lengths, plan.comp_len, plan.desc_bits,
+                                plan.comp_len > 0) if want_hints else None)
     t1 = time.perf_counter()
     times["tables"] = t1 - t0
 
     def d(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(tokw.device)
 
-    words = pack_tokens_flat(tokw, d(plan.bases), plan.T, d(plan.ntok),
-                             d(plan.bit0), d(plan.lut), plan.nwords)
+    lanes = None if hplan is None else (d(hplan.meta), d(hplan.init))
+    res = pack_tokens_flat(tokw, d(plan.bases), plan.T, d(plan.ntok),
+                           d(plan.bit0), d(plan.lut), plan.nwords, lanes)
+    words, entries = res if lanes is not None else (res, None)
     copy_rows = np.flatnonzero(plan.is_copy)
     copy_len = np.where(plan.is_copy, lengths, 0).astype(np.int64)
     copy_np = np.zeros(0, np.uint8)
@@ -264,6 +284,8 @@ def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
         copy_np = np.concatenate([raw[j, :lengths[b]]
                                   for j, b in enumerate(copy_rows)])
     tight = words.cpu().numpy().view(np.uint8)[:plan.total_payload].copy()
+    if entries is not None:
+        entries = entries.cpu().numpy()
     t2 = time.perf_counter()
     times["pack"] = t2 - t1
 
@@ -273,15 +295,19 @@ def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
         tight[hoff[i]:hoff[i] + dlen] |= plan.desc_bytes[i, :dlen]
     fill_byte = fill_bytes_from_hist(hist_np)
     coff = np.cumsum(copy_len) - copy_len
+    crcs = np.zeros(len(lengths), np.int64)
     streams = []
     for k in range(nr_planes):
         s = slice(k * nb_per, (k + 1) * nb_per)
         streams.append(assemble_compact(
             lengths[s], tight[hoff[s.start]:], comp_len[s],
             copy_np[coff[s.start]:], copy_len[s], plan.is_fill[s],
-            fill_byte[s]))
+            fill_byte[s], crcs[s]))
+    hints = None
+    if hplan is not None:
+        hints = sidecar.finish_hints(hplan, entries, crcs, comp_len)
     times["assemble"] = time.perf_counter() - t2
-    return streams
+    return streams, hints
 
 
 def encode(data, device) -> bytes:
@@ -294,4 +320,4 @@ def encode(data, device) -> bytes:
     x = torch.from_numpy(raw.astype(np.int32)).to(device)
     tokw, bwords, hist = ck.tokenize_planes(x, 1)
     return entropy_streams(tokw, bwords, hist.cpu().numpy(), raw.size, 1,
-                           {})[0]
+                           {})[0][0]

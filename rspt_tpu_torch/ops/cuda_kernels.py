@@ -16,6 +16,10 @@ Each replaces (rspt_tpu/ops/pallas_kernels.py):
   compact_tokens   K3 compact_tokens_pallas
   pack_flat        K4 token_group_windows_rows_pallas, the cumsum glue
                    and K5 super_place_flat_pallas
+  pack_flat_lanes  pack_flat plus the decoder's segment entry lanes: K10
+                   token_group_windows_grouped_off_pallas and K11
+                   sidecar_entries_pallas
+  fwht             K12 fwht_pallas
 and (rspt_tpu/hzr/pallas_decoder.py):
   hzr_decode       K6 _run_kernel / _decode_kernel, the lockstep decoder
   place_literals   the placement chain of _place_emissions: K7
@@ -55,6 +59,9 @@ def _lib() -> ctypes.CDLL:
         "rspt_tokenize_planes": [P, P, P, P, I, I, I, P],
         "rspt_compact_tokens": [P, P, P, I, I, I, I, P],
         "rspt_pack_flat": [P, P, P, P, P, P, I, I, I, P],
+        "rspt_pack_flat_lanes": [P] * 8 + [I] * 4 + [P],
+        "rspt_fwht": [P, I, I, P],
+        "rspt_fwht_launches": [I],
         "rspt_hzr_decode": [P] * 17 + [I] * 7 + [P],
         "rspt_place_literals": [P] * 6 + [I] * 3 + [P],
     }
@@ -291,9 +298,9 @@ compact_tokens.launches = 0
 # Kernel 4 — pack_flat (K4 + cumsum glue + K5)
 # ---------------------------------------------------------------------------
 
-def pack_flat_plain(tokc: torch.Tensor, tok_base: torch.Tensor,
-                    ntok: torch.Tensor, bit0: torch.Tensor, lut: torch.Tensor,
-                    nwords: int) -> torch.Tensor:
+def _token_bits(tokc, tok_base, ntok, lut):
+    """Every packed token's block, index in its block, value, bit count
+    and block-local exclusive bit offset (the kernel's bit - bit0)."""
     dev = tokc.device
     n = ntok.to(torch.int64).clamp(min=0)
     blk = torch.repeat_interleave(torch.arange(n.numel(), device=dev), n)
@@ -306,19 +313,43 @@ def pack_flat_plain(tokc: torch.Tensor, tok_base: torch.Tensor,
     cb = e >> 24
     nbits = torch.where(live, cb + ((w >> 9) & 15), 0)
     excl = torch.cumsum(nbits, 0) - nbits            # global exclusive
-    bit = bit0.to(torch.int64)[blk] + excl - excl[start[blk]]
+    x = excl - excl[start[blk]]
     val = torch.where(live, (e & 0xFFFFFF) | (((w >> 13) & 16383) << cb), 0)
+    return blk, local, val, nbits, x
+
+
+def _place_words(blk, val, x, bit0, nwords):
+    bit = bit0.to(torch.int64)[blk] + x
     s = bit & 31
     wi = bit >> 5
     vlo, vhi = val & _M32, val >> 32
     c0 = (vlo << s) & _M32
     c1 = (vlo >> (32 - s)) | ((vhi << s) & _M32)     # s = 0: vlo >> 32 = 0
     c2 = vhi >> (32 - s)
-    out = torch.zeros(nwords + 3, dtype=torch.int64, device=dev)
+    out = torch.zeros(nwords + 3, dtype=torch.int64, device=val.device)
     # the fields' bits are disjoint, so adding the contributions is OR
     for k, c in enumerate((c0, c1, c2)):
         out.index_add_(0, wi + k, c)
     return tops._wrap32(out[:nwords])
+
+
+def pack_flat_plain(tokc: torch.Tensor, tok_base: torch.Tensor,
+                    ntok: torch.Tensor, bit0: torch.Tensor, lut: torch.Tensor,
+                    nwords: int) -> torch.Tensor:
+    blk, _, val, _, x = _token_bits(tokc, tok_base, ntok, lut)
+    return _place_words(blk, val, x, bit0, nwords)
+
+
+def _check_pack_args(tokc, tok_base, ntok, bit0, lut, nwords):
+    _check(tokc, "tokc", torch.int32)
+    nb = ntok.numel()
+    _check(tok_base, "tok_base", torch.int32, (nb,))
+    _check(ntok, "ntok", torch.int32, (nb,))
+    _check(bit0, "bit0", torch.int64, (nb,))
+    _check(lut, "lut", torch.int32, (nb, NUM_SYMBOLS))
+    if not 0 <= nwords < 2**31 or tokc.numel() >= 2**31:
+        raise ValueError("nwords or tokc out of range")
+    return nb
 
 
 def pack_flat(tokc: torch.Tensor, tok_base: torch.Tensor, ntok: torch.Tensor,
@@ -330,14 +361,7 @@ def pack_flat(tokc: torch.Tensor, tok_base: torch.Tensor, ntok: torch.Tensor,
     (ntok[b] = 0 skips a block). The caller sizes nwords to hold every
     block's last bit; the kernel reads no token outside tokc and writes
     no word past nwords."""
-    _check(tokc, "tokc", torch.int32)
-    nb = ntok.numel()
-    _check(tok_base, "tok_base", torch.int32, (nb,))
-    _check(ntok, "ntok", torch.int32, (nb,))
-    _check(bit0, "bit0", torch.int64, (nb,))
-    _check(lut, "lut", torch.int32, (nb, NUM_SYMBOLS))
-    if not 0 <= nwords < 2**31 or tokc.numel() >= 2**31:
-        raise ValueError("nwords or tokc out of range")
+    nb = _check_pack_args(tokc, tok_base, ntok, bit0, lut, nwords)
     if not _on_cuda(tokc, tok_base, ntok, bit0, lut):
         return pack_flat_plain(tokc, tok_base, ntok, bit0, lut, nwords)
     out = torch.zeros(nwords, dtype=torch.int32, device=tokc.device)
@@ -352,6 +376,107 @@ def pack_flat(tokc: torch.Tensor, tok_base: torch.Tensor, ntok: torch.Tensor,
 
 
 pack_flat.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4b — pack_flat_lanes (pack_flat + K10/K11's decode entry lanes)
+# ---------------------------------------------------------------------------
+
+def pack_flat_lanes_plain(tokc, tok_base, ntok, bit0, lut, nwords, meta,
+                          init):
+    blk, local, val, nbits, x = _token_bits(tokc, tok_base, ntok, lut)
+    words = _place_words(blk, val, x, bit0, nwords)
+    m = meta.to(torch.int64)
+    W, lane_base, dbits = m[blk, 0], m[blk, 1], m[blk, 2]
+    end = x + nbits
+    seg = torch.div(end, W, rounding_mode="floor")
+    lane = lane_base + seg
+    hit = ((lane_base >= 0) & (seg * W > x)
+           & (local + 1 < ntok.to(torch.int64)[blk]) & (lane < init.numel()))
+    entries = init.clone()
+    entries[lane[hit]] = (dbits + end)[hit].to(torch.int32)
+    return words, entries
+
+
+def pack_flat_lanes(tokc: torch.Tensor, tok_base: torch.Tensor,
+                    ntok: torch.Tensor, bit0: torch.Tensor, lut: torch.Tensor,
+                    nwords: int, meta: torch.Tensor, init: torch.Tensor):
+    """pack_flat, and the decoder's segment entry lanes of every block.
+
+    meta (nb, 3) int32: W = segw * 32 (the decoder's segment width in
+    bits, >= 64), lane_base (-1: no lanes) and dbits (description bits)
+    per block; init (nlanes,) int32 the lanes' values where no store
+    lands. A token of block b at body-relative bit x with nbits bits
+    whose end crosses a segment boundary, floor(x / W) < s = floor((x +
+    nbits) / W), and that is not the block's last token, stores dbits +
+    x + nbits (the first token start at or after s * W) at lane
+    lane_base + s. Returns (words as pack_flat's, entries (nlanes,))."""
+    nb = _check_pack_args(tokc, tok_base, ntok, bit0, lut, nwords)
+    _check(meta, "meta", torch.int32, (nb, 3))
+    _check(init, "init", torch.int32)
+    if init.dim() != 1 or init.numel() >= 2**31:
+        raise ValueError("init: need (nlanes,)")
+    args = (tokc, tok_base, ntok, bit0, lut, meta, init)
+    if not _on_cuda(*args):
+        return pack_flat_lanes_plain(tokc, tok_base, ntok, bit0, lut, nwords,
+                                     meta, init)
+    out = torch.zeros(nwords, dtype=torch.int32, device=tokc.device)
+    entries = init.clone()
+    if nb == 0 or nwords == 0:
+        return out, entries
+    _launch("pack_flat_lanes", _lib().rspt_pack_flat_lanes, tokc.data_ptr(),
+            tok_base.data_ptr(), ntok.data_ptr(), bit0.data_ptr(),
+            lut.data_ptr(), out.data_ptr(), meta.data_ptr(),
+            entries.data_ptr(), nb, tokc.numel(), nwords, entries.numel(),
+            device=tokc.device)
+    pack_flat_lanes.launches += 1
+    return out, entries
+
+
+pack_flat_lanes.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4c — fwht (K12)
+# ---------------------------------------------------------------------------
+
+def fwht_plain(x: torch.Tensor) -> torch.Tensor:
+    rows, n = x.shape
+    v = x.to(torch.int64) & _M32
+    h = n >> 1
+    while h > 0:
+        g = v.reshape(rows, -1, 2, h)
+        u, w = g[:, :, 0], g[:, :, 1]
+        v = torch.stack(((u + w) & _M32, (u - w) & _M32), 2).reshape(rows, n)
+        h >>= 1
+    return tops._wrap32(v)
+
+
+def fwht(x: torch.Tensor) -> torch.Tensor:
+    """Walsh-Hadamard transform along the rows of x ((rows, n) int32,
+    n = 2^k, 2 <= n <= 2^30), int32 wraparound butterflies
+    (fwht.c:4-28); a new tensor. Rows longer than 2^15 add one global
+    pass per 5 index bits above that: 2 launches up to n = 2^20."""
+    _check(x, "x", torch.int32)
+    if x.dim() != 2:
+        raise ValueError("x: need (rows, n)")
+    rows, n = x.shape
+    if n < 2 or n & (n - 1) or n > 2**30 or rows >= 2**31:
+        raise ValueError("x: need rows < 2^31 of 2^k words, 2 <= n <= 2^30")
+    if not _on_cuda(x):
+        return fwht_plain(x)
+    out = x.clone()
+    if rows == 0:
+        return out
+    log_n = n.bit_length() - 1
+    lib = _lib()
+    _launch("fwht", lib.rspt_fwht, out.data_ptr(), rows, log_n,
+            device=x.device)
+    fwht.launches += lib.rspt_fwht_launches(log_n)
+    return out
+
+
+fwht.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -631,4 +756,4 @@ def place_literals(emis: torch.Tensor, steps: torch.Tensor,
 place_literals.launches = 0
 
 KERNELS = (xdelta_swizzle, tokenize_planes, compact_tokens, pack_flat,
-           hzr_decode, place_literals)
+           pack_flat_lanes, fwht, hzr_decode, place_literals)

@@ -1,5 +1,5 @@
 """Exact int32 signal ops on torch tensors (counterpart of
-rspt_tpu/ops/jax_ops.py:43-172).
+rspt_tpu/ops/jax_ops.py:43-230).
 
 All arithmetic is int32 two's-complement wraparound, as in the
 reference's C loops (utils.cpp:123-236, signal_packer_base.cpp:40-138).
@@ -11,6 +11,7 @@ The ops run on whatever device their input lies on.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -105,3 +106,52 @@ def plane_merge(planes: torch.Tensor) -> torch.Tensor:
     for k in range(p):
         v |= planes[k].to(torch.int64) << (8 * k)
     return _wrap32(_sign_extend(v, 8 * p))
+
+
+def row_sums64(a: torch.Tensor) -> torch.Tensor:
+    """(channels, n) int32 → (channels,) exact int64 row sums (the
+    reference's int64 accumulator, utils.cpp:30-40; jax_ops.sum64_parts
+    splits it into hi/lo int32 halves only because a TPU has no int64)."""
+    return a.to(torch.int64).sum(dim=-1)
+
+
+def average32_host(sums, n: int) -> np.ndarray:
+    """The reference's quirky per-channel mean from exact int64 sums:
+    the int64 sum divided by a size_t, an unsigned 64-bit division, then
+    truncated to int32 by the return type (utils.cpp:38)."""
+    out = []
+    for s in np.atleast_1d(np.asarray(sums, np.int64)):
+        q = ((int(s) % (1 << 64)) // n) & 0xFFFFFFFF
+        out.append(q - (1 << 32) if q >= (1 << 31) else q)
+    return np.asarray(out, dtype=np.int32)
+
+
+def _trunc_div_pow2(a: torch.Tensor, d: int) -> torch.Tensor:
+    """int32 a / d truncated toward zero, d = 2^j, computed in int64 so
+    that INT32_MIN is exact (the reference's int /= double)."""
+    if d <= 0 or d & (d - 1):
+        raise ValueError("divisor must be a power of two")
+    return torch.div(a.to(torch.int64), d,
+                     rounding_mode="trunc").to(torch.int32)
+
+
+def fwht_normalize_pow2(a: torch.Tensor, n: int,
+                        ratio: float = 1.0) -> torch.Tensor:
+    """Encode quantization x = trunc(x / (n / ratio)) (fwht.c:30-34) for
+    n / ratio a power of two. jax_ops.fwht_normalize_pow2 negates,
+    shifts and negates in int32, which gives +2^31 / d for INT32_MIN;
+    this follows the reference (and nops.fwht_normalize): -2^31 / d."""
+    d = n / ratio
+    if int(d) != d:
+        raise ValueError("n / ratio must be a power of two")
+    return _trunc_div_pow2(a, int(d))
+
+
+def fwht_normalize2_int(a: torch.Tensor, ratio: float = 1.0) -> torch.Tensor:
+    """Decode dequantization x = trunc(x / ratio) (fwht.c:36-40) for a
+    power-of-two ratio; the identity at the packer's ratio 1."""
+    if ratio == 1.0:
+        return a.to(torch.int32)
+    if int(ratio) != ratio:
+        raise ValueError("ratio must be a power of two")
+    return _trunc_div_pow2(a, int(ratio))

@@ -1,19 +1,38 @@
-"""Packer factories of the port (counterpart of rspt_tpu.packers.tpu's).
-
-Only the lossless xdelta_hzr packer is ported so far (ROADMAP.md).
+"""Packer factories of the port (counterpart of rspt_tpu.packers.tpu's,
+tpu.py:1121-1134). Each packer runs on ``device`` (default: the CUDA
+card; raises if there is none; ``device="cpu"`` runs the kernels' plain
+PyTorch versions); device_decode entropy-decodes on the device instead
+of the host. The DCT packer is not ported yet (ROADMAP.md).
 """
 
-from .gpu import GpuXdeltaHzrPacker, PackerConfig
+from .gpu import (GpuHadamardPacker, GpuHzrPacker, GpuXdeltaHzrPacker,
+                  PackerConfig)
 
-__all__ = ["GpuXdeltaHzrPacker", "PackerConfig", "new_xdelta_hzr"]
+__all__ = ["GpuHadamardPacker", "GpuHzrPacker", "GpuXdeltaHzrPacker",
+           "PackerConfig", "new_hadamard", "new_hzr", "new_xdelta_hzr"]
+
+
+def new_hzr(bytes_per_sample: int, nr_channels: int, nr_samples: int,
+            device=None, device_decode: bool = False) -> GpuHzrPacker:
+    """Lossless 4-plane hzr packer, no preprocessing (method byte 0)."""
+    return GpuHzrPacker(bytes_per_sample, nr_channels, nr_samples,
+                        device=device, device_decode=device_decode)
 
 
 def new_xdelta_hzr(bytes_per_sample: int, nr_channels: int, nr_samples: int,
                    nr_bytes_to_encode: int, device=None,
                    device_decode: bool = False) -> GpuXdeltaHzrPacker:
-    """Lossless xdelta_hzr packer on ``device`` (default: the CUDA card;
-    raises if there is none). device_decode: entropy-decode on the
-    device instead of the host."""
+    """Lossless xdelta_hzr packer (method byte 0), starting at
+    nr_bytes_to_encode planes and growing as the payloads need."""
     return GpuXdeltaHzrPacker(bytes_per_sample, nr_channels, nr_samples,
                               nr_bytes_to_encode, device=device,
                               device_decode=device_decode)
+
+
+def new_hadamard(bytes_per_sample: int, nr_channels: int, nr_samples: int,
+                 device=None, device_decode: bool = False
+                 ) -> GpuHadamardPacker:
+    """Lossy Walsh-Hadamard packer (method byte 2, 3 planes, quality 1);
+    raises ValueError unless nr_samples is a power of two."""
+    return GpuHadamardPacker(bytes_per_sample, nr_channels, nr_samples,
+                             device=device, device_decode=device_decode)

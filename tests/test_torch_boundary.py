@@ -3,6 +3,7 @@ points do without a card, and that chip_smoke.py refuses to report
 without one."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -23,8 +24,8 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "import sys\n"
         "import rspt_tpu_torch\n"
         "from rspt_tpu_torch.packers import gpu\n"
-        "from rspt_tpu_torch.hzr import gpu_decoder, pyref, torch_coder, "
-        "walk\n"
+        "from rspt_tpu_torch.hzr import gpu_decoder, pyref, sidecar, "
+        "torch_coder, walk\n"
         "from rspt_tpu_torch.ops import _build, cuda_kernels, torch_ops\n"
         "from rspt_tpu_torch.formats import crc32c, hzr_constants\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -32,6 +33,21 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_sources_import_neither_jax_nor_rspt_tpu():
+    """No module of the port and not chip_smoke.py names jax or rspt_tpu
+    in an import statement (a lazy import inside a function included)."""
+    bad_import = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|rspt_tpu)(?![\w])", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "rspt_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            hits = bad_import.findall(f.read())
+        assert not hits, (path, hits)
 
 
 def test_default_device_raises_without_card(monkeypatch):
@@ -42,6 +58,10 @@ def test_default_device_raises_without_card(monkeypatch):
         gpack.new_xdelta_hzr(4, 2, 100, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpack.new_xdelta_hzr(4, 2, 100, 3, device_decode=True)
+    for make in (gpack.new_hzr, gpack.new_hadamard):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(4, 2, 128)
+        assert make(4, 2, 128, device="cpu").device.type == "cpu"
     assert gpack.new_xdelta_hzr(4, 2, 100, 3, device="cpu").nr_planes == 3
 
 

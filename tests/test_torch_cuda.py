@@ -135,3 +135,73 @@ def test_packer_device_decode(rng, dev):
     assert (ck.hzr_decode.launches, ck.place_literals.launches) == (
         before[0] + 1, before[1] + 1)
     assert pc.decompress_many([comp, comp]) == [native, native]
+
+
+@pytest.mark.parametrize("rows,n", [(12, 2 ** 14), (3, 2 ** 17),
+                                    (1, 2 ** 20), (5, 2), (7, 8)])
+def test_fwht_matches_plain(rng, dev, rows, n):
+    """fwht vs fwht_plain, the global passes (n > 2^15) included, with
+    INT32_MIN/MAX spliced in."""
+    x = rng.integers(-2 ** 31, 2 ** 31 - 1, (rows, n), dtype=np.int64)
+    x[0, :2] = [-2 ** 31, 2 ** 31 - 1]
+    t = torch.from_numpy(x.astype(np.int32)).to(dev)
+    assert torch.equal(ck.fwht(t), ck.fwht_plain(t))
+
+
+def test_pack_flat_lanes_matches_plain(rng, dev):
+    """pack_flat_lanes vs its plain version; its words equal pack_flat's."""
+    from rspt_tpu_torch.hzr import sidecar
+    ch, ns = 4, 30011
+    words = torch.from_numpy(_sig(rng, ch, ns, 60.0)).to(dev)
+    enc, _ = ck.xdelta_swizzle(words, ns, ch, 3)
+    tokw, _, hist = ck.tokenize_planes(enc, 3)
+    _, lengths = tc.block_layout(enc.numel(), 3)
+    plan = tc.flat_plan(hist.cpu().numpy(), lengths)
+    hp = sidecar.plan_hints(lengths, plan.comp_len, plan.desc_bits,
+                            plan.comp_len > 0)
+    bases = torch.from_numpy(plan.bases).to(dev)
+    tokc = ck.compact_tokens(tokw, bases, plan.T)
+    args = (tokc, bases, torch.from_numpy(plan.ntok).to(dev),
+            torch.from_numpy(plan.bit0).to(dev),
+            torch.from_numpy(plan.lut).to(dev), plan.nwords,
+            torch.from_numpy(hp.meta).to(dev),
+            torch.from_numpy(hp.init).to(dev))
+    got = ck.pack_flat_lanes(*args)
+    want = ck.pack_flat_lanes_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], ck.pack_flat(*args[:6]))
+
+
+@pytest.mark.parametrize("kind", ["hadamard", "hzr"])
+def test_transform_packers_card_equal_cpu(rng, dev, kind):
+    """new_hadamard / new_hzr on the card: the CPU's container, and the
+    CPU's reconstruction on both decode paths."""
+    ch, ns = 3, 8192
+    native = _sig(rng, ch, ns, 700.0).astype("<i4").tobytes()
+    make = getattr(gpack, "new_" + kind)
+    comp = make(4, ch, ns, device=dev).compress(native)
+    cpu = make(4, ch, ns, device="cpu")
+    assert comp == cpu.compress(native)
+    want = cpu.decompress(comp)[0]
+    before = ck.fwht.launches
+    for dd in (False, True):
+        assert make(4, ch, ns, device=dev,
+                    device_decode=dd).decompress(comp)[0] == want
+    assert ck.fwht.launches - before == (2 if kind == "hadamard" else 0)
+    assert (want == native) == (kind == "hzr")
+
+
+def test_compress_with_hints_on_card(rng, dev):
+    """compress_with_hints on the card: compress()'s container, the CPU's
+    entries, a trusted 0-sweep decode that is exact."""
+    ch, ns = 3, 40000
+    native = _sig(rng, ch, ns, 30.0).astype("<i4").tobytes()
+    p = gpack.new_xdelta_hzr(4, ch, ns, 3, device=dev, device_decode=True)
+    comp, hints = p.compress_with_hints(native)
+    assert comp == p.compress(native)
+    _, h_cpu = gpack.new_xdelta_hzr(4, ch, ns, 3, device="cpu"
+                                    ).compress_with_hints(native)
+    assert np.array_equal(hints.entries, h_cpu.entries)
+    gd._hint_registry.clear()
+    assert p.decompress_many([comp], hints=hints) == [native]
+    assert p.decode_info["hinted"] and max(p.decode_info["fp_iters"]) == 0

@@ -1,0 +1,181 @@
+"""Encode-time decode hints of the port (hzr/sidecar.py and
+GpuXdeltaHzrPacker.compress_with_hints) on the CPU, mirroring
+tests/test_sidecar.py: the container is unchanged by hints; the hints
+are trusted by the port's decoder (one sweep, 0 fixpoint iterations)
+and the decode is exact; the entries equal the decoder's converged
+entries on every active lane and the JAX packer's entries where both
+lane layouts agree (no COPY block, no host-routed block); a stale
+digest falls back to the fixpoint and stays exact.
+
+Tolerance 0 throughout (byte format, integer entries). The JAX side
+runs once per module (interpret mode is slow).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from rspt_tpu_torch import packers as gpack  # noqa: E402
+from rspt_tpu_torch.formats.hzr_constants import (  # noqa: E402
+    ENCODING_COPY, ENCODING_HUFF_RLE)
+from rspt_tpu_torch.hzr import gpu_decoder as gd  # noqa: E402
+from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
+from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+
+CH, N, BPS, PLANES = 2, 40000, 4, 3
+
+
+def _native(rng, ch, n, amp):
+    sig = np.cumsum(rng.normal(0, amp, (ch, n)), axis=1).astype(np.int32)
+    return np.ascontiguousarray(sig.T).astype("<i4").tobytes()
+
+
+@pytest.fixture(scope="module")
+def jax_case():
+    """A payload whose blocks are all HUFF (no COPY, no host routing in
+    the JAX decoder) through the JAX packer's compress_with_hints."""
+    native = _native(np.random.default_rng(21), CH, N, 14.0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RSPT_FUSED_PASS1", "interp")
+        from rspt_tpu.hzr import jax_coder
+        mp.setattr(jax_coder, "_PACK_MODE", "interp")
+        from rspt_tpu.packers import tpu as tpack
+        p = tpack.new_xdelta_hzr(BPS, CH, N, PLANES, device_decode=True)
+        comp, hints = p.compress_with_hints(native)
+    assert hints is not None
+    return native, comp, hints
+
+
+@pytest.fixture()
+def fresh_registry():
+    gd._hint_registry.clear()
+    gd._validated_digests.clear()
+    yield
+    gd._hint_registry.clear()
+
+
+def _port(planes=PLANES, ch=CH, n=N):
+    return gpack.new_xdelta_hzr(BPS, ch, n, planes, device="cpu",
+                                device_decode=True)
+
+
+def _segend(p, comp):
+    """Segment ends of the decoder's lanes for a container's streams."""
+    _, streams, _ = p._streams(comp, p.nr_planes, 0)
+    _, _, huff = gd._walk_all(streams)
+    blocks, _ = gd._device_blocks(huff)
+    return gd.lane_arrays(blocks).segend
+
+
+def test_container_unchanged_by_hints(jax_case, fresh_registry):
+    native, jax_comp, _ = jax_case
+    p = _port()
+    comp, hints = p.compress_with_hints(native)
+    assert comp == p.compress(native) == jax_comp
+    assert hints is not None and hints.entries.size > 0
+
+
+def test_hints_trusted_and_exact(jax_case, fresh_registry):
+    """decompress_many([comp], hints=h): trusted, 0 fixpoint sweeps in
+    every tile, exact; the first hinted decode was cross-checked."""
+    native = jax_case[0]
+    p = _port()
+    comp, hints = p.compress_with_hints(native)
+    gd._hint_registry.clear()
+    assert p.decompress_many([comp], hints=hints) == [native]
+    assert p.decode_info["hinted"]
+    assert p.decode_info["fp_iters"] and max(p.decode_info["fp_iters"]) == 0
+    assert hints.digest in gd._validated_digests
+    assert not gd._hints_disabled
+
+
+def test_entries_equal_converged_and_jax(jax_case, fresh_registry):
+    """The entries equal the unhinted decode's converged entries on every
+    active lane (entry < segment end) and the JAX entries everywhere
+    (same lanes: every block HUFF and device-decoded in both); the
+    digests differ by design (LAYOUT_VERSION)."""
+    native, _, jax_hints = jax_case
+    p = _port()
+    comp, hints = p.compress_with_hints(native)
+    outs, dec = p.decompress_many([comp], hints=False, return_hints=True)
+    assert outs == [native] and max(p.decode_info["fp_iters"]) > 0
+    assert dec.digest == hints.digest
+    active = hints.entries < _segend(p, comp)
+    assert active.sum() > 100
+    np.testing.assert_array_equal(hints.entries[active],
+                                  dec.entries[active])
+    np.testing.assert_array_equal(hints.entries, jax_hints.entries)
+
+
+def test_stale_digest_falls_back(fresh_registry):
+    """Hints of another payload, or with a wrong digest, are not
+    trusted: the fixpoint runs and the decode stays exact."""
+    a = _native(np.random.default_rng(5), CH, 30000, 18.0)
+    b = _native(np.random.default_rng(6), CH, 30000, 18.0)
+    p = _port(n=30000)
+    comp_a, hints_a = p.compress_with_hints(a)
+    comp_b = _port(n=30000).compress(b)
+    gd._hint_registry.clear()
+    assert p.decompress_many([comp_b], hints=hints_a) == [b]
+    assert not p.decode_info["hinted"]
+    bad = gd.DecodeHints(hints_a.digest ^ 1, hints_a.entries)
+    assert p.decompress_many([comp_a], hints=bad) == [a]
+    assert not p.decode_info["hinted"]
+    assert max(p.decode_info["fp_iters"]) > 0
+
+
+def test_sub_block_payload(fresh_registry):
+    """One block a plane, few segments: hints trusted, exact."""
+    native = _native(np.random.default_rng(9), 1, 9000, 9.0)
+    p = _port(planes=2, ch=1, n=9000)
+    comp, hints = p.compress_with_hints(native)
+    assert p.decompress(comp)[0] == native
+    gd._hint_registry.clear()
+    assert p.decompress_many([comp], hints=hints) == [native]
+    assert p.decode_info["hinted"] and max(p.decode_info["fp_iters"]) == 0
+
+
+def test_copy_blocks_give_hints(fresh_registry):
+    """A payload with COPY blocks (an incompressible plane 0) still gets
+    hints for its HUFF blocks; they are trusted."""
+    rng = np.random.default_rng(11)
+    ch, n = 2, 30000
+    sig = (rng.integers(-(1 << 7), 1 << 7, (ch, n))
+           + np.cumsum(rng.normal(0, 3, (ch, n)), 1).astype(np.int64) * 256)
+    native = np.ascontiguousarray(sig.astype(np.int32).T).astype(
+        "<i4").tobytes()
+    p = _port(planes=4, ch=ch, n=n)
+    comp, hints = p.compress_with_hints(native)
+    _, streams, _ = p._streams(comp, p.nr_planes, 0)
+    modes = {s[4 + 6] for s in streams}      # each plane's first block
+    assert {ENCODING_COPY, ENCODING_HUFF_RLE} <= modes
+    assert hints is not None
+    gd._hint_registry.clear()
+    assert p.decompress_many([comp], hints=hints) == [native]
+    assert p.decode_info["hinted"] and max(p.decode_info["fp_iters"]) == 0
+
+
+def test_lanes_mode_words_unchanged(rng):
+    """pack_flat_lanes writes the same payload words as pack_flat, and
+    its entry lanes keep the init plane where no token start lands."""
+    enc, _ = ck.xdelta_swizzle(torch.from_numpy(np.frombuffer(
+        _native(rng, 2, 20000, 40.0), "<i4").copy()), 20000, 2, 3)
+    tokw, _, hist = ck.tokenize_planes(enc, 3)
+    _, lengths = tc.block_layout(enc.numel(), 3)
+    plan = tc.flat_plan(hist.numpy(), lengths)
+    from rspt_tpu_torch.hzr import sidecar
+    hp = sidecar.plan_hints(lengths, plan.comp_len, plan.desc_bits,
+                            plan.comp_len > 0)
+    bases = torch.from_numpy(plan.bases)
+    tokc = ck.compact_tokens(tokw, bases, plan.T)
+    args = (tokc, bases, torch.from_numpy(plan.ntok),
+            torch.from_numpy(plan.bit0), torch.from_numpy(plan.lut),
+            plan.nwords)
+    words, entries = ck.pack_flat_lanes(*args, torch.from_numpy(hp.meta),
+                                        torch.from_numpy(hp.init))
+    assert torch.equal(words, ck.pack_flat(*args))
+    changed = entries.numpy() != hp.init
+    assert changed.sum() > 0
+    assert (entries.numpy()[~changed] == hp.init[~changed]).all()
