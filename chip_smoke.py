@@ -12,17 +12,22 @@ CPU (plain versions), that decompress round-trips it exactly, and that
 every kernel of the path launched. The other paths are driven the same
 way, each with the launch counts set to 0 just before it: the Hadamard
 packer at BASELINE config 3 (the same signal cut to 2^14 samples), the
-hzr packer at the main shape and on config 1's 8,192-sample sine, and
-compress_with_hints at the main shape.
+hzr packer at the main shape and on config 1's 8,192-sample sine,
+compress_with_hints at the main shape, and the hzr stream encoder
+torch_coder.encode on the main payload's bytes as one stream.
 
 Phases: 1 build; 2 encode kernels vs plain (pack_flat_lanes too); 3
 compress / host-decode decompress; 5 decode kernels (hzr_decode,
 place_literals) vs plain at the main-path shape and on edge inputs; 6
 decompress(device_decode=True) and decompress_many with and without
 hints; 7 fwht vs plain; 8 the Hadamard path; 9 the hzr path; 10 the
-hints path; 4, last, times each kernel (profiler device time) beside
-its bound, its plain version and a library yardstick, and the host
-stages and wall times of every path. The last two lines are a JSON
+hints path; 11 the stream encoder: pack_blocks and pack_blocks_tokw vs
+plain (the main payload as 26 blocks, the main pass 1's 21 blocks, an
+edge batch), encode on the card against the CPU, a device decode and
+the out_capacity rule, entropy_streams_blocks against the flat path; 4,
+last, times each kernel (profiler device time) beside its bound, its
+plain version and a library yardstick, and the host stages and wall
+times of every path. The last two lines are a JSON
 object of the kernels and the result line. Exits nonzero, with no
 result line, when there is no CUDA card or any check fails. Imports
 nothing of JAX or of the JAX package.
@@ -159,8 +164,8 @@ def kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle=True,
     hp = sidecar.plan_hints(lengths, plan.comp_len, plan.desc_bits,
                             plan.comp_len > 0)
     lanes = None if hp is None else (d(hp.meta), d(hp.init))
-    return dict(enc=enc, tokw=tokw, hist=hist, plan=plan, bases=bases,
-                tokc=tokc, ntok=d(plan.ntok), bit0=d(plan.bit0),
+    return dict(enc=enc, tokw=tokw, bwords=bwords, hist=hist, plan=plan,
+                bases=bases, tokc=tokc, ntok=d(plan.ntok), bit0=d(plan.bit0),
                 lut=d(plan.lut), lanes=lanes)
 
 
@@ -236,6 +241,28 @@ def check_decode(ck, gd, name, la, args, total, dev):
               got[0], *pa, torch.zeros(total, dtype=torch.uint8, device=dev)))
     torch.cuda.synchronize()
     return got
+
+
+def block_tables(tc, hist, lengths, dev):
+    """pack_blocks' LUT words and description bit counts on the card
+    from a batch's histograms."""
+    codes, cbits, _, desc_bits, _ = tc.host_tables(hist.cpu().numpy(),
+                                                   lengths)
+    return (torch.from_numpy(tc.lut_words(codes, cbits)).to(dev),
+            torch.from_numpy(desc_bits).to(dev))
+
+
+def block_modes(stream):
+    """The encoding byte of every block header of an hzr stream."""
+    modes = []
+    left = int.from_bytes(stream[:4], "little")
+    pos = 4
+    while left > 0:
+        size = int.from_bytes(stream[pos:pos + 2], "little") + 1
+        modes.append(stream[pos + 6])
+        pos += 7 + size
+        left -= min(left, 65536)
+    return modes
 
 
 def symbols_decoded(emis, counts, steps):
@@ -420,7 +447,7 @@ def main() -> int:
                          np.full(2000, 9, np.uint8)],
     }
     for name, payloads in edge_sets.items():
-        streams = [tc.encode(x.tobytes(), dev) for x in payloads]
+        streams = [tc.encode(x.tobytes(), device=dev) for x in payloads]
         ela, eargs, etotal, _ = decode_inputs(gd, streams, dev)
         e = check_decode(ck, gd, name, ela, eargs, etotal, dev)
         if gd.decode_many(streams, hints=False) != [x.tobytes()
@@ -615,6 +642,113 @@ def main() -> int:
         f" as (hint, converged, segment end))")
     gd._hint_registry.clear()
 
+    # phase 11: the hzr stream encoder and the per-block pack kernels
+    data11 = np.frombuffer(native, np.uint8)   # the main payload, one stream
+    blk11, len11 = tc.split_blocks(data11)
+    if blk11.shape[0] != 26 or int(len11[-1]) != 3152:
+        raise AssertionError(f"stream blocks: {blk11.shape}, {len11[-1]}")
+    f11 = tc.tokenize_blocks(torch.from_numpy(blk11).to(dev),
+                             torch.from_numpy(len11).to(dev))
+    equal("tokenize_blocks card vs CPU", f11,
+          tc.tokenize_blocks(torch.from_numpy(blk11), torch.from_numpy(len11)))
+    lut11, d11 = block_tables(tc, f11[4], len11, dev)
+    k13a_args = (*f11[:4], lut11, d11)
+    equal("pack_blocks main", ck.pack_blocks(*k13a_args),
+          ck.pack_blocks_plain(*k13a_args))
+    # K13b on the main path's own pass 1 (21 blocks, 3 planes, 7 COPY)
+    plane_len = main_x["enc"].numel()
+    _, len_m = tc.block_layout(plane_len, 3)
+    lut_m, d_m = block_tables(tc, main_x["hist"], len_m, dev)
+    k13b_args = (main_x["tokw"], lut_m, d_m)
+    equal("pack_blocks_tokw main", ck.pack_blocks_tokw(*k13b_args),
+          ck.pack_blocks_tokw_plain(*k13b_args))
+    # edge batch: a random block under 20-bit codes (its bits overflow the
+    # row: a COPY candidate), an all-zero (FILL) block, a short tail with
+    # random padding; every row and bit total compared (kernel and plain
+    # drop the same overflowing bits)
+    r11 = np.random.default_rng(23)
+    eb = np.zeros((3, 65536), np.uint8)
+    eb[0] = r11.integers(0, 256, 65536)
+    eb[2] = r11.integers(1, 256, 65536)
+    eb[2, :3152] = np.minimum(r11.geometric(0.3, 3152) - 1, 255)
+    elen = np.array([65536, 65536, 3152], np.int32)
+    fe = tc.tokenize_blocks(torch.from_numpy(eb).to(dev),
+                            torch.from_numpy(elen).to(dev))
+    codes_e, cbits_e, _, dbits_e, fill_e = tc.host_tables(
+        fe[4].cpu().numpy(), elen)
+    codes_e[0] = np.arange(261) * 2477 & 0xFFFFF
+    cbits_e[0] = 20
+    lut_e = torch.from_numpy(tc.lut_words(codes_e, cbits_e)).to(dev)
+    d_e = torch.from_numpy(dbits_e).to(dev)
+    got_e = ck.pack_blocks(*fe[:4], lut_e, d_e)
+    equal("pack_blocks edge", got_e, ck.pack_blocks_plain(*fe[:4], lut_e, d_e))
+    tokw_e = fe[0] | (fe[2] << 9) | (fe[1] << 13) | (fe[3] << 27)
+    equal("pack_blocks_tokw edge", ck.pack_blocks_tokw(tokw_e, lut_e, d_e),
+          got_e)
+    equal("pack_blocks_tokw_plain edge",
+          ck.pack_blocks_tokw_plain(tokw_e, lut_e, d_e), got_e)
+    torch.cuda.synchronize()
+    if not (int(got_e[1][0]) > 32 * got_e[0].shape[1]
+            and fill_e.tolist() == [False, True, False]):
+        raise AssertionError("edge batch: no overflow row or no FILL block")
+    log(f"phase 11: pack_blocks bit-exact against its plain version at "
+        f"{tuple(f11[0].shape)} (the main payload as one stream), "
+        f"pack_blocks_tokw at {tuple(main_x['tokw'].shape)} (main pass 1); "
+        f"edge batch (overflow {int(got_e[1][0])} bits, FILL, 3,152 B "
+        f"tail) equal in both forms; tokenize_blocks equal to the CPU's")
+    for k in ck.KERNELS:
+        k.launches = 0
+    s11 = tc.encode(native, device=dev)
+    torch.cuda.synchronize()
+    enc_launches = {k.__name__: k.launches for k in ck.KERNELS}
+    log(f"phase 11: encode launches {enc_launches}")
+    if (enc_launches["pack_blocks"] != 1 or enc_launches["compact_tokens"]
+            or enc_launches["pack_flat"]):
+        raise AssertionError("encode did not pack with one pack_blocks")
+    if s11 != tc.encode(native, device="cpu"):
+        raise AssertionError("encode: card and CPU streams differ")
+    if gd.decode_many([s11]) != [native]:
+        raise AssertionError("encode: device decode is not exact")
+    if tc.encode(native, len(s11), device=dev) != s11:
+        raise AssertionError("encode: exact out_capacity changed the stream")
+    raised = False
+    try:
+        tc.encode(native, len(s11) - 1, device=dev)
+    except ValueError:
+        raised = True
+    if not raised:
+        raise AssertionError("encode: one byte short did not raise")
+    modes11 = block_modes(s11)
+    rnd = np.random.default_rng(21).integers(0, 256, 3 * 65536).astype(
+        np.uint8)
+    s_rnd = tc.encode(rnd, device=dev)
+    if s_rnd != tc.encode(rnd, device="cpu") or block_modes(s_rnd) != [0] * 3:
+        raise AssertionError("random 3 x 64 KiB: not the CPU's or not COPY")
+    log(f"phase 11: encode {len(native)} B -> {len(s11)} B (CR "
+        f"{len(native) / len(s11):.4f}; {modes11.count(1)} HUFF, "
+        f"{modes11.count(0)} COPY, {modes11.count(2)} FILL blocks), equal to "
+        f"the CPU's, decoded exactly on the card; out_capacity exact gives "
+        f"the same bytes, one byte less raises; 3 x 64 KiB random: all COPY, "
+        f"equal to the CPU's")
+    for k in ck.KERNELS:
+        k.launches = 0
+    hist_m = main_x["hist"].cpu().numpy()
+    st_blk = tc.entropy_streams_blocks(main_x["tokw"], main_x["bwords"],
+                                       hist_m, plane_len, 3, {})
+    torch.cuda.synchronize()
+    esb_launches = {k.__name__: k.launches for k in ck.KERNELS}
+    log(f"phase 11: entropy_streams_blocks launches {esb_launches}")
+    if esb_launches["pack_blocks_tokw"] != 1 or esb_launches["pack_flat"]:
+        raise AssertionError("entropy_streams_blocks: not one "
+                             "pack_blocks_tokw")
+    st_flat, _ = tc.entropy_streams(main_x["tokw"], main_x["bwords"], hist_m,
+                                    plane_len, 3, {})
+    if not st_blk == st_flat == main_streams:
+        raise AssertionError("entropy_streams_blocks differs from the flat "
+                             "path")
+    log("phase 11: entropy_streams_blocks on the main pass 1 equals "
+        "entropy_streams and the main container's streams")
+
     # phase 4: timings at main-path shapes
     x = main_x
     e = x["enc"]
@@ -736,6 +870,29 @@ def main() -> int:
         # entry lanes written once
         bytes=rows["pack_flat"]["bytes"] + 12 * nb + 8 * nl_h,
         ops=ntok_total * 34)
+    # the per-block packs: every token slot read once (four int32 fields
+    # or one token word), the LUTs and description bit counts read once,
+    # the rows and bit totals written once
+    nb11, nb_m = f11[0].shape[0], main_x["tokw"].shape[0]
+    row_b = 4 * ck.blocks_nwords(65536)
+    launches.update(pack_blocks=enc_launches["pack_blocks"],
+                    pack_blocks_tokw=esb_launches["pack_blocks_tokw"])
+    rows["pack_blocks"] = dict(
+        replaces="rspt_tpu/ops/pallas_kernels.py:507",
+        source="rspt_tpu_torch/ops/csrc/pack_blocks.cu",
+        fn=lambda: ck.pack_blocks(*k13a_args),
+        plain=lambda: ck.pack_blocks_plain(*k13a_args),
+        library=None,     # no PyTorch call computes a Huffman bit pack
+        bytes=nb11 * (4 * 4 * 65536 + 4 * 261 + 4 + row_b + 4),
+        ops=nb11 * 65536 * 30)
+    rows["pack_blocks_tokw"] = dict(
+        replaces="rspt_tpu/ops/pallas_kernels.py:558",
+        source="rspt_tpu_torch/ops/csrc/pack_blocks.cu",
+        fn=lambda: ck.pack_blocks_tokw(*k13b_args),
+        plain=lambda: ck.pack_blocks_tokw_plain(*k13b_args),
+        library=None,
+        bytes=nb_m * (4 * 65536 + 4 * 261 + 4 + row_b + 4),
+        ops=nb_m * 65536 * 30)
     log(f"phase 4: pack_flat_lanes' own bytes beyond pack_flat: "
         f"{12 * nb + 8 * nl_h} B ({nl_h} lanes), bound "
         f"{(12 * nb + 8 * nl_h) / HBM_BYTES_PER_S * 1e3:.6f} ms")
@@ -820,6 +977,29 @@ def main() -> int:
     log(f"phase 4: compress {statistics.median(cw):.4f} s against "
         f"compress_with_hints {statistics.median(cwh):.4f} s (medians of 5 "
         f"in turns), stages of the last with hints {pw.stage_seconds}")
+    enc11 = wall_s(lambda: tc.encode(native, device=dev))
+    st11 = {}
+    t11 = time.perf_counter()
+    pk11, tb11, fl11 = tc.encode_blocks_device(blk11, len11, dev, st11)
+    t11b = time.perf_counter()
+    tc.assemble(blk11, len11, pk11, tb11, fl11)
+    st11["assemble"] = time.perf_counter() - t11b
+    log(f"phase 4: encode {enc11:.4f} s (median of 3, {len(native)} B as "
+        f"one stream); stages of a staged run {st11} "
+        f"({t11b - t11 + st11['assemble']:.4f} s)")
+    eb_t, ef_t = [], []
+    st_b, st_f = {}, {}
+    for _ in range(3):      # in turns: per-block pack, flat pack
+        eb_t.append(wall_s(lambda: tc.entropy_streams_blocks(
+            main_x["tokw"], main_x["bwords"], hist_m, plane_len, 3, st_b),
+            reps=1))
+        ef_t.append(wall_s(lambda: tc.entropy_streams(
+            main_x["tokw"], main_x["bwords"], hist_m, plane_len, 3, st_f),
+            reps=1))
+    log(f"phase 4: main pass-1 streams: entropy_streams_blocks "
+        f"{statistics.median(eb_t):.4f} s {st_b} against entropy_streams "
+        f"{statistics.median(ef_t):.4f} s {st_f} (medians of 3 in turns, "
+        f"stages of the last)")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,42 +1,57 @@
 """hzr two-pass encoder around the CUDA kernels (counterpart of
 rspt_tpu/hzr/jax_coder.py).
 
-Host half (own copies of jax_coder.py:541-582, 754-788, 856-896 and the
-fallback build_block_tables :211-229): per-block Huffman tables from the
-histograms, the exact stream layout those imply, and the final
-assembly (7-byte block headers, CRC32C, concatenation).
+Host half (own copies of jax_coder.py:541-582, 740-788, 856-936 and the
+fallback build_block_tables :211-229): block splitting, per-block
+Huffman tables from the histograms, the exact stream layout those
+imply, and the final assembly (7-byte block headers, CRC32C, COPY and
+FILL fallbacks, the reference's output-capacity rule).
 
-Device half: ``pack_tokens_flat``, the flat exact-offset pack
-(jax_coder._pack_tokens_flat2_impl:585-676): valid tokens of every HUFF
-block are compacted to a group-aligned flat stream (compact_tokens) and
-each block's bits are placed straight into the final payload layout
-(pack_flat). The JAX version's compaction splits and its flat-buffer
-and token-row caps are TPU VMEM limits; the port has none of them, and
-its flat path covers batches with COPY blocks too (their payload is
-the raw plane bytes the tokenizer already wrote). With hints,
-``pack_flat_lanes`` also writes the device decoder's segment entries
-(hzr/sidecar.py, the want_hints branch of tpu.py:_entropy_streams).
+Device half, two pack designs:
+- ``pack_tokens_flat``, the flat exact-offset pack
+  (jax_coder._pack_tokens_flat2_impl:585-676) the packers use: valid
+  tokens of every HUFF block are compacted to a group-aligned flat
+  stream (compact_tokens) and each block's bits are placed straight
+  into the final payload layout (pack_flat). The JAX version's
+  compaction splits and its flat-buffer and token-row caps are TPU VMEM
+  limits; the port has none of them, and its flat path covers batches
+  with COPY blocks too (their payload is the raw plane bytes the
+  tokenizer already wrote). With hints, ``pack_flat_lanes`` also writes
+  the device decoder's segment entries (hzr/sidecar.py, the want_hints
+  branch of tpu.py:_entropy_streams).
+- ``pack_blocks`` / ``pack_blocks_tokw``, the per-block positional pack
+  (jax_coder.pack_blocks :478-538): every block packs its own row from
+  its token slots, no compaction, and every block's bit total comes
+  back. It carries the stream encoder ``encode(data, out_capacity)``
+  (jax_coder.encode :939-948, through ``tokenize_blocks`` and
+  ``encode_blocks_device``) and ``entropy_streams_blocks``, the JAX
+  packers' per-block branch (tpu.py:_entropy_streams :476-515, with
+  ``compact_payloads``).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..formats.crc32c import crc32c
 from ..formats.hzr_constants import (
+    BLOCK_HEADER_SIZE,
     ENCODING_COPY,
     ENCODING_FILL,
     ENCODING_HUFF_RLE,
+    HEADER_SIZE,
     MAX_BLOCK_SIZE,
     NUM_SYMBOLS,
     SYMBOL_SIZE,
 )
 from ..ops import cuda_kernels as ck
+from ..ops import torch_ops as tops
 from . import pyref, sidecar
 
 B = MAX_BLOCK_SIZE  # 65536
@@ -238,6 +253,87 @@ def pack_tokens_flat(tokw: torch.Tensor, bases: torch.Tensor, T: int,
 
 
 # ---------------------------------------------------------------------------
+# Device — per-block positional pack
+# ---------------------------------------------------------------------------
+
+def _to_device(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def tokenize_blocks(blocks: torch.Tensor, lengths: torch.Tensor):
+    """jax_coder.tokenize_blocks as torch ops on the blocks' device.
+
+    blocks: (nb, n) uint8 (padding arbitrary); lengths: (nb,) int32.
+    Returns syms, extras, ebits, tvalid (nb, n) int32 — a position holds
+    at most one token, and tvalid is 1 where it does — and hist (nb,
+    261) int32, single zeros counted under symbol 0."""
+    syms, extras, ebits, valid, hist = tops.rle_tokenize(
+        blocks.to(torch.int32), lengths.to(torch.int32)[:, None])
+    return syms, extras, ebits, valid.to(torch.int32), hist
+
+
+def _device_tables(codes, code_bits, desc_bits, dev):
+    return (_to_device(lut_words(codes, code_bits), dev),
+            _to_device(np.asarray(desc_bits, np.int32), dev))
+
+
+def pack_blocks(syms, extras, ebits, tvalid, codes, code_bits, desc_bits):
+    """Per-block pack of tokenize_blocks' fields (jax_coder.pack_blocks)
+    through the pack_blocks kernel (K13a). codes, code_bits, desc_bits:
+    host_tables' arrays.
+
+    Returns (packed (nb, n + 512) uint8, total_bits (nb,) int32) on the
+    fields' device: row b holds block b's token bits from bit
+    desc_bits[b] (the description's bits are 0: the host ORs it in), and
+    total_bits[b] = desc_bits[b] + the block's token bits for every
+    block, a payload too long for its row included."""
+    n = syms.shape[1]
+    words, total = ck.pack_blocks(
+        syms, extras, ebits, tvalid,
+        *_device_tables(codes, code_bits, desc_bits, syms.device))
+    return words.view(torch.uint8)[:, :n + 512], total
+
+
+def pack_blocks_tokw(tokw, codes, code_bits, desc_bits):
+    """pack_blocks over tokenize_planes' token words
+    (jax_coder.pack_blocks_tokw), through pack_blocks_tokw (K13b)."""
+    n = tokw.shape[1]
+    words, total = ck.pack_blocks_tokw(
+        tokw, *_device_tables(codes, code_bits, desc_bits, tokw.device))
+    return words.view(torch.uint8)[:, :n + 512], total
+
+
+def compact_payloads(packed: torch.Tensor, blocks: torch.Tensor,
+                     total_bits: torch.Tensor, lengths: torch.Tensor,
+                     is_fill: torch.Tensor):
+    """jax_coder.compact_payloads as torch ops on the device: the bytes
+    the host needs, in one buffer.
+
+    packed (nb, max_out) uint8 and total_bits (nb,) from pack_blocks;
+    blocks (nb, B) uint8 the raw block bytes; lengths (nb,) int32;
+    is_fill (nb,) bool. Returns (data, meta): data (uint8) holds every
+    HUFF block's payload packed[b, :comp_len[b]] back to back, then the
+    raw bytes of every COPY block (JAX's buffer runs on past them with
+    scratch; this one ends there); meta (3 nb,) int32 is [comp_len |
+    copy_len | total_bits]."""
+    tb = total_bits.to(torch.int64)
+    ln = lengths.to(torch.int64)
+    plen = (tb + 7) >> 3
+    live = ln > 0
+    is_huff = ~is_fill & live & (plen <= ln) & (plen < MAX_BLOCK_SIZE)
+    comp_len = torch.where(is_huff, plen, 0)
+    copy_len = torch.where(~is_fill & live & ~is_huff, ln, 0)
+
+    def head(rows, count):
+        col = torch.arange(rows.shape[1], device=rows.device)
+        return rows[col[None, :] < count[:, None]]
+
+    data = torch.cat([head(packed, comp_len), head(blocks, copy_len)])
+    meta = torch.cat([comp_len, copy_len, tb]).to(torch.int32)
+    return data, meta
+
+
+# ---------------------------------------------------------------------------
 # Streams
 # ---------------------------------------------------------------------------
 
@@ -270,7 +366,7 @@ def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
     times["tables"] = t1 - t0
 
     def d(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(tokw.device)
+        return _to_device(a, tokw.device)
 
     lanes = None if hplan is None else (d(hplan.meta), d(hplan.init))
     res = pack_tokens_flat(tokw, d(plan.bases), plan.T, d(plan.ntok),
@@ -289,35 +385,186 @@ def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
     t2 = time.perf_counter()
     times["pack"] = t2 - t1
 
-    hoff, comp_len = plan.hoff, plan.comp_len
+    _or_descriptions(tight, plan.comp_len, plan.desc_bytes)
+    crcs = np.zeros(len(lengths), np.int64)
+    streams = _plane_streams(lengths, nb_per, nr_planes, tight, plan.comp_len,
+                             copy_np, copy_len, plan.is_fill, hist_np, crcs)
+    hints = None
+    if hplan is not None:
+        hints = sidecar.finish_hints(hplan, entries, crcs, plan.comp_len)
+    times["assemble"] = time.perf_counter() - t2
+    return streams, hints
+
+
+def _or_descriptions(tight, comp_len, desc_bytes) -> None:
+    """OR each HUFF block's packed tree description over the first bytes
+    of its payload in the back-to-back payload bytes `tight` (the token
+    bits start at bit desc_bits, so the straddle byte holds disjoint
+    bits)."""
+    hoff = np.cumsum(comp_len) - comp_len
     for i in np.flatnonzero(comp_len):
         dlen = min(DESC_STRIDE, int(comp_len[i]))
-        tight[hoff[i]:hoff[i] + dlen] |= plan.desc_bytes[i, :dlen]
-    fill_byte = fill_bytes_from_hist(hist_np)
+        tight[hoff[i]:hoff[i] + dlen] |= desc_bytes[i, :dlen]
+
+
+def _plane_streams(lengths, nb_per, nr_planes, tight, comp_len, copy_np,
+                   copy_len, is_fill, hist_np, crcs=None) -> List[bytes]:
+    """assemble_compact of each plane's nb_per blocks; crcs, if given,
+    receives every block's stored CRC32C."""
+    hoff = np.cumsum(comp_len) - comp_len
     coff = np.cumsum(copy_len) - copy_len
-    crcs = np.zeros(len(lengths), np.int64)
+    fill_byte = fill_bytes_from_hist(hist_np)
     streams = []
     for k in range(nr_planes):
         s = slice(k * nb_per, (k + 1) * nb_per)
         streams.append(assemble_compact(
             lengths[s], tight[hoff[s.start]:], comp_len[s],
-            copy_np[coff[s.start]:], copy_len[s], plan.is_fill[s],
-            fill_byte[s], crcs[s]))
-    hints = None
-    if hplan is not None:
-        hints = sidecar.finish_hints(hplan, entries, crcs, comp_len)
+            copy_np[coff[s.start]:], copy_len[s], is_fill[s], fill_byte[s],
+            None if crcs is None else crcs[s]))
+    return streams
+
+
+def entropy_streams_blocks(tokw, bwords, hist_np, plane_len: int,
+                           nr_planes: int, times: dict) -> List[bytes]:
+    """entropy_streams through the per-block pack, the JAX packers' branch
+    for a batch with a COPY block (tpu.py:_entropy_streams :476-515):
+    host tables, pack_blocks_tokw (K13b) and compact_payloads on tokw's
+    device, one device→host copy of the meta and one of the payload and
+    COPY bytes, the description OR, headers. The same streams as
+    entropy_streams; adds the wall time of its stages to ``times``.
+    Returns the streams, one per plane."""
+    nb_per, lengths = block_layout(plane_len, nr_planes)
+    t0 = time.perf_counter()
+    codes, cbits, desc_bytes, desc_bits, is_fill = host_tables(hist_np,
+                                                               lengths)
+    t1 = time.perf_counter()
+    times["tables"] = t1 - t0
+    dev = tokw.device
+    packed, total_bits = pack_blocks_tokw(tokw, codes, cbits, desc_bits)
+    data, meta = compact_payloads(packed, bwords.view(torch.uint8),
+                                  total_bits, _to_device(lengths, dev),
+                                  _to_device(is_fill, dev))
+    comp_len, copy_len, _ = np.split(meta.cpu().numpy().astype(np.int64), 3)
+    data = data.cpu().numpy()
+    t2 = time.perf_counter()
+    times["pack"] = t2 - t1
+
+    ncomp = int(comp_len.sum())
+    tight = data[:ncomp]
+    _or_descriptions(tight, comp_len, desc_bytes)
+    streams = _plane_streams(lengths, nb_per, nr_planes, tight, comp_len,
+                             data[ncomp:], copy_len, is_fill, hist_np)
     times["assemble"] = time.perf_counter() - t2
-    return streams, hints
+    return streams
 
 
-def encode(data, device) -> bytes:
-    """hzr_encode of a byte string on ``device`` (the streams equal
-    rspt_tpu.hzr.pyref.encode's): its bytes are tokenized as one plane
-    and packed by the flat path."""
-    raw = np.frombuffer(memoryview(data).cast("B"), np.uint8)
-    if raw.size == 0:
-        raise ValueError("hzr: nothing to encode")
-    x = torch.from_numpy(raw.astype(np.int32)).to(device)
-    tokw, bwords, hist = ck.tokenize_planes(x, 1)
-    return entropy_streams(tokw, bwords, hist.cpu().numpy(), raw.size, 1,
-                           {})[0][0]
+# ---------------------------------------------------------------------------
+# The stream encoder (jax_coder.py:740-751, 791-811, 899-948)
+# ---------------------------------------------------------------------------
+
+def split_blocks(buf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad a byte buffer into (nb, B) blocks + lengths; an empty buffer
+    is one block of length 0."""
+    in_size = buf.size
+    nb = max(1, -(-in_size // B))
+    padded = np.zeros(nb * B, dtype=np.uint8)
+    padded[:in_size] = buf
+    lengths = np.full(nb, B, np.int32)
+    if in_size % B:
+        lengths[-1] = in_size % B
+    if in_size == 0:
+        lengths[0] = 0
+    return padded.reshape(nb, B), lengths
+
+
+def encode_blocks_device(blocks_np: np.ndarray, lengths_np: np.ndarray,
+                         device, times: Optional[dict] = None):
+    """Both passes and the host Huffman step for a block batch on
+    ``device``: tokenize_blocks, host_tables, pack_blocks (K13a), one
+    device→host copy of the rows and bit totals, then the tree
+    descriptions ORed over each row's first bytes. With ``times``, adds
+    the wall time of its stages (tokenize, tables, pack).
+
+    Returns (packed (nb, n + 512) uint8, total_bits (nb,) int32,
+    is_fill (nb,) bool) on the host, for assemble()."""
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    syms, extras, ebits, tvalid, hist = tokenize_blocks(
+        _to_device(blocks_np, dev),
+        _to_device(lengths_np.astype(np.int32), dev))
+    hist_np = hist.cpu().numpy()
+    t1 = time.perf_counter()
+    codes, cbits, desc_bytes, desc_bits, is_fill = host_tables(hist_np,
+                                                               lengths_np)
+    t2 = time.perf_counter()
+    packed, total_bits = pack_blocks(syms, extras, ebits, tvalid, codes,
+                                     cbits, desc_bits)
+    nb, w = packed.shape
+    host = torch.cat([packed.reshape(-1),
+                      total_bits.view(torch.uint8)]).cpu().numpy()
+    packed_np = host[:nb * w].reshape(nb, w)
+    packed_np[:, :DESC_STRIDE] |= desc_bytes
+    if times is not None:
+        times.update(tokenize=t1 - t0, tables=t2 - t1,
+                     pack=time.perf_counter() - t2)
+    return packed_np, host[nb * w:].view(np.int32), is_fill
+
+
+def assemble(blocks_np, lengths_np, packed, total_bits, is_fill,
+             out_capacity: Optional[int] = None) -> bytes:
+    """Host assembly: headers, CRC32C, FILL and COPY fallbacks, concat
+    (hzr_encode.c:369-407, 462-481, 499-544). A block is COPY when its
+    payload exceeds its length or the space left (out_capacity - written
+    - 7) or reaches 64 KiB; a block whose encoding does not fit the
+    space left raises ValueError("hzr: output buffer too small")."""
+    in_size = int(lengths_np.sum())
+    parts: List[bytes] = [int(in_size).to_bytes(4, "little")]
+    written = HEADER_SIZE
+    for i in range(blocks_np.shape[0]):
+        blen = int(lengths_np[i])
+        if blen == 0:
+            continue
+        block = blocks_np[i, :blen]
+        if is_fill[i]:
+            crc = crc32c(block[:1])
+            enc = ((0).to_bytes(2, "little") + int(crc).to_bytes(4, "little")
+                   + bytes([ENCODING_FILL, int(block[0])]))
+        else:
+            payload_len = (int(total_bits[i]) + 7) // 8
+            limit = blen
+            if out_capacity is not None:
+                limit = min(limit, out_capacity - written - BLOCK_HEADER_SIZE)
+            if payload_len > limit or payload_len >= MAX_BLOCK_SIZE:
+                crc = crc32c(block)
+                enc = ((blen - 1).to_bytes(2, "little")
+                       + int(crc).to_bytes(4, "little")
+                       + bytes([ENCODING_COPY]) + block.tobytes())
+            else:
+                payload = packed[i, :payload_len]
+                crc = crc32c(payload)
+                enc = ((payload_len - 1).to_bytes(2, "little")
+                       + int(crc).to_bytes(4, "little")
+                       + bytes([ENCODING_HUFF_RLE]) + payload.tobytes())
+        if out_capacity is not None and written + len(enc) > out_capacity:
+            raise ValueError("hzr: output buffer too small")
+        parts.append(enc)
+        written += len(enc)
+    return b"".join(parts)
+
+
+def encode(data, out_capacity: Optional[int] = None, device=None) -> bytes:
+    """hzr_encode of a byte string (bytes-like, or an ndarray taken as
+    uint8) on the card, or on ``device`` ("cpu": the kernels' plain
+    versions); raises without a card when no device is named. The
+    stream equals rspt_tpu.hzr.pyref.encode's and jax_coder.encode's,
+    out_capacity included (see assemble)."""
+    dev = resolve_device(device)
+    if isinstance(data, np.ndarray):
+        buf = data.astype(np.uint8, copy=False).reshape(-1)
+    else:
+        buf = np.frombuffer(memoryview(data).cast("B"), np.uint8)
+    blocks_np, lengths_np = split_blocks(buf)
+    packed, total_bits, is_fill = encode_blocks_device(blocks_np, lengths_np,
+                                                       dev)
+    return assemble(blocks_np, lengths_np, packed, total_bits, is_fill,
+                    out_capacity)

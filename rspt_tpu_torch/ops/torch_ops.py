@@ -1,5 +1,6 @@
 """Exact int32 signal ops on torch tensors (counterpart of
-rspt_tpu/ops/jax_ops.py:43-230).
+rspt_tpu/ops/jax_ops.py:43-230), and the hzr zero-run tokenizer as
+torch ops (the body of rspt_tpu/hzr/jax_coder.py:tokenize_blocks).
 
 All arithmetic is int32 two's-complement wraparound, as in the
 reference's C loops (utils.cpp:123-236, signal_packer_base.cpp:40-138).
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..formats.hzr_constants import MAX_ZERO_RUN, NUM_SYMBOLS
 
 _M32 = 0xFFFFFFFF
 
@@ -106,6 +109,53 @@ def plane_merge(planes: torch.Tensor) -> torch.Tensor:
     for k in range(p):
         v |= planes[k].to(torch.int64) << (8 * k)
     return _wrap32(_sign_extend(v, 8 * p))
+
+
+def _run_fields(L: torch.Tensor):
+    """RLE (sym, extra, ebits) of zero-run chunk lengths L
+    (hzr_internal.h:117-121)."""
+    w = torch.where
+    sym = w(L == 1, 0, w(L == 2, 256, w(L <= 6, 257, w(
+        L <= 22, 258, w(L <= 278, 259, 260)))))
+    extra = w(L <= 2, 0, w(L <= 6, L - 3, w(L <= 22, L - 7, w(
+        L <= 278, L - 23, L - 279))))
+    ebits = w(L <= 2, 0, w(L <= 6, 2, w(L <= 22, 4, w(L <= 278, 8, 14))))
+    return sym, extra, ebits
+
+
+def rle_tokenize(byte: torch.Tensor, limit: torch.Tensor):
+    """Zero-run tokenization of rows of bytes, a token at the position
+    of its first byte (hzr_encode.c:133-173): greedy zero runs capped at
+    MAX_ZERO_RUN, never crossing a row's end; single zeros carry sym 0.
+
+    byte: (nb, n) int32 in 0..255; limit: (nb, 1) int32, the row's
+    length (positions at or past it hold no token). Returns int32 sym,
+    extra, ebits (nb, n), bool valid (nb, n) and int32 hist (nb, 261)."""
+    nb, n = byte.shape
+    idx = torch.arange(n, dtype=torch.int32, device=byte.device).expand(nb, n)
+    inblk = idx < limit
+    iszero = (byte == 0) & inblk
+    # last non-zero strictly before i, first non-zero at/after i
+    lnb = torch.cummax(torch.where(iszero, -1, idx), dim=1).values
+    prev = torch.cat([torch.full_like(lnb[:, :1], -1), lnb[:, :-1]], 1)
+    run_start = prev + 1
+    fna = torch.where(iszero, n, idx).flip(1)
+    fna = torch.cummin(fna, dim=1).values.flip(1)
+    run_end = torch.minimum(fna, limit) - 1
+    is_cs = iszero & ((idx - run_start) % MAX_ZERO_RUN == 0)
+    run_sym, run_extra, run_ebits = _run_fields(
+        torch.clamp(run_end - idx + 1, max=MAX_ZERO_RUN))
+    is_lit = ~iszero & inblk
+    valid = is_lit | is_cs
+    sym = torch.where(is_lit, byte, torch.where(is_cs, run_sym, 0))
+    extra = torch.where(is_cs, run_extra, 0)
+    ebits = torch.where(is_cs, run_ebits, 0)
+    kw = dict(dtype=torch.int32, device=byte.device)
+    hist = torch.zeros((nb, NUM_SYMBOLS + 1), **kw)
+    hist.scatter_add_(1, torch.where(valid, sym, NUM_SYMBOLS).to(torch.int64),
+                      torch.ones((nb, n), **kw))
+    return (sym.to(torch.int32), extra.to(torch.int32),
+            ebits.to(torch.int32), valid, hist[:, :NUM_SYMBOLS])
 
 
 def row_sums64(a: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_loads_neither_jax_nor_rspt_tpu():
-    """The port's modules import no jax and nothing of rspt_tpu."""
+    """The port's modules import no jax and nothing of rspt_tpu, nor does
+    a stream encode through them (pack_blocks' plain version)."""
     code = (
         "import sys\n"
         "import rspt_tpu_torch\n"
@@ -28,6 +29,8 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "torch_coder, walk\n"
         "from rspt_tpu_torch.ops import _build, cuda_kernels, torch_ops\n"
         "from rspt_tpu_torch.formats import crc32c, hzr_constants\n"
+        "assert torch_coder.encode(b'ab' * 99, device='cpu')[:4] == "
+        "(198).to_bytes(4, 'little')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rspt_tpu' or m.startswith('rspt_tpu.')]\n"
         "assert not bad, bad\n")
@@ -68,11 +71,20 @@ def test_default_device_raises_without_card(monkeypatch):
 def test_decoder_raises_without_card(monkeypatch):
     """gpu_decoder.decode_many with no device and no card raises; with
     device="cpu" it decodes on the plain versions."""
-    stream = torch_coder.encode(b"\x01\x02" * 50, "cpu")
+    stream = torch_coder.encode(b"\x01\x02" * 50, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpu_decoder.decode_many([stream])
     assert gpu_decoder.decode_many([stream], device="cpu") == [b"\x01\x02" * 50]
+
+
+def test_encode_raises_without_card(monkeypatch):
+    """torch_coder.encode with no device and no card raises; with
+    device="cpu" it encodes on the plain versions."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_coder.encode(b"\x01\x02" * 50)
+    assert len(torch_coder.encode(b"", device="cpu")) == 4
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

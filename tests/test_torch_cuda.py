@@ -79,7 +79,7 @@ def _decode_batch(rng, dev):
     rng.shuffle(deep)
     payloads = [(walk & 255).astype(np.uint8),
                 ((walk >> 8) & 255).astype(np.uint8), sparse, deep]
-    streams = [tc.encode(p.tobytes(), dev) for p in payloads]
+    streams = [tc.encode(p.tobytes(), device=dev) for p in payloads]
     _, out, huff = gd._walk_all(streams)
     blocks, _ = gd._device_blocks(huff)
     la = gd.lane_arrays(blocks)
@@ -189,6 +189,59 @@ def test_transform_packers_card_equal_cpu(rng, dev, kind):
                     device_decode=dd).decompress(comp)[0] == want
     assert ck.fwht.launches - before == (2 if kind == "hadamard" else 0)
     assert (want == native) == (kind == "hzr")
+
+
+def _block_batch(rng):
+    """A HUFF tail block (random padding), a random block, an all-zero
+    block and an empty one, with their tables; the random block's codes
+    made 20 bits long so that its bits overflow its row."""
+    blocks = np.zeros((4, 65536), np.uint8)
+    blocks[0] = rng.integers(1, 256, 65536)
+    blocks[0, :40000] = np.minimum(rng.geometric(0.3, 40000) - 1, 255)
+    blocks[1] = rng.integers(0, 256, 65536)
+    lengths = np.array([40000, 65536, 65536, 0], np.int32)
+    fields = tc.tokenize_blocks(torch.from_numpy(blocks),
+                                torch.from_numpy(lengths))
+    codes, cbits, _, desc_bits, _ = tc.host_tables(fields[4].numpy(), lengths)
+    codes[1] = np.arange(261) * 2477 & 0xFFFFF
+    cbits[1] = 20
+    return fields, tc.lut_words(codes, cbits), desc_bits
+
+
+def test_pack_blocks_matches_plain(rng, dev):
+    """pack_blocks (K13a form) and pack_blocks_tokw (K13b form) vs their
+    plain versions: every row (both drop the same overflowing bits) and
+    every bit total."""
+    fields, lut, desc_bits = _block_batch(rng)
+    f = [t.to(dev) for t in fields[:4]]
+    lut_d = torch.from_numpy(lut).to(dev)
+    d = torch.from_numpy(desc_bits).to(dev)
+    got = ck.pack_blocks(*f, lut_d, d)
+    want = ck.pack_blocks_plain(*f, lut_d, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1][1]) > 32 * got[0].shape[1]
+    tokw = f[0] | (f[2] << 9) | (f[1] << 13) | (f[3] << 27)
+    got_w = ck.pack_blocks_tokw(tokw, lut_d, d)
+    assert torch.equal(got_w[0], want[0]) and torch.equal(got_w[1], want[1])
+    assert torch.equal(got_w[0], ck.pack_blocks_tokw_plain(tokw, lut_d, d)[0])
+
+
+def test_encode_card_equals_cpu(rng, dev):
+    """encode on the card: the CPU's stream, one pack_blocks launch and no
+    flat-pack launch, an exact device decode, the capacity rule."""
+    walk = np.cumsum(rng.normal(0, 3, 150000)).astype(np.int64)
+    data = (walk & 255).astype(np.uint8)
+    data[70000:75000] = 0
+    before = (ck.pack_blocks.launches, ck.pack_flat.launches,
+              ck.compact_tokens.launches)
+    got = tc.encode(data, device=dev)
+    assert (ck.pack_blocks.launches, ck.pack_flat.launches,
+            ck.compact_tokens.launches) == (before[0] + 1, *before[1:])
+    assert got == tc.encode(data, device="cpu")
+    assert gd.decode_many([got], device=dev) == [data.tobytes()]
+    assert tc.encode(data, len(got), device=dev) == got
+    with pytest.raises(ValueError, match="output buffer too small"):
+        tc.encode(data, len(got) - 1, device=dev)
 
 
 def test_compress_with_hints_on_card(rng, dev):
