@@ -13,21 +13,27 @@ every kernel of the path launched. The other paths are driven the same
 way, each with the launch counts set to 0 just before it: the Hadamard
 packer at BASELINE config 3 (the same signal cut to 2^14 samples), the
 hzr packer at the main shape and on config 1's 8,192-sample sine,
-compress_with_hints at the main shape, and the hzr stream encoder
-torch_coder.encode on the main payload's bytes as one stream.
+compress_with_hints at the main shape, the hzr stream encoder
+torch_coder.encode on the main payload's bytes as one stream, and the
+windows routes of the flat pack on the main pass 1.
 
-Phases: 1 build; 2 encode kernels vs plain (pack_flat_lanes too); 3
-compress / host-decode decompress; 5 decode kernels (hzr_decode,
+Phases: 1 build; 2 encode kernels vs plain on every chain (pack_flat_lanes
+too; compact_tokens_ballot, group_windows, place_windows_aligned and
+windows_place_flat, with both windows routes' payload bytes equal to
+pack_flat's); 3 compress / host-decode decompress; 5 decode kernels (hzr_decode,
 place_literals) vs plain at the main-path shape and on edge inputs; 6
 decompress(device_decode=True) and decompress_many with and without
 hints; 7 fwht vs plain; 8 the Hadamard path; 9 the hzr path; 10 the
 hints path; 11 the stream encoder: pack_blocks and pack_blocks_tokw vs
 plain (the main payload as 26 blocks, the main pass 1's 21 blocks, an
 edge batch), encode on the card against the CPU, a device decode and
-the out_capacity rule, entropy_streams_blocks against the flat path; 4,
-last, times each kernel (profiler device time) beside its bound, its
-plain version and a library yardstick, and the host stages and wall
-times of every path. The last two lines are a JSON
+the out_capacity rule, entropy_streams_blocks against the flat path; 12
+the windows routes (pack_tokens_fused and pack_tokens_windows give the main container's streams, each through its
+kernels once), compact_tokens_ballot on the main pass 1, and the xdelta
+growth rule at bps 1-3 on the card; 4, last, times each kernel (profiler
+device time) beside its bound, its plain version and a library
+yardstick (compact_tokens_ballot in turns with compact_tokens and
+masked_select), and the host stages and wall times of every path. The last two lines are a JSON
 object of the kernels and the result line. Exits nonzero, with no
 result line, when there is no CUDA card or any check fails. Imports
 nothing of JAX or of the JAX package.
@@ -141,14 +147,14 @@ def wall_s(fn, reps=3):
     return statistics.median(times)
 
 
-def kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle=True,
+def kernel_inputs(ck, tc, raw, ns, ch, planes, bps=4, swizzle=True,
                   tokenize_raw=False):
     from rspt_tpu_torch.hzr import sidecar
     """Every kernel's inputs along the pass-1 → plan → pass-2 chain, made
     with the plain versions (so a kernel fault cannot feed the next).
     tokenize_raw: tokenize `raw` itself (crafted edge inputs) instead of
     its xdelta."""
-    enc, ok = ck.xdelta_swizzle_plain(raw, ns, ch, planes, swizzle)
+    enc, ok = ck.xdelta_swizzle_plain(raw, ns, ch, planes, bps, swizzle)
     if tokenize_raw:
         enc = raw
     tokw, bwords, hist = ck.tokenize_planes_plain(enc, planes)
@@ -169,15 +175,15 @@ def kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle=True,
                 lut=d(plan.lut), lanes=lanes)
 
 
-def check_chain(ck, tc, name, raw, ns, ch, planes, swizzle=True,
+def check_chain(ck, tc, name, raw, ns, ch, planes, bps=4, swizzle=True,
                 tokenize_raw=False):
     """Each kernel against its plain version along one input's chain."""
-    x = kernel_inputs(ck, tc, raw, ns, ch, planes, swizzle,
+    x = kernel_inputs(ck, tc, raw, ns, ch, planes, bps, swizzle,
                       tokenize_raw)
     p = x["plan"]
     equal(f"{name}/xdelta_swizzle",
-          ck.xdelta_swizzle(raw, ns, ch, planes, swizzle),
-          ck.xdelta_swizzle_plain(raw, ns, ch, planes, swizzle))
+          ck.xdelta_swizzle(raw, ns, ch, planes, bps, swizzle),
+          ck.xdelta_swizzle_plain(raw, ns, ch, planes, bps, swizzle))
     equal(f"{name}/tokenize_planes", ck.tokenize_planes(x["enc"], planes),
           ck.tokenize_planes_plain(x["enc"], planes))
     equal(f"{name}/compact_tokens",
@@ -190,8 +196,57 @@ def check_chain(ck, tc, name, raw, ns, ch, planes, swizzle=True,
         equal(f"{name}/pack_flat_lanes", got,
               ck.pack_flat_lanes_plain(*args, *x["lanes"]))
         equal(f"{name}/pack_flat_lanes words", got[0], words)
+    # X2 against compact_tokens' plain output (which compact_tokens
+    # equals), and the windows routes' kernels (K14, X1, K15)
+    equal(f"{name}/compact_tokens_ballot",
+          ck.compact_tokens_ballot(x["tokw"], x["bases"], p.T), x["tokc"])
+    gl = tc.group_layout(p, raw.device)
+    flat = x["tokc"].reshape(1, -1)
+    w = ck.group_windows(flat, gl.lut3)
+    equal(f"{name}/group_windows", w, ck.group_windows_plain(flat, gl.lut3))
+    glue = ck.windows_glue(*w, gl.dbg, gl.wog, gl.gfirst, gl.nrows_windows,
+                           ck.AR2)
+    x1 = ck.place_windows_aligned(*glue, gl.nrows_windows)
+    equal(f"{name}/place_windows_aligned", x1,
+          ck.place_windows_aligned_plain(*glue, gl.nrows_windows))
+    fused = (x["tokc"].reshape(-1, 128), gl.lut3, gl.dbg, gl.wog, gl.gfirst,
+             gl.ng, gl.nrows_fused)
+    k15 = ck.windows_place_flat(*fused)
+    equal(f"{name}/windows_place_flat", k15,
+          ck.windows_place_flat_plain(*fused))
+    for route, got in (("windows", x1), ("fused", k15)):
+        equal(f"{name}/{route} route payload",
+              payload_bytes(got, p.total_payload),
+              payload_bytes(words, p.total_payload))
     torch.cuda.synchronize()
+    x["groups"] = gl
     return x
+
+
+def payload_bytes(words, n):
+    """The first n bytes of a word buffer (either layout)."""
+    return words.reshape(-1).view(torch.uint8)[:n]
+
+
+def route_streams(tc, x, words, plane_len, planes):
+    """The plane streams that entropy_streams would assemble around
+    payload words of a pack route, from the chain's plan, histograms and
+    COPY rows."""
+    plan = x["plan"]
+    nb_per, lengths = tc.block_layout(plane_len, planes)
+    copy_rows = np.flatnonzero(plan.is_copy)
+    copy_len = np.where(plan.is_copy, lengths, 0).astype(np.int64)
+    copy_np = np.zeros(0, np.uint8)
+    if copy_rows.size:
+        raw = x["bwords"][torch.from_numpy(copy_rows).to(
+            x["bwords"].device)].cpu().numpy().view(np.uint8)
+        copy_np = np.concatenate([raw[j, :lengths[b]]
+                                  for j, b in enumerate(copy_rows)])
+    tight = payload_bytes(words, plan.total_payload).cpu().numpy().copy()
+    tc._or_descriptions(tight, plan.comp_len, plan.desc_bytes)
+    return tc._plane_streams(lengths, nb_per, planes, tight, plan.comp_len,
+                             copy_np, copy_len, plan.is_fill,
+                             x["hist"].cpu().numpy())
 
 
 def fibonacci_bytes(nsym, rng):
@@ -316,9 +371,13 @@ def main() -> int:
     sig, native = make_ecg(ch, ns)
     words = torch.from_numpy(np.frombuffer(native, "<i4").copy()).to(dev)
     main_x = check_chain(ck, tc, "main", words, ns, ch, 3)
+    main_gl = main_x["groups"]
     log(f"phase 2: main-path shapes ok: tokw {tuple(main_x['tokw'].shape)}, "
         f"T {main_x['plan'].T}, payload {main_x['plan'].total_payload} B, "
-        f"COPY blocks {int(main_x['plan'].is_copy.sum())}")
+        f"COPY blocks {int(main_x['plan'].is_copy.sum())}, {main_gl.ng} "
+        f"groups, rows {main_gl.nrows_fused} (fused) and "
+        f"{main_gl.nrows_windows} (windows)")
+    chain_groups = {"main": main_gl.ng}
     rng = np.random.default_rng(7)
     n2 = 65536 + 12345                       # odd tail, two slabs a plane
     edge = rng.integers(-(1 << 23), 1 << 23, n2).astype(np.int32)
@@ -340,25 +399,56 @@ def main() -> int:
     for name, x in cases.items():
         t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         for planes in (1, 3, 4):
-            check_chain(ck, tc, f"{name}/p{planes}", t, x.size, 1,
-                        planes, swizzle=False, tokenize_raw=True)
+            cx = check_chain(ck, tc, f"{name}/p{planes}", t, x.size, 1,
+                             planes, swizzle=False, tokenize_raw=True)
+            chain_groups[f"{name}/p{planes}"] = cx["groups"].ng
     toks = torch.from_numpy(rng.integers(-5, 5, (3, 65536)).astype(
         np.int32)).to(dev)
     tb = torch.tensor([0, 200000, 70000], dtype=torch.int32, device=dev)
     equal("nonzero_valid", ck.compact_tokens(toks, tb, 150000, True),
           ck.compact_tokens_plain(toks, tb, 150000, True))
+    flags = {}   # (the flag, whether every value fits the planes as int32)
     for bps in (2, 3):
         small = (sig >> (32 - 8 * bps)) if bps < 4 else sig
         u8 = torch.from_numpy(np.frombuffer(to_native(small, bps),
                                             np.uint8).copy()).to(dev)
         sig32 = tops.native_to_i32(u8, ns, ch, bps).reshape(-1)
-        check_chain(ck, tc, f"bps{bps}", sig32, ns, ch, bps,
-                    swizzle=False)
+        cx = check_chain(ck, tc, f"bps{bps}", sig32, ns, ch, bps, bps=bps,
+                         swizzle=False)
+        chain_groups[f"bps{bps}"] = cx["groups"].ng
+        # the growth flag from fewer planes than bps at full size: the
+        # ECG, and a wrapping ramp (steps 0..127) whose xdelta values keep
+        # their low 8·bps bits in one plane, though not as int32
+        lim = 1 << (8 * bps)
+        steps = np.random.default_rng(bps).integers(0, 128, ns * ch)
+        ramp = np.cumsum(steps) % lim
+        ramp = torch.from_numpy(np.where(ramp >= lim // 2, ramp - lim, ramp)
+                                .astype(np.int32)).to(dev)
+        for sname, sv in (("ecg", sig32), ("ramp", ramp)):
+            for planes in range(1, bps):
+                got = ck.xdelta_swizzle(sv, ns, ch, planes, bps, False)
+                equal(f"bps{bps}/{sname}/p{planes}/xdelta_swizzle", got,
+                      ck.xdelta_swizzle_plain(sv, ns, ch, planes, bps, False))
+                enc = got[0]
+                sh = 32 - 8 * planes
+                flags[f"bps{bps}/{sname}/p{planes}"] = (
+                    int(got[1]), bool((((enc << sh) >> sh) == enc).all()))
     torch.cuda.synchronize()
+    if 0 not in chain_groups.values():
+        raise AssertionError("no chain without a HUFF block (0 groups)")
+    want_flags = {"bps2/ecg/p1": (0, False), "bps2/ramp/p1": (1, False),
+                  "bps3/ecg/p1": (0, False), "bps3/ecg/p2": (1, True),
+                  "bps3/ramp/p1": (1, False), "bps3/ramp/p2": (1, False)}
+    if flags != want_flags:
+        raise AssertionError(f"xdelta flags at bps < 4: {flags}")
     log("phase 2: all kernels bit-exact against their plain versions "
         "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
-        "FILL/COPY planes, nonzero_valid, bps 2 and 3); pack_flat_lanes "
-        "too, its words equal to pack_flat's")
+        "FILL/COPY planes, nonzero_valid, bps 2 and 3, and xdelta_swizzle "
+        "at bps 2 and 3 from fewer planes on the ECG and a wrapping ramp, "
+        f"flags {flags}); pack_flat_lanes "
+        "too, its words equal to pack_flat's; compact_tokens_ballot equal "
+        "to compact_tokens, and both windows routes' payload bytes equal "
+        f"to pack_flat's on every chain (groups per chain {chain_groups})")
 
     # phase 3: the main path through the packer's entry points
     for k in ck.KERNELS:
@@ -749,6 +839,61 @@ def main() -> int:
     log("phase 11: entropy_streams_blocks on the main pass 1 equals "
         "entropy_streams and the main container's streams")
 
+    # phase 12: the windows routes of the flat pack on the main pass 1,
+    # X2 as the A/B of compact_tokens there, and the growth rule at bps < 4
+    routes = {
+        "fused": lambda: tc.pack_tokens_fused(
+            main_x["tokw"], main_x["bases"], plan.T, main_gl),
+        "windows": lambda: tc.pack_tokens_windows(
+            main_x["tokw"], main_x["bases"], plan.T, main_gl),
+        "ab": lambda: ck.compact_tokens_ballot(main_x["tokw"],
+                                               main_x["bases"], plan.T),
+    }
+    route_launches, route_out = {}, {}
+    for route, fn in routes.items():
+        for k in ck.KERNELS:
+            k.launches = 0
+        route_out[route] = fn()
+        torch.cuda.synchronize()
+        route_launches[route] = {k.__name__: k.launches for k in ck.KERNELS
+                                 if k.launches}
+    log(f"phase 12: launches {route_launches}")
+    want_launches = {
+        "fused": {"compact_tokens": 1, "windows_place_flat": 1},
+        "windows": {"compact_tokens": 1, "group_windows": 1,
+                    "place_windows_aligned": 1},
+        "ab": {"compact_tokens_ballot": 1}}
+    if route_launches != want_launches:
+        raise AssertionError(f"routes launched {route_launches}")
+    for route in ("fused", "windows"):
+        if route_streams(tc, main_x, route_out[route], plane_len,
+                         3) != main_streams:
+            raise AssertionError(f"{route} route: not the main container's "
+                                 "streams")
+    equal("compact_tokens_ballot main", route_out["ab"], main_x["tokc"])
+    if len(comp) != 782762:
+        raise AssertionError(f"main container {len(comp)} B, not 782,762")
+    f1_cases = ((1, [-1, -1], 1, 18), (2, [0, 32767, -32768, 0], 2, 39),
+                (3, [0, 2 ** 23 - 1, -2 ** 23, 0], 3, 58))
+    for bps, vals, want_planes, want_size in f1_cases:
+        v = np.array(vals, np.int64)
+        nat = np.stack([(v >> (8 * k)) & 255 for k in range(bps)],
+                       -1).astype(np.uint8).tobytes()
+        pc = packers.new_xdelta_hzr(bps, 1, len(vals), 1)
+        c12 = pc.compress(nat)
+        if (c12 != packers.new_xdelta_hzr(bps, 1, len(vals), 1, device="cpu")
+                .compress(nat) or (pc.nr_planes, len(c12))
+                != (want_planes, want_size) or pc.decompress(c12)[0] != nat):
+            raise AssertionError(f"bps {bps} growth: {pc.nr_planes} planes, "
+                                 f"{len(c12)} B")
+    log(f"phase 12: pack_tokens_fused ({main_gl.ng} groups, "
+        f"{tuple(route_out['fused'].shape)} words) and pack_tokens_windows "
+        f"({tuple(route_out['windows'].shape)} words) give the main "
+        "container's streams; compact_tokens_ballot equals compact_tokens on "
+        "the main pass 1; the main container is 782,762 B; bps 1/2/3 growth "
+        "from 1 plane gives 1/2/3 planes and 18/39/58 B, equal to the CPU, "
+        "exact round trips")
+
     # phase 4: timings at main-path shapes
     x = main_x
     e = x["enc"]
@@ -771,8 +916,8 @@ def main() -> int:
         "xdelta_swizzle": dict(
             replaces="rspt_tpu/ops/pallas_kernels.py:1615",
             source="rspt_tpu_torch/ops/csrc/xdelta.cu",
-            fn=lambda: ck.xdelta_swizzle(words, ns, ch, 3),
-            plain=lambda: ck.xdelta_swizzle_plain(words, ns, ch, 3, True),
+            fn=lambda: ck.xdelta_swizzle(words, ns, ch, 3, 4),
+            plain=lambda: ck.xdelta_swizzle_plain(words, ns, ch, 3, 4, True),
             library=None,
             bytes=2 * 4 * n + 4, ops=8 * n),
         "tokenize_planes": dict(
@@ -893,6 +1038,57 @@ def main() -> int:
         library=None,
         bytes=nb_m * (4 * 65536 + 4 * 261 + 4 + row_b + 4),
         ops=nb_m * 65536 * 30)
+    # the windows kernels at the main pass 1's 83 groups: every input
+    # read once and every output written once
+    gl = main_gl
+    flat_m = x["tokc"].reshape(1, -1)
+    win_m = ck.group_windows(flat_m, gl.lut3)
+    glue_m = ck.windows_glue(*win_m, gl.dbg, gl.wog, gl.gfirst,
+                             gl.nrows_windows, ck.AR2)
+    k15_m = (x["tokc"].reshape(-1, 128), gl.lut3, gl.dbg, gl.wog, gl.gfirst,
+             gl.ng, gl.nrows_fused)
+    nc_m = gl.ng * ck.R_TV
+    nsup_m = nc_m // ck.SUP_CHUNKS
+    tok_lut_b = 4 * plan.T + gl.ng * 4 * 384    # tokens and LUTs
+    for k in ("group_windows", "place_windows_aligned", "windows_place_flat"):
+        launches[k] = route_launches["windows" if k != "windows_place_flat"
+                                     else "fused"][k]
+    launches["compact_tokens_ballot"] = route_launches["ab"][
+        "compact_tokens_ballot"]
+    rows["group_windows"] = dict(
+        replaces="rspt_tpu/ops/pallas_kernels.py:782",
+        source="rspt_tpu_torch/ops/csrc/windows.cu",
+        fn=lambda: ck.group_windows(flat_m, gl.lut3),
+        plain=lambda: ck.group_windows_plain(flat_m, gl.lut3),
+        library=None,     # no PyTorch call builds bit windows
+        bytes=tok_lut_b + nc_m * (2 * 512 + 8) + 4 * gl.ng,
+        ops=plan.T * 30)
+    rows["place_windows_aligned"] = dict(
+        replaces="tools/exp_place.py:157",
+        source="rspt_tpu_torch/ops/csrc/windows.cu",
+        fn=lambda: ck.place_windows_aligned(*glue_m, gl.nrows_windows),
+        plain=lambda: ck.place_windows_aligned_plain(*glue_m,
+                                                     gl.nrows_windows),
+        library=None,
+        bytes=nc_m * (2 * 512 + 8) + 12 * nsup_m + 512 * gl.nrows_windows,
+        ops=nc_m * 256 * 4)
+    rows["windows_place_flat"] = dict(
+        replaces="rspt_tpu/ops/pallas_kernels.py:1023",
+        source="rspt_tpu_torch/ops/csrc/windows.cu",
+        fn=lambda: ck.windows_place_flat(*k15_m),
+        plain=lambda: ck.windows_place_flat_plain(*k15_m),
+        library=None,
+        # K14's inputs and dbg, wog, gfirst in, the rows out
+        bytes=tok_lut_b + 12 * gl.ng + 512 * gl.nrows_fused,
+        ops=plan.T * 40)
+    rows["compact_tokens_ballot"] = dict(
+        replaces="tools/exp_compact.py:137",
+        source="rspt_tpu_torch/ops/csrc/compact_ballot.cu",
+        fn=lambda: ck.compact_tokens_ballot(tokw, x["bases"], plan.T),
+        plain=lambda: ck.compact_tokens_ballot_plain(tokw, x["bases"],
+                                                     plan.T),
+        library=lambda: torch.masked_select(tok_huff, valid_huff),
+        bytes=rows["compact_tokens"]["bytes"], ops=rows["compact_tokens"]["ops"])
     log(f"phase 4: pack_flat_lanes' own bytes beyond pack_flat: "
         f"{12 * nb + 8 * nl_h} B ({nl_h} lanes), bound "
         f"{(12 * nb + 8 * nl_h) / HBM_BYTES_PER_S * 1e3:.6f} ms")
@@ -928,6 +1124,24 @@ def main() -> int:
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    # X2 against K3 and masked_select, in turns (device times, medians of 5)
+    ab = {"compact_tokens_ballot": ([], rows["compact_tokens_ballot"]["fn"],
+                                    "compact_tokens_ballot_kernel"),
+          "compact_tokens": ([], rows["compact_tokens"]["fn"],
+                             "compact_tokens_kernel"),
+          "masked_select": ([], rows["compact_tokens"]["library"], None)}
+    for _ in range(5):
+        for name, (ts, fn, kname) in ab.items():
+            ts.append(device_ms(fn, kernel=kname) or cuda_ms(fn))
+    ab_ms = {name: statistics.median(ts) for name, (ts, _, _) in ab.items()}
+    x2 = next(k for k in kernels if k["name"] == "compact_tokens_ballot")
+    x2.update(ms=ab_ms["compact_tokens_ballot"],
+              library_ms=ab_ms["masked_select"])
+    log(f"phase 4: in turns (medians of 5): compact_tokens_ballot "
+        f"{ab_ms['compact_tokens_ballot']:.6f} ms, compact_tokens "
+        f"{ab_ms['compact_tokens']:.6f} ms, masked_select "
+        f"{ab_ms['masked_select']:.6f} ms; rounds "
+        f"{ {n: [round(t, 6) for t in ts] for n, (ts, _, _) in ab.items()} }")
     # host stages and end to end
     crc_s = wall_s(lambda: crc32c(np.frombuffer(comp, np.uint8)), reps=3)
     enc_s = wall_s(lambda: p.compress(native))

@@ -18,7 +18,12 @@ Device half, two pack designs:
   with COPY blocks too (their payload is the raw plane bytes the
   tokenizer already wrote). With hints, ``pack_flat_lanes`` also writes
   the device decoder's segment entries (hzr/sidecar.py, the want_hints
-  branch of tpu.py:_entropy_streams).
+  branch of tpu.py:_entropy_streams). Two further routes give the same
+  payload words through the TPU's windows form, per 8,192-token group
+  (``group_layout``): ``pack_tokens_fused`` through windows_place_flat
+  (K15, the fuse_place branch of jax_coder.py:627-636), and
+  ``pack_tokens_windows``, group_windows (K14) → ``ck.windows_glue`` →
+  place_windows_aligned (X1, tools/exp_place.py). No packer takes them.
 - ``pack_blocks`` / ``pack_blocks_tokw``, the per-block positional pack
   (jax_coder.pack_blocks :478-538): every block packs its own row from
   its token slots, no compaction, and every block's bit total comes
@@ -205,6 +210,8 @@ class FlatPlan:
     ntok: np.ndarray         # (nb,) int32 tokens to pack, 0 if not HUFF
     bit0: np.ndarray         # (nb,) int64 first token bit
     lut: np.ndarray          # (nb, 261) int32 code | cbits << 24
+    g2b: np.ndarray          # (ng,) block of each 8,192-token group
+    gfirst: np.ndarray       # (ng,) int32 first group of that block
 
     @property
     def total_payload(self) -> int:
@@ -221,13 +228,47 @@ def flat_plan(hist_np: np.ndarray, lengths_np: np.ndarray) -> FlatPlan:
     _, comp_len, is_huff, is_copy = host_layout(
         hist_np, lengths_np, cbits, desc_bits, is_fill)
     hoff = np.cumsum(comp_len) - comp_len
-    bases, T, _, _, _ = flat_compact_layout(hist_np, is_huff)
+    bases, T, _, g2b, gfirst = flat_compact_layout(hist_np, is_huff)
     return FlatPlan(
         desc_bytes=desc_bytes, desc_bits=desc_bits, is_fill=is_fill,
         is_copy=is_copy, comp_len=comp_len, hoff=hoff, bases=bases, T=T,
         ntok=np.where(is_huff, hist_np.sum(1), 0).astype(np.int32),
         bit0=(hoff * 8 + desc_bits).astype(np.int64),
-        lut=lut_words(codes, cbits))
+        lut=lut_words(codes, cbits), g2b=g2b, gfirst=gfirst)
+
+
+@dataclass
+class GroupLayout:
+    """The windows routes' per-group inputs on a device (the lut3,
+    dbits_g, woff_g and gfirst of jax_coder._pack_tokens_flat2_impl) and
+    their output row counts."""
+    lut3: torch.Tensor       # (ng, 3, 128) int32 LUT of the group's block
+    dbg: torch.Tensor        # (ng,) int32 its block's description bits
+    wog: torch.Tensor        # (ng,) int32 its block's payload byte offset
+    gfirst: torch.Tensor     # (ng,) int32 its block's first group
+    ng: int
+    nrows_fused: int         # rows of windows_place_flat's words
+    nrows_windows: int       # rows of place_windows_aligned's words
+
+
+def group_layout(plan: FlatPlan, device) -> GroupLayout:
+    """plan's group layout on ``device``. The fused route's rows are
+    jax_coder's (packers/tpu.py:410-411: the payload words, 2 spare and
+    ACC_ROWS, rounded up to 8); the windows route adds 8 more
+    (tools/exp_place.py:57-58), so that X1's 56-row spans never meet
+    the wbase clamp on real input."""
+    ng = plan.g2b.size
+    lut3 = np.zeros((ng, 3 * 128), np.int32)
+    lut3[:, :NUM_SYMBOLS] = plan.lut[plan.g2b]
+    rows = -(-(plan.total_payload // 4 + 2) // 128) + ck.ACC_ROWS
+
+    def d(a):
+        return _to_device(np.asarray(a, np.int32), device)
+
+    return GroupLayout(
+        lut3=d(lut3.reshape(ng, 3, 128)), dbg=d(plan.desc_bits[plan.g2b]),
+        wog=d(plan.hoff[plan.g2b]), gfirst=d(plan.gfirst), ng=ng,
+        nrows_fused=-(-rows // 8) * 8, nrows_windows=-(-(rows + 8) // 8) * 8)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +291,32 @@ def pack_tokens_flat(tokw: torch.Tensor, bases: torch.Tensor, T: int,
         return ck.pack_flat_lanes(tokc, bases, ntok, bit0, lut, nwords,
                                   *lanes)
     return ck.pack_flat(tokc, bases, ntok, bit0, lut, nwords)
+
+
+def pack_tokens_fused(tokw: torch.Tensor, bases: torch.Tensor, T: int,
+                      groups: GroupLayout) -> torch.Tensor:
+    """pack_tokens_flat's payload through the fused windows pack, the
+    fuse_place branch of jax_coder._pack_tokens_flat2_impl (:627-636):
+    compact_tokens → windows_place_flat (K15). groups: group_layout(plan).
+    Returns (groups.nrows_fused, 128) int32 words."""
+    tokc = ck.compact_tokens(tokw, bases, T)
+    return ck.windows_place_flat(tokc.reshape(-1, 128), groups.lut3,
+                                 groups.dbg, groups.wog, groups.gfirst,
+                                 groups.ng, groups.nrows_fused)
+
+
+def pack_tokens_windows(tokw: torch.Tensor, bases: torch.Tensor, T: int,
+                        groups: GroupLayout) -> torch.Tensor:
+    """pack_tokens_flat's payload by the tools' two-stage windows pipeline
+    (tools/exp_place.py:68-72, 209-212): compact_tokens → group_windows
+    (K14) → ck.windows_glue with X1's 56-row accumulator →
+    place_windows_aligned (X1). Returns (groups.nrows_windows, 128)
+    int32 words."""
+    tokc = ck.compact_tokens(tokw, bases, T)
+    w = ck.group_windows(tokc.reshape(1, T), groups.lut3)
+    return ck.place_windows_aligned(
+        *ck.windows_glue(*w, groups.dbg, groups.wog, groups.gfirst,
+                         groups.nrows_windows, ck.AR2), groups.nrows_windows)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,7 @@
 // Replaces K4, rspt_tpu/ops/pallas_kernels.py:
 // token_group_windows_rows_pallas (_windows_core, :393-504, :818-867),
 // the cumsum glue of rspt_tpu/hzr/jax_coder.py:648-670, and K5,
-// super_place_flat_pallas (_super_place_body, :599-778); in function also
-// K15, token_windows_place_flat_pallas. The lanes mode
+// super_place_flat_pallas (_super_place_body, :599-778). The lanes mode
 // (pack_flat_lanes_kernel) also replaces K10,
 // token_group_windows_grouped_off_pallas (:381-390, :870-904), and K11,
 // sidecar_entries_pallas (:1440-1591).

@@ -8,7 +8,14 @@
 //   v[i] = interleaved word (i % ns) * ch + i / ns   (swizzle=1)
 //   d[i] = v[i] - v[i-1] - 128,  x[i] = d[i] ^ d[i-1]   (int32 wrap,
 //   v[-1] = d[-1] = 0)
-//   ok  &= every x fits nr_planes signed bytes (nr_planes < 4)
+//   ok  &= sign-extending the low 8 * nr_planes bits of every x leaves
+//          its low 8 * bps bits unchanged (nr_planes < bps)
+//
+// The flag follows the reference, which decompresses and compares the
+// native bps-byte samples (signal_packer_xdelta_hzr.cpp:59-71): their low
+// 8 * bps bits depend only on the low 8 * bps bits of the xdelta values,
+// so at nr_planes >= bps the planes always fit. At bps 4 the rule is
+// "x fits nr_planes signed bytes".
 //
 // The TPU kernel carries the previous value and delta from tile to tile;
 // here each thread looks back two elements, so blocks need no carries.
@@ -34,7 +41,7 @@ __global__ void xdelta_swizzle_kernel(const int32_t* __restrict__ in,
                                       int32_t* __restrict__ out,
                                       int32_t* __restrict__ ok, int n,
                                       int ns, int ch, int swizzle,
-                                      int nr_planes) {
+                                      int nr_planes, int bps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int fits = 1;
   if (i < n) {
@@ -45,9 +52,11 @@ __global__ void xdelta_swizzle_kernel(const int32_t* __restrict__ in,
     uint32_t d1 = i >= 1 ? v1 - v2 - 128u : 0u;
     uint32_t x = d0 ^ d1;
     out[i] = (int32_t)x;
-    if (nr_planes < 4) {
+    if (nr_planes < bps) {
       const int sh = 32 - 8 * nr_planes;
-      fits = ((int32_t)(x << sh) >> sh) == (int32_t)x;
+      const uint32_t keep = bps >= 4 ? 0xffffffffu : (1u << (8 * bps)) - 1u;
+      const uint32_t merged = (uint32_t)((int32_t)(x << sh) >> sh);
+      fits = ((merged ^ x) & keep) == 0;
     }
   }
   if (!__syncthreads_and(fits) && threadIdx.x == 0) atomicAnd(ok, 0);
@@ -56,14 +65,15 @@ __global__ void xdelta_swizzle_kernel(const int32_t* __restrict__ in,
 }  // namespace
 
 // in: n int32 (interleaved when swizzle, else channel-major); out: n
-// int32; ok: one int32 the caller set to 1. Returns cudaGetLastError().
+// int32; ok: one int32 the caller set to 1; bps: bytes per native sample
+// (1..4). Returns cudaGetLastError().
 extern "C" int rspt_xdelta_swizzle(const void* in, void* out, void* ok,
                                    int n, int ns, int ch, int swizzle,
-                                   int nr_planes, void* stream) {
+                                   int nr_planes, int bps, void* stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   xdelta_swizzle_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, (int32_t*)ok, n, ns, ch, swizzle,
-      nr_planes);
+      nr_planes, bps);
   return (int)cudaGetLastError();
 }

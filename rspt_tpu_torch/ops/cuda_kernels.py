@@ -25,6 +25,16 @@ Each replaces (rspt_tpu/ops/pallas_kernels.py):
   pack_blocks_tokw the same over token words: K13b
                    token_group_windows_tokw_pallas
   fwht             K12 fwht_pallas
+  group_windows    K14 token_group_windows_grouped_pallas
+  place_windows_aligned
+                   X1 tools/exp_place.py:place_aligned, K5 with 8-row
+                   aligned spans
+  windows_place_flat
+                   K15 token_windows_place_flat_pallas: K14's windows,
+                   the cross-group bit carry and K5's placement
+  compact_tokens_ballot
+                   X2 tools/exp_compact.py:compact_bf, K3 by another
+                   route
 and (rspt_tpu/hzr/pallas_decoder.py):
   hzr_decode       K6 _run_kernel / _decode_kernel, the lockstep decoder
   place_literals   the placement chain of _place_emissions: K7
@@ -59,7 +69,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
-        "rspt_xdelta_swizzle": [P, P, P, I, I, I, I, I, P],
+        "rspt_xdelta_swizzle": [P, P, P, I, I, I, I, I, I, P],
         "rspt_tokenize_planes": [P, P, P, P, I, I, I, P],
         "rspt_compact_tokens": [P, P, P, I, I, I, I, P],
         "rspt_pack_flat": [P, P, P, P, P, P, I, I, I, P],
@@ -70,6 +80,10 @@ def _lib() -> ctypes.CDLL:
         "rspt_fwht_launches": [I],
         "rspt_hzr_decode": [P] * 17 + [I] * 7 + [P],
         "rspt_place_literals": [P] * 6 + [I] * 3 + [P],
+        "rspt_group_windows": [P] * 7 + [I] + [P],
+        "rspt_place_windows_aligned": [P] * 8 + [I] * 2 + [P],
+        "rspt_windows_place_flat": [P] * 7 + [I] * 2 + [P],
+        "rspt_compact_tokens_ballot": [P] * 3 + [I] * 3 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -114,35 +128,43 @@ def _launch(name: str, fn, *args, device: torch.device) -> None:
 # Kernel 1 — xdelta_swizzle (K1)
 # ---------------------------------------------------------------------------
 
-def _fits_planes(enc: torch.Tensor, nr_planes: int) -> torch.Tensor:
-    """(1,) int32: 1 if every value fits nr_planes signed bytes
-    (packers/tpu.py:169-174), else 0."""
-    if nr_planes >= 4:
+def _fits_planes(enc: torch.Tensor, nr_planes: int,
+                 bytes_per_sample: int) -> torch.Tensor:
+    """(1,) int32: 1 if nr_planes planes keep every sample's native bytes,
+    else 0. The reference decompresses and compares the native samples
+    (signal_packer_xdelta_hzr.cpp:59-71), and their low 8 * bps bits
+    depend only on the low 8 * bps bits of the xdelta values: so the
+    planes fit iff sign-extending each value's low 8 * nr_planes bits
+    leaves its low 8 * bps bits unchanged (always at nr_planes >= bps)."""
+    if nr_planes >= bytes_per_sample:
         return torch.ones(1, dtype=torch.int32, device=enc.device)
-    lim = 1 << (8 * nr_planes - 1)
-    ok = ((enc >= -lim) & (enc < lim)).all()
+    v = enc.to(torch.int64) & _M32
+    merged = tops._sign_extend(v & ((1 << 8 * nr_planes) - 1), 8 * nr_planes)
+    keep = (1 << 8 * bytes_per_sample) - 1
+    ok = (((merged ^ v) & keep) == 0).all()
     return ok.to(torch.int32).reshape(1)
 
 
 def xdelta_swizzle_plain(x: torch.Tensor, nr_samples: int, nr_channels: int,
-                         nr_planes: int, swizzle: bool
+                         nr_planes: int, bytes_per_sample: int, swizzle: bool
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     n = nr_samples * nr_channels
     v = x[:n].reshape(nr_samples, nr_channels).T.reshape(-1) if swizzle \
         else x[:n]
     enc = tops.xor_encode(tops.offset32(tops.delta_encode(v), -128))
-    return enc, _fits_planes(enc, nr_planes)
+    return enc, _fits_planes(enc, nr_planes, bytes_per_sample)
 
 
 def xdelta_swizzle(x: torch.Tensor, nr_samples: int, nr_channels: int,
-                   nr_planes: int, swizzle: bool = True
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   nr_planes: int, bytes_per_sample: int,
+                   swizzle: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat xdelta (delta → offset −128 → xor, int32 wrap) of the signal,
-    channel-major, and the verify-and-grow flag.
+    channel-major, and the verify-and-grow flag: 1 if nr_planes byte
+    planes keep every bytes_per_sample-byte sample (_fits_planes).
 
     x: int32, the interleaved '<i4' sample words (swizzle=True, bps 4)
     or the channel-major int32 signal (swizzle=False, after the u8
-    native_to_i32 path for bps 2/3). Returns (enc (n,) int32,
+    native_to_i32 path for bps < 4). Returns (enc (n,) int32,
     ok (1,) int32)."""
     n = nr_samples * nr_channels
     _check(x, "x", torch.int32)
@@ -150,14 +172,16 @@ def xdelta_swizzle(x: torch.Tensor, nr_samples: int, nr_channels: int,
         raise ValueError(f"x: need 1-D with >= {n} > 0 words")
     if not 1 <= nr_planes <= 4:
         raise ValueError("nr_planes must be 1..4")
+    if not 1 <= bytes_per_sample <= 4:
+        raise ValueError("bytes_per_sample must be 1..4")
     if not _on_cuda(x):
         return xdelta_swizzle_plain(x, nr_samples, nr_channels, nr_planes,
-                                    swizzle)
+                                    bytes_per_sample, swizzle)
     enc = torch.empty(n, dtype=torch.int32, device=x.device)
     ok = torch.ones(1, dtype=torch.int32, device=x.device)
     _launch("xdelta_swizzle", _lib().rspt_xdelta_swizzle, x.data_ptr(),
             enc.data_ptr(), ok.data_ptr(), n, nr_samples, nr_channels,
-            int(swizzle), nr_planes, device=x.device)
+            int(swizzle), nr_planes, bytes_per_sample, device=x.device)
     xdelta_swizzle.launches += 1
     return enc, ok
 
@@ -239,19 +263,24 @@ def compact_tokens_plain(tokw: torch.Tensor, bases: torch.Tensor,
     return out
 
 
+def _check_compact_args(tokw, bases, t_total):
+    _check(tokw, "tokw", torch.int32)
+    if tokw.dim() != 2:
+        raise ValueError("tokw: need (nb, ntok)")
+    nb, ntok = tokw.shape
+    _check(bases, "bases", torch.int32, (nb,))
+    if not 0 <= t_total < 2**31 or ntok >= 2**31 - 2**16:
+        raise ValueError("t_total out of range")
+    return nb, ntok
+
+
 def compact_tokens(tokw: torch.Tensor, bases: torch.Tensor, t_total: int,
                    nonzero_valid: bool = False) -> torch.Tensor:
     """Order-preserving compaction: row b's valid words (bit 27, or
     != 0 under nonzero_valid) land in order at bases[b] of a zeroed
     (t_total,) int32 buffer. Rows with bases[b] >= t_total write
     nothing; nothing is written past t_total."""
-    _check(tokw, "tokw", torch.int32)
-    if tokw.dim() != 2:
-        raise ValueError("tokw: need (nb, ntok)")
-    nb, ntok = tokw.shape
-    _check(bases, "bases", torch.int32, (nb,))
-    if not 0 <= t_total < 2**31 or ntok >= 2**31:
-        raise ValueError("t_total out of range")
+    nb, ntok = _check_compact_args(tokw, bases, t_total)
     if not _on_cuda(tokw, bases):
         return compact_tokens_plain(tokw, bases, t_total, nonzero_valid)
     out = torch.zeros(t_total, dtype=torch.int32, device=tokw.device)
@@ -852,6 +881,313 @@ def place_literals(emis: torch.Tensor, steps: torch.Tensor,
 
 place_literals.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# Kernels 7-9 — the windows pack: group_windows (K14), place_windows_aligned
+# (X1), windows_place_flat (K15)
+# ---------------------------------------------------------------------------
+#
+# The TPU's flat pack in two stages: per 8,192-token group, each 128-token
+# chunk's bits in a 256-word window (K14), then per super of 32 chunks the
+# windows merged in an accumulator of ACC_ROWS (AR2) rows of 128 words,
+# bit-shifted by the group's misalignment and added into the flat payload
+# words (K5, X1). Both port the TPU functions as they compute, clamps and
+# cyclic accumulator wraps included; on real input none of those fires.
+
+GROUP_TOK = 8192          # tokens per windows group
+R_TV = 64                 # 128-token chunks per group
+SUP_CHUNKS = 32           # chunks merged per super placement
+ACC_ROWS = 48             # K5 / K15 super accumulator rows
+AR2 = 56                  # X1's accumulator rows (8 more for the alignment)
+D_CLAMP = 40 * 128 - 1    # a chunk's largest word offset in its super
+WIN = 256                 # words per chunk window
+
+
+def group_windows_plain(tokc, lut3):
+    ng = lut3.shape[0]
+    nc = ng * R_TV
+    dev = tokc.device
+    sym, extra, ebits, valid = _unpack_tokw(tokc.reshape(-1).to(torch.int64))
+    # the TPU kernel's three 128-entry LUT rows: row 2 for every sym >= 256
+    idx = torch.where(sym < 256, sym, 256 + (sym & 127))
+    grp = torch.arange(ng * GROUP_TOK, device=dev) // GROUP_TOK
+    e = lut3.reshape(ng, 3 * 128).to(torch.int64)[grp, idx] & _M32
+    cb = e >> 24
+    nbits = torch.where(valid, cb + ebits, 0).reshape(ng, GROUP_TOK)
+    val = torch.where(valid, (e & 0xFFFFFF) | (extra << cb), 0)
+    excl = (torch.cumsum(nbits, 1) - nbits).reshape(nc, 128)
+    word = excl >> 5
+    cbase = word[:, 0]
+    loc = (word - cbase[:, None]).clamp(0, WIN - 2)
+    rows = torch.arange(nc, device=dev)[:, None].expand(nc, 128)
+    win = _place_words(rows, loc * 32 + (excl & 31), val, nc, WIN)
+    return (win[:, :128].reshape(1, nc, 128).contiguous(),
+            win[:, 128:].reshape(1, nc, 128).contiguous(),
+            cbase.to(torch.int32).reshape(1, nc),
+            (nbits.reshape(nc, 128) > 0).any(1).to(torch.int32).reshape(1, nc),
+            nbits.sum(1).to(torch.int32).reshape(1, ng))
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def group_windows(tokc: torch.Tensor, lut3: torch.Tensor):
+    """K14's windows of a flat compacted token stream whose 8,192-token
+    groups each belong to one block: tokc (1, ng * 8192) int32 token
+    words, lut3 (ng, 3, 128) int32 each group's LUT (code | cbits << 24,
+    261 entries zero-padded to 384; a token of sym >= 256 reads entry
+    256 + (sym & 127)).
+
+    With excl a token's group-local exclusive bit offset and its value
+    placed LSB-first from bit excl, chunk c's window holds the words
+    cbase[c] = excl[first token] >> 5 onwards; a token's words land at
+    min(excl >> 5 - cbase, 254) and the next two, and a word at window
+    index >= 256 is dropped. Returns (w0, w1 (1, ng * 64, 128): window
+    words 0-127 and 128-255; cbase, clive (1, ng * 64): base word and
+    whether any token has bits; gtot (1, ng): each group's bit total),
+    all int32."""
+    _check(tokc, "tokc", torch.int32)
+    if tokc.dim() != 2 or tokc.shape[0] != 1 or tokc.shape[1] % GROUP_TOK:
+        raise ValueError(f"tokc: need (1, ng * {GROUP_TOK})")
+    ng = tokc.shape[1] // GROUP_TOK
+    _check(lut3, "lut3", torch.int32, (ng, 3, 128))
+    if ng >= 2**31 // GROUP_TOK:
+        raise ValueError("tokc: too many groups")
+    if not _on_cuda(tokc, lut3):
+        return group_windows_plain(tokc, lut3)
+    nc = ng * R_TV
+    kw = dict(dtype=torch.int32, device=tokc.device)
+    outs = (torch.empty((1, nc, 128), **kw), torch.empty((1, nc, 128), **kw),
+            torch.empty((1, nc), **kw), torch.empty((1, nc), **kw),
+            torch.empty((1, ng), **kw))
+    if ng == 0:
+        return outs
+    if not _aligned16(tokc):
+        raise ValueError("group_windows: tokc must be 16-byte aligned")
+    _launch("group_windows", _lib().rspt_group_windows, tokc.data_ptr(),
+            lut3.data_ptr(), *[t.data_ptr() for t in outs], ng,
+            device=tokc.device)
+    group_windows.launches += 1
+    return outs
+
+
+group_windows.launches = 0
+
+
+def windows_glue(w0, w1, cbase, clive, gtot, dbg, wog, gfirst, nrows: int,
+                 ar: int):
+    """The cumsum + broadcast glue between K14 and K5
+    (jax_coder.py:648-670; tools/exp_place.py:182-206 with its `ar`), as
+    torch ops on the windows' device: the global exclusive scan of the
+    group bit totals restarted at each block's first group gfirst[g],
+    group_base = wog * 8 + dbg + that scan (int32), and per super of 32
+    chunks its chunks' word offsets d = clip(cbase - the super's first
+    cbase, 0, D_CLAMP), its word base clip((group_base >> 5) + first
+    cbase, 0, (nrows - ar) * 128), its bit misalignment group_base & 31
+    and whether any chunk is live. Returns K5's seven inputs: w0, w1,
+    drow (1, nc, 1), dlane (1, nsup, 32), wbase, sbits, slive (1, nsup,
+    1), int32."""
+    ng = gtot.shape[1]
+    nc = cbase.shape[1]
+    nsup = nc // SUP_CHUNKS
+    g = gtot.reshape(ng).to(torch.int64)
+    e = torch.cumsum(g, 0) - g
+    e_in = e - e[gfirst.to(torch.int64)]
+    group_base = tops._wrap32(wog.to(torch.int64) * 8 + dbg.to(torch.int64)
+                              + e_in).to(torch.int64)
+    cb = cbase.reshape(nsup, SUP_CHUNKS).to(torch.int64)
+    superbase = cb[:, 0]
+    d = (cb - superbase[:, None]).clamp(0, D_CLAMP)
+    gb_s = group_base.repeat_interleave(nsup // ng if ng else 0)
+    wbase = ((gb_s >> 5) + superbase).clamp(0, (nrows - ar) * 128)
+    slive = (clive.reshape(nsup, SUP_CHUNKS) > 0).any(1)
+
+    def i32(a, *shape):
+        return a.to(torch.int32).reshape(shape).contiguous()
+
+    return (w0, w1, i32(d, 1, nc, 1), i32(d, 1, nsup, SUP_CHUNKS),
+            i32(wbase, 1, nsup, 1), i32(gb_s & 31, 1, nsup, 1),
+            i32(slive, 1, nsup, 1))
+
+
+def _place_supers(w0, w1, drow, dlane, wbase, sbits, slive, nrows: int,
+                  ar: int, aligned: bool):
+    """K5's placement (_super_place_body) with an ar-row accumulator, or
+    X1's (_flat_kernel_aligned) with aligned: chunk c's window lands at
+    word (rc * 128 + t + x) mod ar * 128 of its super's accumulator (rc
+    = dlane >> 7 < ar, t = drow & 127), the accumulator is shifted left
+    by sbits bits as a cyclic bit string, rotated by off and added at
+    word base of the output: base = (wbase >> 7) * 128 (X1: the row
+    rounded down to a multiple of 8), off = wbase - base. Words outside
+    the output are dropped."""
+    dev = w0.device
+    nc = w0.shape[1]
+    nsup = nc // SUP_CHUNKS
+    n = ar * 128
+    nout = nrows * 128
+    out = torch.zeros(nout + 1, dtype=torch.int64, device=dev)
+    live = torch.nonzero(slive.reshape(nsup) != 0)[:, 0]
+    L = live.numel()
+    if L:
+        win = torch.cat([w0[0], w1[0]], 1).to(torch.int64) & _M32
+        win = win.reshape(nsup, SUP_CHUNKS, WIN)[live]
+        t = drow.reshape(nsup, SUP_CHUNKS)[live].to(torch.int64) & 127
+        rc = dlane.reshape(nsup, SUP_CHUNKS)[live].to(torch.int64) >> 7
+        ok = ((rc >= 0) & (rc < ar))[:, :, None]
+        k = ((rc * 128 + t)[:, :, None]
+             + torch.arange(WIN, device=dev)) % n
+        idx = torch.arange(L, device=dev)[:, None, None] * n + k
+        acc = torch.zeros(L * n + 1, dtype=torch.int64, device=dev)
+        acc.index_add_(0, torch.where(ok, idx, L * n).reshape(-1),
+                       torch.where(ok, win, 0).reshape(-1))
+        acc = acc[:-1].reshape(L, n) & _M32
+        sb = sbits.reshape(nsup)[live].to(torch.int64)[:, None] & 31
+        # sb = 0: the previous word >> 32 is 0
+        acc = ((acc << sb) & _M32) | (torch.roll(acc, 1, 1) >> (32 - sb))
+        b = wbase.reshape(nsup)[live].to(torch.int64)
+        row0 = b >> 7
+        if aligned:
+            row0 = row0 & ~7
+        base = row0 * 128
+        dest = base[:, None] + (torch.arange(n, device=dev)
+                                + (b - base)[:, None]) % n
+        inb = (dest >= 0) & (dest < nout)
+        out.index_add_(0, torch.where(inb, dest, nout).reshape(-1),
+                       torch.where(inb, acc, 0).reshape(-1))
+    return tops._wrap32(out[:-1].reshape(nrows, 128))
+
+
+def place_windows_aligned_plain(w0, w1, drow, dlane, wbase, sbits, slive,
+                                nrows: int):
+    return _place_supers(w0, w1, drow, dlane, wbase, sbits, slive, nrows,
+                         AR2, True)
+
+
+def place_windows_aligned(w0: torch.Tensor, w1: torch.Tensor,
+                          drow: torch.Tensor, dlane: torch.Tensor,
+                          wbase: torch.Tensor, sbits: torch.Tensor,
+                          slive: torch.Tensor, nrows: int) -> torch.Tensor:
+    """X1: K5's placement of chunk windows into one flat (nrows, 128)
+    int32 word buffer, each super's span written from an 8-row-aligned
+    row with a 56-row accumulator (_place_supers with aligned). Inputs
+    are windows_glue's with ar = AR2: w0, w1 (1, nc, 128), drow (1, nc,
+    1), dlane (1, nc / 32, 32), wbase, sbits, slive (1, nc / 32, 1), all
+    int32; nrows >= 56. Supers whose spans share more than an edge word
+    are not supported (real windows never do)."""
+    _check(w0, "w0", torch.int32)
+    if w0.dim() != 3 or w0.shape[0] != 1 or w0.shape[2] != 128 \
+            or w0.shape[1] % SUP_CHUNKS:
+        raise ValueError(f"w0: need (1, nc, 128), nc a multiple of "
+                         f"{SUP_CHUNKS}")
+    nc = w0.shape[1]
+    nsup = nc // SUP_CHUNKS
+    _check(w1, "w1", torch.int32, (1, nc, 128))
+    _check(drow, "drow", torch.int32, (1, nc, 1))
+    _check(dlane, "dlane", torch.int32, (1, nsup, SUP_CHUNKS))
+    for name, t in (("wbase", wbase), ("sbits", sbits), ("slive", slive)):
+        _check(t, name, torch.int32, (1, nsup, 1))
+    if not AR2 <= nrows < 2**31 // 128:
+        raise ValueError(f"nrows: need {AR2} <= nrows < 2^24")
+    args = (w0, w1, drow, dlane, wbase, sbits, slive)
+    if not _on_cuda(*args):
+        return place_windows_aligned_plain(*args, nrows)
+    out = torch.zeros((nrows, 128), dtype=torch.int32, device=w0.device)
+    if nsup == 0:
+        return out
+    _launch("place_windows_aligned", _lib().rspt_place_windows_aligned,
+            *[t.data_ptr() for t in args], out.data_ptr(), nsup, nrows,
+            device=w0.device)
+    place_windows_aligned.launches += 1
+    return out
+
+
+place_windows_aligned.launches = 0
+
+
+def windows_place_flat_plain(tokc, lut3, dbg, wog, gfirst, ng: int,
+                             nrows: int):
+    w = group_windows_plain(tokc.reshape(-1)[:ng * GROUP_TOK].reshape(1, -1),
+                            lut3)
+    args = windows_glue(*w, dbg, wog, gfirst, nrows, ACC_ROWS)
+    return _place_supers(*args, nrows, ACC_ROWS, False)
+
+
+def windows_place_flat(tokc: torch.Tensor, lut3: torch.Tensor,
+                       dbg: torch.Tensor, wog: torch.Tensor,
+                       gfirst: torch.Tensor, ng: int,
+                       nrows: int) -> torch.Tensor:
+    """K15: the flat payload words of the first ng groups of compacted
+    tokens tokc ((t_rows, 128) int32, t_rows >= ng * 64) in one kernel:
+    K14's windows, the exclusive scan of the group bit totals restarted
+    at each block's first group gfirst[g], the group's base bit wog[g] *
+    8 + dbg[g] + that scan, and K5's placement with the 48-row
+    accumulator (group_windows → windows_glue(ar=ACC_ROWS) → K5).
+    lut3 (ng, 3, 128), dbg, wog, gfirst (ng,) int32 (description bits,
+    payload byte offset and first group of each group's block); nrows
+    >= 48. Returns (nrows, 128) int32."""
+    _check(tokc, "tokc", torch.int32)
+    if tokc.dim() != 2 or tokc.shape[1] != 128 or tokc.shape[0] < ng * R_TV:
+        raise ValueError(f"tokc: need (t_rows >= {ng * R_TV}, 128)")
+    if not 0 <= ng < 2**31 // GROUP_TOK:
+        raise ValueError("ng out of range")
+    _check(lut3, "lut3", torch.int32, (ng, 3, 128))
+    for name, t in (("dbg", dbg), ("wog", wog), ("gfirst", gfirst)):
+        _check(t, name, torch.int32, (ng,))
+    if not ACC_ROWS <= nrows < 2**31 // 128:
+        raise ValueError(f"nrows: need {ACC_ROWS} <= nrows < 2^24")
+    args = (tokc, lut3, dbg, wog, gfirst)
+    if not _on_cuda(*args):
+        return windows_place_flat_plain(*args, ng, nrows)
+    dev = tokc.device
+    out = torch.zeros((nrows, 128), dtype=torch.int32, device=dev)
+    if ng == 0:
+        return out
+    if not _aligned16(tokc):
+        raise ValueError("windows_place_flat: tokc must be 16-byte aligned")
+    # [0]: the group ticket; [1 + g]: group g's bit total + 1 once known
+    state = torch.zeros(ng + 1, dtype=torch.int32, device=dev)
+    _launch("windows_place_flat", _lib().rspt_windows_place_flat,
+            *[t.data_ptr() for t in args], out.data_ptr(), state.data_ptr(),
+            ng, nrows, device=dev)
+    windows_place_flat.launches += 1
+    return out
+
+
+windows_place_flat.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10 — compact_tokens_ballot (X2)
+# ---------------------------------------------------------------------------
+
+def compact_tokens_ballot_plain(tokw: torch.Tensor, bases: torch.Tensor,
+                                t_total: int) -> torch.Tensor:
+    return compact_tokens_plain(tokw, bases, t_total)
+
+
+def compact_tokens_ballot(tokw: torch.Tensor, bases: torch.Tensor,
+                          t_total: int) -> torch.Tensor:
+    """compact_tokens (bit-27 validity) by warp ballots: the same
+    (t_total,) int32 words. Row b's valid words land in order at
+    bases[b]; a row with bases[b] >= t_total writes nothing; nothing is
+    written past t_total."""
+    nb, ntok = _check_compact_args(tokw, bases, t_total)
+    if not _on_cuda(tokw, bases):
+        return compact_tokens_ballot_plain(tokw, bases, t_total)
+    out = torch.zeros(t_total, dtype=torch.int32, device=tokw.device)
+    if nb == 0 or t_total == 0:
+        return out
+    _launch("compact_tokens_ballot", _lib().rspt_compact_tokens_ballot,
+            tokw.data_ptr(), bases.data_ptr(), out.data_ptr(), nb, ntok,
+            t_total, device=tokw.device)
+    compact_tokens_ballot.launches += 1
+    return out
+
+
+compact_tokens_ballot.launches = 0
+
 KERNELS = (xdelta_swizzle, tokenize_planes, compact_tokens, pack_flat,
            pack_flat_lanes, pack_blocks, pack_blocks_tokw, fwht, hzr_decode,
-           place_literals)
+           place_literals, group_windows, place_windows_aligned,
+           windows_place_flat, compact_tokens_ballot)

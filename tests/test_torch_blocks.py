@@ -254,7 +254,7 @@ def test_entropy_streams_blocks(rng, tpack):
     assert comp == tpack.new_xdelta_hzr(4, ch, ns, planes).compress(native)
     _, want, _ = pg._streams(comp, planes, 0)
     words = torch.from_numpy(np.frombuffer(native, "<i4").copy())
-    enc, _ = ck.xdelta_swizzle(words, ns, ch, planes)
+    enc, _ = ck.xdelta_swizzle(words, ns, ch, planes, 4)
     tokw, bwords, hist = ck.tokenize_planes(enc, planes)
     hist_np = hist.numpy()
     times = {}

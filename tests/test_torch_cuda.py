@@ -36,8 +36,8 @@ def test_kernel_chain_matches_plain(rng, dev, planes):
     """Each kernel vs its plain version along one pass-1 → pass-2 chain."""
     ch, ns = 4, 30011
     words = torch.from_numpy(_sig(rng, ch, ns, 900.0)).to(dev)
-    enc, ok = ck.xdelta_swizzle(words, ns, ch, planes)
-    enc_p, ok_p = ck.xdelta_swizzle_plain(words, ns, ch, planes, True)
+    enc, ok = ck.xdelta_swizzle(words, ns, ch, planes, 4)
+    enc_p, ok_p = ck.xdelta_swizzle_plain(words, ns, ch, planes, 4, True)
     assert torch.equal(enc, enc_p) and torch.equal(ok, ok_p)
     got = ck.tokenize_planes(enc, planes)
     want = ck.tokenize_planes_plain(enc, planes)
@@ -153,7 +153,7 @@ def test_pack_flat_lanes_matches_plain(rng, dev):
     from rspt_tpu_torch.hzr import sidecar
     ch, ns = 4, 30011
     words = torch.from_numpy(_sig(rng, ch, ns, 60.0)).to(dev)
-    enc, _ = ck.xdelta_swizzle(words, ns, ch, 3)
+    enc, _ = ck.xdelta_swizzle(words, ns, ch, 3, 4)
     tokw, _, hist = ck.tokenize_planes(enc, 3)
     _, lengths = tc.block_layout(enc.numel(), 3)
     plan = tc.flat_plan(hist.cpu().numpy(), lengths)
@@ -258,3 +258,128 @@ def test_compress_with_hints_on_card(rng, dev):
     gd._hint_registry.clear()
     assert p.decompress_many([comp], hints=hints) == [native]
     assert p.decode_info["hinted"] and max(p.decode_info["fp_iters"]) == 0
+
+
+@pytest.mark.parametrize("bps,vals,planes,size", [
+    (1, [-1, -1], 1, 18),
+    (2, [0, 32767, -32768, 0], 2, 39),
+    (3, [0, 2 ** 23 - 1, -2 ** 23, 0], 3, 58)])
+def test_xdelta_growth_small_bps_on_card(dev, bps, vals, planes, size):
+    """The verify-and-grow flag at bps < 4 on the card: the reference's
+    plane count and container (the CPU port's), an exact round trip."""
+    v = np.array(vals, np.int64)
+    native = np.stack([(v >> (8 * k)) & 255 for k in range(bps)],
+                      -1).astype(np.uint8).tobytes()
+    p = gpack.new_xdelta_hzr(bps, 1, len(vals), 1, device=dev)
+    comp = p.compress(native)
+    cpu = gpack.new_xdelta_hzr(bps, 1, len(vals), 1, device="cpu")
+    assert comp == cpu.compress(native)
+    assert (p.nr_planes, len(comp)) == (planes, size)
+    assert p.decompress(comp)[0] == native
+
+
+def _windows_batch(rng, dev):
+    """A 3-plane batch with a block of 8 groups (a dense skewed plane 0
+    with one long zero run), a short one-group block, FILL blocks and a
+    COPY block: its token words, plan, bases, group layout and
+    histograms."""
+    n = 65536 + 3000
+    p0 = np.minimum(rng.geometric(0.45, n), 200)
+    p0[20000:25000] = 0
+    p2 = np.where(rng.random(n) < 0.05, rng.integers(1, 256, n), 0)
+    p2[65536:] = rng.integers(0, 256, n - 65536)
+    x = (p0 | (3 << 8) | (p2 << 16)).astype(np.int32)
+    tokw, _, hist = ck.tokenize_planes(torch.from_numpy(x).to(dev), 3)
+    _, lengths = tc.block_layout(n, 3)
+    hist_np = hist.cpu().numpy()
+    plan = tc.flat_plan(hist_np, lengths)
+    bases = torch.from_numpy(plan.bases).to(dev)
+    return tokw, plan, bases, tc.group_layout(plan, dev), hist_np
+
+
+def test_windows_kernels_match_plain(rng, dev):
+    """compact_tokens_ballot, group_windows, place_windows_aligned and
+    windows_place_flat against their plain versions on the card; both
+    routes' payload bytes equal pack_flat's."""
+    tokw, plan, bases, gl, _ = _windows_batch(rng, dev)
+    assert gl.ng == 10 and plan.is_copy.any() and plan.is_fill.any()
+    tokc = ck.compact_tokens(tokw, bases, plan.T)
+    assert torch.equal(ck.compact_tokens_ballot(tokw, bases, plan.T), tokc)
+    assert torch.equal(ck.compact_tokens_ballot_plain(tokw, bases, plan.T),
+                       tokc)
+    w = ck.group_windows(tokc.reshape(1, -1), gl.lut3)
+    for g, p in zip(w, ck.group_windows_plain(tokc.reshape(1, -1), gl.lut3)):
+        assert torch.equal(g, p)
+    glue = ck.windows_glue(*w, gl.dbg, gl.wog, gl.gfirst, gl.nrows_windows,
+                           ck.AR2)
+    x1 = ck.place_windows_aligned(*glue, gl.nrows_windows)
+    assert torch.equal(x1, ck.place_windows_aligned_plain(
+        *glue, gl.nrows_windows))
+    fargs = (tokc.reshape(-1, 128), gl.lut3, gl.dbg, gl.wog, gl.gfirst,
+             gl.ng, gl.nrows_fused)
+    k15 = ck.windows_place_flat(*fargs)
+    assert torch.equal(k15, ck.windows_place_flat_plain(*fargs))
+    words = ck.pack_flat(tokc, bases, torch.from_numpy(plan.ntok).to(dev),
+                         torch.from_numpy(plan.bit0).to(dev),
+                         torch.from_numpy(plan.lut).to(dev), plan.nwords)
+    nbytes = plan.total_payload
+    want = words.cpu().numpy().view(np.uint8)[:nbytes]
+    for got in (x1, k15):
+        assert np.array_equal(
+            got.cpu().numpy().reshape(-1).view(np.uint8)[:nbytes], want)
+
+
+def test_windows_routes_launch_their_kernels(rng, dev):
+    """pack_tokens_fused launches compact_tokens and
+    windows_place_flat once, pack_tokens_windows compact_tokens,
+    group_windows and place_windows_aligned once; a batch with no HUFF
+    block launches no windows kernel."""
+    tokw, plan, bases, gl, _ = _windows_batch(rng, dev)
+    names = ("compact_tokens", "group_windows", "place_windows_aligned",
+             "windows_place_flat", "pack_flat")
+
+    def count(fn):
+        for k in ck.KERNELS:
+            k.launches = 0
+        fn()
+        return tuple(getattr(ck, n).launches for n in names)
+
+    assert count(lambda: tc.pack_tokens_fused(
+        tokw, bases, plan.T, gl)) == (1, 0, 0, 1, 0)
+    assert count(lambda: tc.pack_tokens_windows(
+        tokw, bases, plan.T, gl)) == (1, 1, 1, 0, 0)
+    copy = torch.from_numpy(rng.integers(0, 1 << 27, (2, 65536)).astype(
+        np.int32) | (1 << 27)).to(dev)
+    _, lengths = tc.block_layout(65536, 2)
+    empty = tc.flat_plan(np.full((2, 261), 300, np.int32), lengths)
+    gl0 = tc.group_layout(empty, dev)
+    assert gl0.ng == 0
+    eb = torch.from_numpy(empty.bases).to(dev)
+    for route in (tc.pack_tokens_windows, tc.pack_tokens_fused):
+        assert count(lambda: route(copy, eb, 0, gl0))[1:4] == (0, 0, 0)
+
+
+def test_windows_place_flat_many_groups(rng, dev):
+    """windows_place_flat on 160 groups (the batch 16 times over, more
+    groups than the card has SMs): its look-back carry gives the plain
+    version's words, and pack_flat's payload bytes, on every one of
+    several launches."""
+    tokw, _, _, _, hist = _windows_batch(rng, dev)
+    _, lengths = tc.block_layout(65536 + 3000, 3)
+    big = tokw.repeat(16, 1).contiguous()
+    bplan = tc.flat_plan(np.tile(hist, (16, 1)), np.tile(lengths, 16))
+    gl = tc.group_layout(bplan, dev)
+    assert gl.ng == 160
+    bases = torch.from_numpy(bplan.bases).to(dev)
+    tokc = ck.compact_tokens(big, bases, bplan.T)
+    args = (tokc.reshape(-1, 128), gl.lut3, gl.dbg, gl.wog, gl.gfirst,
+            gl.ng, gl.nrows_fused)
+    want = ck.windows_place_flat_plain(*args)
+    words = ck.pack_flat(tokc, bases, torch.from_numpy(bplan.ntok).to(dev),
+                         torch.from_numpy(bplan.bit0).to(dev),
+                         torch.from_numpy(bplan.lut).to(dev), bplan.nwords)
+    n = bplan.total_payload
+    assert np.array_equal(want.cpu().numpy().reshape(-1).view(np.uint8)[:n],
+                          words.cpu().numpy().view(np.uint8)[:n])
+    for _ in range(5):
+        assert torch.equal(ck.windows_place_flat(*args), want)

@@ -50,7 +50,7 @@ def test_xdelta_swizzle_vs_pallas(rng, planes):
     ch, ns = 3, 5001
     words = _ecg_words(rng, ch, ns, 3000.0)
     words[:4] = [2 ** 31 - 1, -(2 ** 31), -1, 0]
-    enc, ok = ck.xdelta_swizzle(_t(words), ns, ch, planes)
+    enc, ok = ck.xdelta_swizzle(_t(words), ns, ch, planes, 4)
     flat = jops.native_to_i32(jnp.asarray(words), ns, ch, 4).reshape(-1)
     want = np.asarray(pk.xdelta_preprocess_pallas(flat, interpret=True))
     np.testing.assert_array_equal(enc.numpy(), want)
@@ -58,7 +58,7 @@ def test_xdelta_swizzle_vs_pallas(rng, planes):
     want_ok = planes == 4 or bool(((want << sh) >> sh == want).all())
     assert int(ok[0]) == int(want_ok)
     # channel-major input without the swizzle gives the same values
-    enc2, ok2 = ck.xdelta_swizzle(_t(np.asarray(flat)), ns, ch, planes,
+    enc2, ok2 = ck.xdelta_swizzle(_t(np.asarray(flat)), ns, ch, planes, 4,
                                   swizzle=False)
     assert torch.equal(enc2, enc) and torch.equal(ok2, ok)
 
@@ -168,7 +168,7 @@ def test_wrappers_validate_inputs():
     """Wrong dtype, layout or shape raises before any kernel work."""
     x = torch.zeros(64, dtype=torch.int64)
     with pytest.raises(TypeError):
-        ck.xdelta_swizzle(x, 8, 8, 3)
+        ck.xdelta_swizzle(x, 8, 8, 3, 4)
     with pytest.raises(ValueError):
         ck.tokenize_planes(torch.zeros((4, 8), dtype=torch.int32)[:, ::2]
                            .reshape(-1)[:0], 3)

@@ -134,3 +134,61 @@ def test_device_decode_matches_jax_device_decode(rng, tpack, monkeypatch):
     host = gpack.new_xdelta_hzr(4, ch, n, 2, device="cpu")
     assert host.decompress_many(comps) == seq
     assert host.decompress_many(comps, return_hints=True) == (seq, None)
+
+
+def _native_small(vals, bps):
+    v = np.asarray(vals, np.int64)
+    return np.stack([(v >> (8 * k)) & 255 for k in range(bps)],
+                    -1).astype(np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("bps,vals,planes,size", [
+    (1, [-1, -1], 1, 18),
+    (2, [0, 32767, -32768, 0], 2, 39),
+    (3, [0, 2 ** 23 - 1, -2 ** 23, 0], 3, 58)])
+def test_small_bps_growth_follows_reference(bps, vals, planes, size):
+    """At bps < 4 the planes grow only when they would not give back the
+    native samples (the reference's compress, decompress and compare,
+    which the host packer simulates): the port's container, plane count
+    and size equal the host packer's, from 1 plane; exact round trip."""
+    native = _native_small(vals, bps)
+    pg = gpack.new_xdelta_hzr(bps, 1, len(vals), 1, device="cpu")
+    ph = hpack.new_xdelta_hzr(bps, 1, len(vals), 1)
+    comp = pg.compress(native)
+    assert comp == ph.compress(native)
+    assert pg.nr_planes == ph.nr_planes == planes and len(comp) == size
+    assert pg.decompress(comp) == (native, len(comp))
+
+
+@pytest.mark.parametrize("bps", [2, 3])
+def test_small_bps_random_growth(rng, bps):
+    """A random walk at bps 2 or 3 from 1 plane: the port grows as the
+    host packer does (to bps planes), the containers are equal and round
+    trip exactly, and the grown count persists."""
+    ch, n = 2, 3000
+    lim = 1 << (8 * bps - 1)
+    sig = np.clip(np.cumsum(rng.normal(0, 0.01 * lim, (ch, n)), axis=1),
+                  -lim, lim - 1).astype(np.int64)
+    native = _native_small(sig.T.reshape(-1), bps)
+    pg = gpack.new_xdelta_hzr(bps, ch, n, 1, device="cpu")
+    ph = hpack.new_xdelta_hzr(bps, ch, n, 1)
+    comp = pg.compress(native)
+    assert comp == ph.compress(native)
+    assert pg.nr_planes == ph.nr_planes == bps
+    assert pg.decompress(comp)[0] == native
+    quiet = _native_small(np.zeros(ch * n, np.int64), bps)
+    assert pg.compress(quiet) == hpack.new_xdelta_hzr(
+        bps, ch, n, bps).compress(quiet)
+    assert pg.nr_planes == bps
+
+
+@pytest.mark.parametrize("device_decode", [False, True])
+def test_decompress_many_empty(device_decode):
+    """decompress_many of no containers: [] alone, ([], None) with
+    return_hints, on both decode paths (the reference's device branch
+    returns a bare [] there, which breaks callers that unpack the
+    pair)."""
+    p = gpack.new_xdelta_hzr(4, 2, 100, 3, device="cpu",
+                             device_decode=device_decode)
+    assert p.decompress_many([]) == []
+    assert p.decompress_many([], return_hints=True) == ([], None)

@@ -161,7 +161,7 @@ def test_lanes_mode_words_unchanged(rng):
     """pack_flat_lanes writes the same payload words as pack_flat, and
     its entry lanes keep the init plane where no token start lands."""
     enc, _ = ck.xdelta_swizzle(torch.from_numpy(np.frombuffer(
-        _native(rng, 2, 20000, 40.0), "<i4").copy()), 20000, 2, 3)
+        _native(rng, 2, 20000, 40.0), "<i4").copy()), 20000, 2, 3, 4)
     tokw, _, hist = ck.tokenize_planes(enc, 3)
     _, lengths = tc.block_layout(enc.numel(), 3)
     plan = tc.flat_plan(hist.numpy(), lengths)
