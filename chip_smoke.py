@@ -18,10 +18,12 @@ torch_coder.encode on the main payload's bytes as one stream, and the
 windows routes of the flat pack on the main pass 1.
 
 Phases: 1 build; 2 encode kernels vs plain on every chain (pack_flat_lanes
-too; compact_tokens_ballot, group_windows, place_windows_aligned and
-windows_place_flat, with both windows routes' payload bytes equal to
-pack_flat's); 3 compress / host-decode decompress; 5 decode kernels (hzr_decode,
-place_literals) vs plain at the main-path shape and on edge inputs; 6
+too; group_windows, place_windows_aligned and windows_place_flat, with both
+windows routes' payload bytes equal to pack_flat's), and compact_tokens on
+the edges of its tile split and look-back (tests/test_torch_cuda.py's
+compact_edge_batch); 3 compress / host-decode decompress; 5 decode kernels
+(hzr_decode, place_literals) vs plain at the main-path shape and on edge
+inputs, place_literals also on the word-store edges of place_edge_batch; 6
 decompress(device_decode=True) and decompress_many with and without
 hints; 7 fwht vs plain; 8 the Hadamard path; 9 the hzr path; 10 the
 hints path; 11 the stream encoder: pack_blocks and pack_blocks_tokw vs
@@ -29,11 +31,12 @@ plain (the main payload as 26 blocks, the main pass 1's 21 blocks, an
 edge batch), encode on the card against the CPU, a device decode and
 the out_capacity rule, entropy_streams_blocks against the flat path; 12
 the windows routes (pack_tokens_fused and pack_tokens_windows give the main container's streams, each through its
-kernels once), compact_tokens_ballot on the main pass 1, and the xdelta
-growth rule at bps 1-3 on the card; 4, last, times each kernel (profiler
-device time) beside its bound, its plain version and a library
-yardstick (compact_tokens_ballot in turns with compact_tokens and
-masked_select), and the host stages and wall times of every path. The last two lines are a JSON
+kernels once), compact_tokens on the main pass 1 in 10 launches with
+equal words, and the xdelta growth rule at bps 1-3 on the card; 4, last,
+times each kernel (profiler device time) beside its bound, its plain
+version and a library yardstick (compact_tokens in turns with
+masked_select, place_literals in turns with index_put_), and the host
+stages and wall times of every path. The last two lines are a JSON
 object of the kernels and the result line. Exits nonzero, with no
 result line, when there is no CUDA card or any check fails. Imports
 nothing of JAX or of the JAX package.
@@ -46,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -196,10 +200,7 @@ def check_chain(ck, tc, name, raw, ns, ch, planes, bps=4, swizzle=True,
         equal(f"{name}/pack_flat_lanes", got,
               ck.pack_flat_lanes_plain(*args, *x["lanes"]))
         equal(f"{name}/pack_flat_lanes words", got[0], words)
-    # X2 against compact_tokens' plain output (which compact_tokens
-    # equals), and the windows routes' kernels (K14, X1, K15)
-    equal(f"{name}/compact_tokens_ballot",
-          ck.compact_tokens_ballot(x["tokw"], x["bases"], p.T), x["tokc"])
+    # the windows routes' kernels (K14, X1, K15)
     gl = tc.group_layout(p, raw.device)
     flat = x["tokc"].reshape(1, -1)
     w = ck.group_windows(flat, gl.lut3)
@@ -347,6 +348,9 @@ def main() -> int:
     from rspt_tpu_torch.ops import _build
     from rspt_tpu_torch.ops import cuda_kernels as ck
     from rspt_tpu_torch.ops import torch_ops as tops
+    # the card tests' edge inputs of compact_tokens and place_literals
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_cuda as edges
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -407,6 +411,13 @@ def main() -> int:
     tb = torch.tensor([0, 200000, 70000], dtype=torch.int32, device=dev)
     equal("nonzero_valid", ck.compact_tokens(toks, tb, 150000, True),
           ck.compact_tokens_plain(toks, tb, 150000, True))
+    for case in ("t_total_mid_tile", "all_valid_row", "ragged_ntok",
+                 "trash_rows_between", "nonzero_valid", "single_row"):
+        w, b, T, nzv = edges.compact_edge_batch(np.random.default_rng(70),
+                                                case)
+        w, b = torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev)
+        equal(f"compact_tokens {case}", ck.compact_tokens(w, b, T, nzv),
+              ck.compact_tokens_plain(w, b, T, nzv))
     flags = {}   # (the flag, whether every value fits the planes as int32)
     for bps in (2, 3):
         small = (sig >> (32 - 8 * bps)) if bps < 4 else sig
@@ -445,9 +456,10 @@ def main() -> int:
         "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
         "FILL/COPY planes, nonzero_valid, bps 2 and 3, and xdelta_swizzle "
         "at bps 2 and 3 from fewer planes on the ECG and a wrapping ramp, "
-        f"flags {flags}); pack_flat_lanes "
-        "too, its words equal to pack_flat's; compact_tokens_ballot equal "
-        "to compact_tokens, and both windows routes' payload bytes equal "
+        f"flags {flags}); compact_tokens on t_total in mid-tile, an "
+        "all-valid row, ragged tiles, trash rows between packed rows, "
+        "nonzero_valid and a single row; pack_flat_lanes too, its words "
+        "equal to pack_flat's; both windows routes' payload bytes equal "
         f"to pack_flat's on every chain (groups per chain {chain_groups})")
 
     # phase 3: the main path through the packer's entry points
@@ -547,9 +559,20 @@ def main() -> int:
         log(f"phase 5: {name}: {eargs[0].shape[0]} tiles, nibble levels "
             f"{levels}, steps max {int(e[3][:, 0].max())}, bit-exact, "
             f"decode_many exact")
+    pb = edges.place_edge_batch(np.random.default_rng(71),
+                                [300, 45, 137, 305], 300)
+    for emis_off, out_off in ((0, 0), (1, 3), (2, 1)):
+        got, want, around = edges.place_at_offsets(pb, dev, emis_off,
+                                                    out_off)
+        equal(f"place_literals edges {emis_off}/{out_off}", got, want)
+        if around.any():
+            raise AssertionError("place_literals wrote outside out")
     log("phase 5: hzr_decode and place_literals bit-exact against their "
         "plain versions (main path, trusted entries, levels 3-4, sparse "
-        "and super-sparse tier-2 blocks, multi-stream padding-bit pair)")
+        "and super-sparse tier-2 blocks, multi-stream padding-bit pair); "
+        "place_literals on word-store edges (mid-word runs, shared words, "
+        "chunk splits, out_limit cuts, S = 300, host bytes, emis and out "
+        "misaligned), nothing written outside out")
 
     # phase 6: the device-decode main path
     for k in ck.KERNELS:
@@ -840,14 +863,14 @@ def main() -> int:
         "entropy_streams and the main container's streams")
 
     # phase 12: the windows routes of the flat pack on the main pass 1,
-    # X2 as the A/B of compact_tokens there, and the growth rule at bps < 4
+    # compact_tokens there alone, and the growth rule at bps < 4
     routes = {
         "fused": lambda: tc.pack_tokens_fused(
             main_x["tokw"], main_x["bases"], plan.T, main_gl),
         "windows": lambda: tc.pack_tokens_windows(
             main_x["tokw"], main_x["bases"], plan.T, main_gl),
-        "ab": lambda: ck.compact_tokens_ballot(main_x["tokw"],
-                                               main_x["bases"], plan.T),
+        "compact": lambda: ck.compact_tokens(main_x["tokw"],
+                                             main_x["bases"], plan.T),
     }
     route_launches, route_out = {}, {}
     for route, fn in routes.items():
@@ -862,7 +885,7 @@ def main() -> int:
         "fused": {"compact_tokens": 1, "windows_place_flat": 1},
         "windows": {"compact_tokens": 1, "group_windows": 1,
                     "place_windows_aligned": 1},
-        "ab": {"compact_tokens_ballot": 1}}
+        "compact": {"compact_tokens": 1}}
     if route_launches != want_launches:
         raise AssertionError(f"routes launched {route_launches}")
     for route in ("fused", "windows"):
@@ -870,7 +893,11 @@ def main() -> int:
                          3) != main_streams:
             raise AssertionError(f"{route} route: not the main container's "
                                  "streams")
-    equal("compact_tokens_ballot main", route_out["ab"], main_x["tokc"])
+    equal("compact_tokens main", route_out["compact"], main_x["tokc"])
+    for k in range(10):    # the look-back carry does not depend on tickets
+        equal(f"compact_tokens main, launch {k}",
+              ck.compact_tokens(main_x["tokw"], main_x["bases"], plan.T),
+              main_x["tokc"])
     if len(comp) != 782762:
         raise AssertionError(f"main container {len(comp)} B, not 782,762")
     f1_cases = ((1, [-1, -1], 1, 18), (2, [0, 32767, -32768, 0], 2, 39),
@@ -889,8 +916,9 @@ def main() -> int:
     log(f"phase 12: pack_tokens_fused ({main_gl.ng} groups, "
         f"{tuple(route_out['fused'].shape)} words) and pack_tokens_windows "
         f"({tuple(route_out['windows'].shape)} words) give the main "
-        "container's streams; compact_tokens_ballot equals compact_tokens on "
-        "the main pass 1; the main container is 782,762 B; bps 1/2/3 growth "
+        "container's streams; compact_tokens equals its plain version on "
+        "the main pass 1 in 10 more launches; the main container is "
+        "782,762 B; bps 1/2/3 growth "
         "from 1 plane gives 1/2/3 planes and 18/39/58 B, equal to the CPU, "
         "exact round trips")
 
@@ -928,8 +956,9 @@ def main() -> int:
             library=lambda: torch.bincount(sym_idx, minlength=nb * 262),
             bytes=4 * n + nb * 4 * (65536 + 16384 + 261),
             ops=nb * 65536 * 30),
-        "compact_tokens": dict(
-            replaces="rspt_tpu/ops/pallas_kernels.py:1237",
+        "compact_tokens": dict(     # K3 and X2
+            replaces="rspt_tpu/ops/pallas_kernels.py:1237; "
+                     "tools/exp_compact.py:137",
             source="rspt_tpu_torch/ops/csrc/compact.cu",
             fn=lambda: ck.compact_tokens(tokw, x["bases"], plan.T),
             plain=lambda: ck.compact_tokens_plain(tokw, x["bases"], plan.T),
@@ -979,7 +1008,7 @@ def main() -> int:
         bytes=payload_b + lut_b + emis_b + 8 * nl + 20 * ntiles,
         ops=40 * n_sym)
     rows["place_literals"] = dict(
-        replaces="rspt_tpu/ops/pallas_kernels.py:714",
+        replaces="rspt_tpu/ops/pallas_kernels.py:1405",
         source="rspt_tpu_torch/ops/csrc/place_literals.cu",
         fn=lambda: ck.place_literals(d_emis, *pa, dtotal),
         plain=lambda: ck.place_literals_plain(
@@ -1053,8 +1082,6 @@ def main() -> int:
     for k in ("group_windows", "place_windows_aligned", "windows_place_flat"):
         launches[k] = route_launches["windows" if k != "windows_place_flat"
                                      else "fused"][k]
-    launches["compact_tokens_ballot"] = route_launches["ab"][
-        "compact_tokens_ballot"]
     rows["group_windows"] = dict(
         replaces="rspt_tpu/ops/pallas_kernels.py:782",
         source="rspt_tpu_torch/ops/csrc/windows.cu",
@@ -1081,14 +1108,6 @@ def main() -> int:
         # K14's inputs and dbg, wog, gfirst in, the rows out
         bytes=tok_lut_b + 12 * gl.ng + 512 * gl.nrows_fused,
         ops=plan.T * 40)
-    rows["compact_tokens_ballot"] = dict(
-        replaces="tools/exp_compact.py:137",
-        source="rspt_tpu_torch/ops/csrc/compact_ballot.cu",
-        fn=lambda: ck.compact_tokens_ballot(tokw, x["bases"], plan.T),
-        plain=lambda: ck.compact_tokens_ballot_plain(tokw, x["bases"],
-                                                     plan.T),
-        library=lambda: torch.masked_select(tok_huff, valid_huff),
-        bytes=rows["compact_tokens"]["bytes"], ops=rows["compact_tokens"]["ops"])
     log(f"phase 4: pack_flat_lanes' own bytes beyond pack_flat: "
         f"{12 * nb + 8 * nl_h} B ({nl_h} lanes), bound "
         f"{(12 * nb + 8 * nl_h) / HBM_BYTES_PER_S * 1e3:.6f} ms")
@@ -1124,24 +1143,24 @@ def main() -> int:
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    # X2 against K3 and masked_select, in turns (device times, medians of 5)
-    ab = {"compact_tokens_ballot": ([], rows["compact_tokens_ballot"]["fn"],
-                                    "compact_tokens_ballot_kernel"),
-          "compact_tokens": ([], rows["compact_tokens"]["fn"],
-                             "compact_tokens_kernel"),
-          "masked_select": ([], rows["compact_tokens"]["library"], None)}
-    for _ in range(5):
-        for name, (ts, fn, kname) in ab.items():
-            ts.append(device_ms(fn, kernel=kname) or cuda_ms(fn))
-    ab_ms = {name: statistics.median(ts) for name, (ts, _, _) in ab.items()}
-    x2 = next(k for k in kernels if k["name"] == "compact_tokens_ballot")
-    x2.update(ms=ab_ms["compact_tokens_ballot"],
-              library_ms=ab_ms["masked_select"])
-    log(f"phase 4: in turns (medians of 5): compact_tokens_ballot "
-        f"{ab_ms['compact_tokens_ballot']:.6f} ms, compact_tokens "
-        f"{ab_ms['compact_tokens']:.6f} ms, masked_select "
-        f"{ab_ms['masked_select']:.6f} ms; rounds "
-        f"{ {n: [round(t, 6) for t in ts] for n, (ts, _, _) in ab.items()} }")
+    # the two kernels against their library yardsticks, in turns (device
+    # times, medians of 5 rounds)
+    for name in ("compact_tokens", "place_literals"):
+        r = rows[name]
+        ts = {"kernel": [], "library": []}
+        for _ in range(5):
+            ts["kernel"].append(device_ms(r["fn"], kernel=name + "_kernel")
+                                or cuda_ms(r["fn"]))
+            ts["library"].append(device_ms(r["library"])
+                                 or cuda_ms(r["library"]))
+        med = {k: statistics.median(v) for k, v in ts.items()}
+        row = next(k for k in kernels if k["name"] == name)
+        row.update(ms=med["kernel"], library_ms=med["library"])
+        log(f"phase 4: in turns (medians of 5): {name} {med['kernel']:.6f} "
+            f"ms, library {med['library']:.6f} ms "
+            f"({med['library'] / med['kernel']:.2f}x), bound "
+            f"{row['bound_ms']:.6f} ms ({med['kernel'] / row['bound_ms']:.1f}"
+            f"x); rounds { {k: [round(t, 6) for t in v] for k, v in ts.items()} }")
     # host stages and end to end
     crc_s = wall_s(lambda: crc32c(np.frombuffer(comp, np.uint8)), reps=3)
     enc_s = wall_s(lambda: p.compress(native))

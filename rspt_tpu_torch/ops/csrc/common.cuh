@@ -2,8 +2,8 @@
 //
 // Block-wide exclusive scans built from warp shuffles plus one shared
 // slot per warp. blockDim.x must be a multiple of 32 (every kernel here
-// launches 256 or 1024 threads) and every thread of the block must call
-// the scan (it synchronises).
+// launches 256, 512 or 1024 threads) and every thread of the block must
+// call the scan (it synchronises).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -13,7 +13,8 @@ Each replaces (rspt_tpu/ops/pallas_kernels.py):
   xdelta_swizzle   K1 xdelta_preprocess_pallas, with the native_to_i32
                    transpose and the verify-and-grow flag
   tokenize_planes  K2 tokenize_planes_pallas, with hist_from_tokw
-  compact_tokens   K3 compact_tokens_pallas
+  compact_tokens   K3 compact_tokens_pallas, and X2
+                   tools/exp_compact.py:compact_bf, K3 by another route
   pack_flat        K4 token_group_windows_rows_pallas, the cumsum glue
                    and K5 super_place_flat_pallas
   pack_flat_lanes  pack_flat plus the decoder's segment entry lanes: K10
@@ -32,9 +33,6 @@ Each replaces (rspt_tpu/ops/pallas_kernels.py):
   windows_place_flat
                    K15 token_windows_place_flat_pallas: K14's windows,
                    the cross-group bit carry and K5's placement
-  compact_tokens_ballot
-                   X2 tools/exp_compact.py:compact_bf, K3 by another
-                   route
 and (rspt_tpu/hzr/pallas_decoder.py):
   hzr_decode       K6 _run_kernel / _decode_kernel, the lockstep decoder
   place_literals   the placement chain of _place_emissions: K7
@@ -71,7 +69,8 @@ def _lib() -> ctypes.CDLL:
     sigs = {
         "rspt_xdelta_swizzle": [P, P, P, I, I, I, I, I, I, P],
         "rspt_tokenize_planes": [P, P, P, P, I, I, I, P],
-        "rspt_compact_tokens": [P, P, P, I, I, I, I, P],
+        "rspt_compact_tiles": [I],
+        "rspt_compact_tokens": [P] * 4 + [I] * 4 + [P],
         "rspt_pack_flat": [P, P, P, P, P, P, I, I, I, P],
         "rspt_pack_flat_lanes": [P] * 8 + [I] * 4 + [P],
         "rspt_pack_blocks": [P] * 8 + [I] * 3 + [P],
@@ -83,7 +82,6 @@ def _lib() -> ctypes.CDLL:
         "rspt_group_windows": [P] * 7 + [I] + [P],
         "rspt_place_windows_aligned": [P] * 8 + [I] * 2 + [P],
         "rspt_windows_place_flat": [P] * 7 + [I] * 2 + [P],
-        "rspt_compact_tokens_ballot": [P] * 3 + [I] * 3 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -249,7 +247,7 @@ tokenize_planes.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel 3 — compact_tokens (K3)
+# Kernel 3 — compact_tokens (K3, X2)
 # ---------------------------------------------------------------------------
 
 def compact_tokens_plain(tokw: torch.Tensor, bases: torch.Tensor,
@@ -283,12 +281,17 @@ def compact_tokens(tokw: torch.Tensor, bases: torch.Tensor, t_total: int,
     nb, ntok = _check_compact_args(tokw, bases, t_total)
     if not _on_cuda(tokw, bases):
         return compact_tokens_plain(tokw, bases, t_total, nonzero_valid)
-    out = torch.zeros(t_total, dtype=torch.int32, device=tokw.device)
-    if nb == 0 or t_total == 0:
-        return out
-    _launch("compact_tokens", _lib().rspt_compact_tokens, tokw.data_ptr(),
-            bases.data_ptr(), out.data_ptr(), nb, ntok, t_total,
-            int(nonzero_valid), device=tokw.device)
+    if nb == 0 or ntok == 0 or t_total == 0:
+        return torch.zeros(t_total, dtype=torch.int32, device=tokw.device)
+    lib = _lib()
+    # one zeroed buffer: the output, then the tile ticket and each tile's
+    # valid count + 1 once known
+    nstate = 1 + nb * lib.rspt_compact_tiles(ntok)
+    buf = torch.zeros(t_total + nstate, dtype=torch.int32, device=tokw.device)
+    out = buf[:t_total]
+    _launch("compact_tokens", lib.rspt_compact_tokens, tokw.data_ptr(),
+            bases.data_ptr(), out.data_ptr(), buf[t_total:].data_ptr(), nb,
+            ntok, t_total, int(nonzero_valid), device=tokw.device)
     compact_tokens.launches += 1
     return out
 
@@ -846,8 +849,10 @@ def place_literals(emis: torch.Tensor, steps: torch.Tensor,
     at step s < steps[tile] of a live lane, an emission with byte
     sym != 0 lands at pos = out_base[lane] + (emis >> 9) if pos <
     out_limit[lane] (the guard that drops symbols decoded from a
-    block's padding bits). Positions are unique, so the stores need no
-    atomics.
+    block's padding bits). A lane's positions rise with the step and
+    lanes' runs are disjoint (hzr_decode's contract, lane_out_base), so
+    the kernel stores whole words, with atomicOr on each thread's two
+    edge words only.
 
     emis (tiles, S, 8, 128) int32, steps (tiles,) int32, out_base and
     out_limit (tiles * 1024,) int32, lane_live (tiles * 1024,) bool.
@@ -1157,37 +1162,7 @@ def windows_place_flat(tokc: torch.Tensor, lut3: torch.Tensor,
 windows_place_flat.launches = 0
 
 
-# ---------------------------------------------------------------------------
-# Kernel 10 — compact_tokens_ballot (X2)
-# ---------------------------------------------------------------------------
-
-def compact_tokens_ballot_plain(tokw: torch.Tensor, bases: torch.Tensor,
-                                t_total: int) -> torch.Tensor:
-    return compact_tokens_plain(tokw, bases, t_total)
-
-
-def compact_tokens_ballot(tokw: torch.Tensor, bases: torch.Tensor,
-                          t_total: int) -> torch.Tensor:
-    """compact_tokens (bit-27 validity) by warp ballots: the same
-    (t_total,) int32 words. Row b's valid words land in order at
-    bases[b]; a row with bases[b] >= t_total writes nothing; nothing is
-    written past t_total."""
-    nb, ntok = _check_compact_args(tokw, bases, t_total)
-    if not _on_cuda(tokw, bases):
-        return compact_tokens_ballot_plain(tokw, bases, t_total)
-    out = torch.zeros(t_total, dtype=torch.int32, device=tokw.device)
-    if nb == 0 or t_total == 0:
-        return out
-    _launch("compact_tokens_ballot", _lib().rspt_compact_tokens_ballot,
-            tokw.data_ptr(), bases.data_ptr(), out.data_ptr(), nb, ntok,
-            t_total, device=tokw.device)
-    compact_tokens_ballot.launches += 1
-    return out
-
-
-compact_tokens_ballot.launches = 0
-
 KERNELS = (xdelta_swizzle, tokenize_planes, compact_tokens, pack_flat,
            pack_flat_lanes, pack_blocks, pack_blocks_tokw, fwht, hzr_decode,
            place_literals, group_windows, place_windows_aligned,
-           windows_place_flat, compact_tokens_ballot)
+           windows_place_flat)

@@ -39,11 +39,15 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
 
 
 def test_sources_import_neither_jax_nor_rspt_tpu():
-    """No module of the port and not chip_smoke.py names jax or rspt_tpu
-    in an import statement (a lazy import inside a function included)."""
+    """No module of the port, not chip_smoke.py, not the card tests'
+    module it takes its edge inputs from and not kernel_ab.py names jax
+    or rspt_tpu in an import statement (a lazy import inside a function
+    included)."""
     bad_import = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|rspt_tpu)(?![\w])", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in (
+        "chip_smoke.py", "kernel_ab.py",
+        os.path.join("tests", "test_torch_cuda.py"))]
     for root, _, names in os.walk(os.path.join(REPO, "rspt_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

@@ -123,6 +123,138 @@ def test_place_literals_matches_plain(rng, dev):
     assert torch.equal(got, want)
 
 
+def compact_edge_batch(rng, case):
+    """(tokw, bases, T, nonzero_valid) of one edge case of compact_tokens
+    (the kernel's tiles are 4,096 words): six rows of 65,536 + 1,000 words
+    (17 tiles, the last ragged) packed in order, about 40% valid."""
+    nb, ntok = (1, 65536) if case == "single_row" else (6, 65536 + 1000)
+    valid = rng.random((nb, ntok)) < 0.4
+    if case == "nonzero_valid":
+        w = np.where(valid, rng.integers(1, 1 << 31, (nb, ntok)), 0)
+    else:
+        w = rng.integers(0, 1 << 27, (nb, ntok)) | (valid.astype(np.int64)
+                                                    << 27)
+    if case == "all_valid_row":
+        w[2] |= 1 << 27
+        valid[2] = True
+    cnt = valid.sum(1)
+    rows = [1, 3, 4] if case == "trash_rows_between" else list(range(nb))
+    bases = np.zeros(nb, np.int64)
+    bases[rows] = np.concatenate([[0], np.cumsum(cnt[rows])[:-1]])
+    T = int(cnt[rows].sum())
+    if case == "trash_rows_between":
+        bases[[0, 2, 5]] = [T, T + 9, -1]
+    if case == "t_total_mid_tile":
+        T = int(bases[4] + valid[4, :3 * 4096].sum() + 100)
+    return (w.astype(np.int32), bases.astype(np.int32), T,
+            case == "nonzero_valid")
+
+
+@pytest.mark.parametrize("case", ["t_total_mid_tile", "all_valid_row",
+                                  "ragged_ntok", "trash_rows_between",
+                                  "nonzero_valid", "single_row"])
+def test_compact_tokens_edges_match_plain(rng, dev, case):
+    """compact_tokens vs its plain version on the edges of its tile split
+    and look-back carry: t_total cutting a row in mid-tile, an all-valid
+    row, a ragged last tile, rows with bases >= t_total (or < 0) between
+    packed rows, nonzero_valid, a single-row batch; 10 launches give the
+    same words (the carry does not depend on the ticket order)."""
+    w, bases, T, nzv = compact_edge_batch(rng, case)
+    tokw = torch.from_numpy(w).to(dev)
+    b = torch.from_numpy(bases).to(dev)
+    want = ck.compact_tokens_plain(tokw, b, T, nzv)
+    assert T > 0 and bool(want.any())
+    for _ in range(10):
+        assert torch.equal(ck.compact_tokens(tokw, b, T, nzv), want)
+
+
+def place_edge_batch(rng, steps, S):
+    """place_literals inputs that keep hzr_decode's contract, with the
+    edges of the kernel's word stores: emissions (len(steps), S, 8, 128)
+    whose lanes each emit literals (sym 0x100 | byte or a nonzero byte,
+    one output byte), zero runs (2-8 bytes) and idle steps, garbage in the
+    rows at and past a tile's step count and in dead lanes; blocks of 1-300
+    lanes whose runs start and end in mid-word, separated by 0-13 host
+    bytes (so neighbouring lanes and blocks share words), each block's
+    out_limit cutting its last lanes' literals; host bytes (nonzero)
+    outside the blocks. Returns (emis, steps, out_base, out_limit,
+    lane_live, host) as CPU tensors."""
+    nt = len(steps)
+    nl = nt * 1024
+    emis = rng.integers(-2 ** 31, 2 ** 31 - 1, (nt, S, 1024))
+    adv = np.zeros((nt, S, 1024), np.int64)
+    for t in range(nt):
+        n = min(steps[t], S)
+        kind = rng.choice(3, (n, 1024), p=[0.6, 0.15, 0.25])
+        adv[t, :n] = np.where(kind == 0, 1, np.where(
+            kind == 1, rng.integers(2, 9, (n, 1024)), 0))
+        outc = np.cumsum(adv[t, :n], 0) - adv[t, :n]
+        byte = rng.integers(0, 256, (n, 1024))
+        sym = np.where(rng.random((n, 1024)) < 0.5, 0x100 | byte,
+                       np.maximum(byte, 1))
+        emis[t, :n] = (outc << 9) | np.where(kind == 0, sym, 0)
+    counts = adv.sum(1).reshape(-1)
+    live = rng.random(nl) < 0.95
+    base = np.zeros(nl, np.int64)
+    limit = np.zeros(nl, np.int64)
+    blocks = []
+    pos, lane = int(rng.integers(0, 14)), 0
+    while lane < nl:
+        k = min(int(rng.integers(1, 301)), nl - lane)
+        lanes = np.arange(lane, lane + k)
+        c = np.where(live[lanes], counts[lanes], 0)
+        base[lanes] = pos + np.cumsum(c) - c
+        end = pos + max(int(c.sum()) - int(rng.integers(0, 6)), 0)
+        limit[lanes] = end
+        blocks.append((pos, end))
+        pos, lane = end + int(rng.integers(0, 14)), lane + k
+    host = rng.integers(1, 256, pos + int(rng.integers(0, 14)))
+    for a, b in blocks:
+        host[a:b] = 0
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32))  # noqa: E731
+    return (i32(emis.reshape(nt, S, 8, 128)), i32(np.asarray(steps)),
+            i32(base), i32(limit), torch.from_numpy(live),
+            torch.from_numpy(host.astype(np.uint8)))
+
+
+def place_at_offsets(batch, dev, emis_off, out_off):
+    """place_literals on a place_edge_batch with emis at emis_off words
+    and out at out_off bytes into larger zeroed buffers, out holding the
+    host bytes: (kernel bytes, plain bytes, the buffer around out)."""
+    emis, steps, base, limit, live, host = (t.to(dev) for t in batch)
+    total = host.numel()
+    flat = torch.zeros(emis.numel() + emis_off, dtype=torch.int32,
+                       device=dev)
+    e = flat[emis_off:].view(emis.shape)
+    e.copy_(emis)
+    buf = torch.zeros(total + 8, dtype=torch.uint8, device=dev)
+    out = buf[out_off:out_off + total]
+    out.copy_(host)
+    got = ck.place_literals(e, steps, base, limit, live, total, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    want = ck.place_literals_plain(emis, steps, base, limit, live,
+                                   host.clone())
+    assert bool(((want != host) & (host != 0)).sum() == 0)
+    return got, want, torch.cat([buf[:out_off], buf[out_off + total:]])
+
+
+@pytest.mark.parametrize("emis_off,out_off", [(0, 0), (1, 3), (2, 1)])
+def test_place_literals_word_edges(rng, dev, emis_off, out_off):
+    """place_literals vs its plain version on place_edge_batch: runs that
+    start and end in mid-word, neighbouring lanes sharing a word, a
+    thread's step run (8 of a chunk's 32 steps) ending in mid-word,
+    out_limit cutting a word, steps[t] < S and S = 300 (not a multiple of
+    the chunk; the deepest tile loops over its chunks), host bytes around
+    the device blocks; emis at a
+    4-byte but not 16-byte offset (emis_off words) and out at an odd
+    byte offset (out_off), with the bytes around out untouched."""
+    S = 300
+    batch = place_edge_batch(rng, [S, 45, 137, S + 5], S)
+    got, want, around = place_at_offsets(batch, dev, emis_off, out_off)
+    assert torch.equal(got, want)
+    assert not around.any()
+
+
 def test_packer_device_decode(rng, dev):
     """decompress(device_decode=True) on the card: exact, through both
     kernels; decompress_many equals it."""
@@ -298,15 +430,13 @@ def _windows_batch(rng, dev):
 
 
 def test_windows_kernels_match_plain(rng, dev):
-    """compact_tokens_ballot, group_windows, place_windows_aligned and
+    """compact_tokens, group_windows, place_windows_aligned and
     windows_place_flat against their plain versions on the card; both
     routes' payload bytes equal pack_flat's."""
     tokw, plan, bases, gl, _ = _windows_batch(rng, dev)
     assert gl.ng == 10 and plan.is_copy.any() and plan.is_fill.any()
     tokc = ck.compact_tokens(tokw, bases, plan.T)
-    assert torch.equal(ck.compact_tokens_ballot(tokw, bases, plan.T), tokc)
-    assert torch.equal(ck.compact_tokens_ballot_plain(tokw, bases, plan.T),
-                       tokc)
+    assert torch.equal(ck.compact_tokens_plain(tokw, bases, plan.T), tokc)
     w = ck.group_windows(tokc.reshape(1, -1), gl.lut3)
     for g, p in zip(w, ck.group_windows_plain(tokc.reshape(1, -1), gl.lut3)):
         assert torch.equal(g, p)

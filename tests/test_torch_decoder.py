@@ -280,6 +280,30 @@ def test_place_literals_plain_matches_pallas(name, fused):
         assert 0 < (spans > 248).sum() <= 128
 
 
+def test_place_literals_plain_keeps_host_bytes():
+    """place_literals handed an `out` that holds the host-resolved bytes
+    (the COPY and FILL blocks, nonzero, zero over every device block), as
+    decode_device hands it: the JAX placement's bytes over the device
+    blocks, the host bytes everywhere else, and together the payloads."""
+    run = jax_run("mix")
+    pargs, _, words = run["place"]
+    emis, steps, counts, block_first, out_off, out_limit, live = pargs[:7]
+    total = sum(p.size for p in run["payloads"])
+    jax_bytes = words.reshape(-1).view("<u4").view(np.uint8)[:total]
+    _, host, _ = gd._walk_all(run["streams"])
+    assert host.size == total and host.any()
+    assert not (host.astype(bool) & jax_bytes.astype(bool)).any()
+    base = gd.lane_out_base(_t(counts), _t(live), _t(out_off),
+                            _t(block_first))
+    out = _t(host)
+    got = ck.place_literals(_t(emis), _t(steps[:, 0]), base, _t(out_limit),
+                            _t(live), total, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    np.testing.assert_array_equal(got.numpy(), host | jax_bytes)
+    assert got.numpy().tobytes() == b"".join(p.tobytes()
+                                             for p in run["payloads"])
+
+
 # -- (e) decode_many end to end ------------------------------------------------
 
 def _decode(streams, hints=None, return_hints=False):

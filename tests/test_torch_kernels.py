@@ -132,6 +132,45 @@ def test_compact_tokens_nonzero_valid_vs_pallas(rng):
                                   np.asarray(want).reshape(-1)[:T])
 
 
+def _compact_case(rng, case):
+    """(tokw, bases, T) of one edge case of compact_tokens (valid = bit
+    27; the kernel's tiles are 4,096 words): four rows packed in order,
+    about 40% of their words valid."""
+    ntok = 2 * 4096 + 1000 if case == "ragged_ntok" else 3 * 4096
+    w = (rng.integers(0, 1 << 27, (4, ntok))
+         | ((rng.random((4, ntok)) < 0.4).astype(np.int64) << 27))
+    if case == "all_valid_row":
+        w[1] |= 1 << 27
+    cnt = (w >> 27) & 1
+    rows = [1, 3] if case == "trash_rows_between" else [0, 1, 2, 3]
+    bases = np.zeros(4, np.int64)
+    bases[rows] = np.concatenate([[0], np.cumsum(cnt[rows].sum(1))[:-1]])
+    T = int(cnt[rows].sum())
+    if case == "trash_rows_between":
+        bases[[0, 2]] = [T, T + 9]       # the TPU layout's trash base
+    if case == "t_total_mid_tile":
+        # T ends 100 words into row 3's second tile of valid words
+        T = int(bases[3] + cnt[3, :4096].sum() + 100)
+    return w.astype(np.int32), bases.astype(np.int32), T
+
+
+@pytest.mark.parametrize("case", ["t_total_mid_tile", "all_valid_row",
+                                  "ragged_ntok", "trash_rows_between"])
+def test_compact_tokens_edges_vs_pallas(rng, case):
+    """compact_tokens against K3 on the edges of the kernel's tile split
+    and look-back: t_total cutting a row in mid-tile, a row whose words
+    are all valid, ntok not a multiple of the tile, rows with bases >=
+    t_total between packed rows; compared on [:T], tolerance 0."""
+    w, bases, T = _compact_case(rng, case)
+    got = ck.compact_tokens(_t(w), _t(bases), T)
+    span = int((bases.astype(np.int64) + w.shape[1]).max())
+    want = pk.compact_tokens_pallas(jnp.asarray(w), jnp.asarray(bases),
+                                    span // 128 + 128 + 16, interpret=True)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).reshape(-1)[:T])
+    assert got.shape == (T,) and T > 0
+
+
 def test_pack_tokens_flat_vs_pallas(rng):
     """K3 + K4 + glue + K5 through jax_coder.pack_tokens_flat2 against
     the port's compact_tokens + pack_flat: payload words compared on

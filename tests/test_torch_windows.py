@@ -1,6 +1,6 @@
 """The windows routes of the flat pack: the plain versions of
 group_windows (K14), windows_place_flat (K15), place_windows_aligned (X1)
-and compact_tokens_ballot (X2), the glue windows_glue, and
+and compact_tokens (K3, which also replaces X2), the glue windows_glue, and
 torch_coder's pack_tokens_fused and pack_tokens_windows, against the
 Pallas kernels they replace in interpret mode and against pack_flat.
 
@@ -177,7 +177,8 @@ def test_pack_tokens_fused_vs_jax(batch):
 
 
 def test_compact_tokens_ballot_vs_pallas(rng):
-    """X2: compact_tokens_ballot equals K3, compact_tokens_pallas, on
+    """X2's function, now computed by compact_tokens (its kernel took X2's
+    warp-ballot loads): equal to K3, compact_tokens_pallas, on
     test_compact_tokens_vs_pallas's input (FILL and COPY blocks), on
     [:T] (X2 is nested in tools/exp_compact.py's main(); the tool asserts
     it equals K3); tolerance 0."""
@@ -189,14 +190,15 @@ def test_compact_tokens_ballot_vs_pallas(rng):
     _, lengths = tc.block_layout(n, 3)
     plan = tc.flat_plan(hist.numpy(), lengths)
     assert plan.is_copy.any() and plan.is_fill.any() and plan.T > 0
-    got = ck.compact_tokens_ballot(tokw, _t(plan.bases), plan.T)
+    got = ck.compact_tokens(tokw, _t(plan.bases), plan.T)
     want = pk.compact_tokens_pallas(jnp.asarray(tokw.numpy()),
                                     jnp.asarray(plan.bases),
                                     plan.T // 128 + 512 + 24,
                                     interpret=True, r_ct=256)
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(want).reshape(-1)[:plan.T])
-    assert torch.equal(got, ck.compact_tokens(tokw, _t(plan.bases), plan.T))
+    assert torch.equal(got, ck.compact_tokens_plain(tokw, _t(plan.bases),
+                                                    plan.T))
 
 
 def test_no_huff_block_gives_zero_words():
@@ -248,5 +250,5 @@ def test_window_wrappers_validate_inputs(batch):
     with pytest.raises((ValueError, TypeError)):
         ck.place_windows_aligned(*bad, gl.nrows_windows)
     with pytest.raises(ValueError):
-        ck.compact_tokens_ballot(batch["tokw"], batch["bases"][1:],
-                                 batch["plan"].T)
+        ck.compact_tokens(batch["tokw"], batch["bases"][1:],
+                          batch["plan"].T)
