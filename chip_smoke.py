@@ -19,11 +19,14 @@ windows routes of the flat pack on the main pass 1.
 
 Phases: 1 build; 2 encode kernels vs plain on every chain (pack_flat_lanes
 too; group_windows, place_windows_aligned and windows_place_flat, with both
-windows routes' payload bytes equal to pack_flat's), and compact_tokens on
+windows routes' payload bytes equal to pack_flat's), compact_tokens on
 the edges of its tile split and look-back (tests/test_torch_cuda.py's
-compact_edge_batch); 3 compress / host-decode decompress; 5 decode kernels
-(hzr_decode, place_literals) vs plain at the main-path shape and on edge
-inputs, place_literals also on the word-store edges of place_edge_batch; 6
+compact_edge_batch) and tokenize_planes on the edges of its tiles
+(tokenize_edge_batch, planes 1-4); 3 compress / host-decode decompress; 5
+decode kernels (hzr_decode, place_literals) vs plain at the main-path
+shape and on edge inputs (rank_edge_payloads: a block across every CTA of
+a tile's cluster, padding rows between blocks; trusted and not),
+place_literals also on the word-store edges of place_edge_batch; 6
 decompress(device_decode=True) and decompress_many with and without
 hints; 7 fwht vs plain; 8 the Hadamard path; 9 the hzr path; 10 the
 hints path; 11 the stream encoder: pack_blocks and pack_blocks_tokw vs
@@ -33,9 +36,12 @@ the out_capacity rule, entropy_streams_blocks against the flat path; 12
 the windows routes (pack_tokens_fused and pack_tokens_windows give the main container's streams, each through its
 kernels once), compact_tokens on the main pass 1 in 10 launches with
 equal words, and the xdelta growth rule at bps 1-3 on the card; 4, last,
-times each kernel (profiler device time) beside its bound, its plain
-version and a library yardstick (compact_tokens in turns with
-masked_select, place_literals in turns with index_put_), and the host
+times each kernel's call (profiler device time of every device operation
+of the wrapper's call: kernels, memsets, copies) beside its bound, its
+plain version and a library yardstick (tokenize_planes in turns with
+bincount, compact_tokens with masked_select, place_literals with
+index_put_), hzr_decode's clusters and tokenize_planes' working blocks,
+and the host
 stages and wall times of every path. The last two lines are a JSON
 object of the kernels and the result line. Exits nonzero, with no
 result line, when there is no CUDA card or any check fails. Imports
@@ -418,6 +424,13 @@ def main() -> int:
         w, b = torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev)
         equal(f"compact_tokens {case}", ck.compact_tokens(w, b, T, nzv),
               ck.compact_tokens_plain(w, b, T, nzv))
+    for case in edges.TOKENIZE_EDGE_CASES:
+        t = torch.from_numpy(edges.tokenize_edge_batch(
+            np.random.default_rng(90), case)).to(dev)
+        for planes in (1, 2, 3, 4):
+            equal(f"tokenize_planes {case}/p{planes}",
+                  ck.tokenize_planes(t, planes),
+                  ck.tokenize_planes_plain(t, planes))
     flags = {}   # (the flag, whether every value fits the planes as int32)
     for bps in (2, 3):
         small = (sig >> (32 - 8 * bps)) if bps < 4 else sig
@@ -454,6 +467,7 @@ def main() -> int:
         raise AssertionError(f"xdelta flags at bps < 4: {flags}")
     log("phase 2: all kernels bit-exact against their plain versions "
         "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
+        "tokenize_planes on its tile edges at planes 1-4, "
         "FILL/COPY planes, nonzero_valid, bps 2 and 3, and xdelta_swizzle "
         "at bps 2 and 3 from fewer planes on the ECG and a wrapping ramp, "
         f"flags {flags}); compact_tokens on t_total in mid-tile, an "
@@ -559,6 +573,21 @@ def main() -> int:
         log(f"phase 5: {name}: {eargs[0].shape[0]} tiles, nibble levels "
             f"{levels}, steps max {int(e[3][:, 0].max())}, bit-exact, "
             f"decode_many exact")
+    rla, rargs, rtotal = edges.decode_batch(
+        edges.rank_edge_payloads(np.random.default_rng(91)), dev)
+    rdec = check_decode(ck, gd, "rank_edges", rla, rargs, rtotal, dev)
+    rt = list(rargs)
+    rt[0] = rargs[0].clone()
+    rt[0][:, 4] = 1
+    rt[8] = rdec[2]
+    rtdec = check_decode(ck, gd, "rank_edges trusted", rla, rt, rtotal, dev)
+    if int(rtdec[3][:, 1].max()) != 0 or int(rdec[3][:, 1].min()) < 2:
+        raise AssertionError("rank_edges: sweeps "
+                             f"{rdec[3][:, 1].tolist()} / "
+                             f"{rtdec[3][:, 1].tolist()}")
+    log(f"phase 5: rank_edges (a block over all 8 CTAs of tile 0, padding "
+        f"rows between blocks): {rargs[0].shape[0]} tiles, sweeps "
+        f"{rdec[3][:, 1].tolist()}, bit-exact untrusted and trusted")
     pb = edges.place_edge_batch(np.random.default_rng(71),
                                 [300, 45, 137, 305], 300)
     for emis_off, out_off in ((0, 0), (1, 3), (2, 1)):
@@ -1117,13 +1146,27 @@ def main() -> int:
         f"of payload, {n_sym} symbols, {int(lit.sum())} literals placed, "
         f"{huff_out_b} B decoded; bound of the pair (payload read and "
         f"decoded bytes written once) {pair_bound:.6f} ms")
+    # occupancy of the two kernels redesigned for the whole card
+    lib = ck._lib()
+    per_cta = 8 // lib.rspt_hzr_decode_cluster()
+    tok_tile = 65536 // lib.rspt_tokenize_tiles()
+    limits = [min(65536, e.numel() - j * 65536)
+              for j in range(-(-e.numel() // 65536))]
+    log(f"phase 4: hzr_decode at the main path: {ntiles} clusters (one a "
+        f"tile) of {8 // per_cta} CTAs, {ntiles * 8 // per_cta} CTAs of "
+        f"{128 * per_cta} threads ({per_cta} row(s) a CTA); "
+        f"tokenize_planes: {len(limits) * (65536 // tok_tile)} blocks of "
+        f"{tok_tile} positions, {sum(-(-n // tok_tile) for n in limits)} "
+        f"working (slab lengths {limits})")
     kernels = []
     for name, r in rows.items():
-        # device times from the profiler; CUDA events around one call
-        # (host launch cost included) where it sees no device activity
+        # device time of the wrapper's call from the profiler: every
+        # device operation of it (kernels, memsets, copies), and the named
+        # kernel alone for the log; CUDA events around one call (host
+        # launch cost included) where it sees no device activity
         call_ms = cuda_ms(r["fn"])
-        ms = device_ms(r["fn"], kernel=r.get("kernel", name + "_kernel")) \
-            or call_ms
+        ms = device_ms(r["fn"]) or call_ms
+        kern_ms = device_ms(r["fn"], kernel=r.get("kernel", name + "_kernel"))
         preps = r.get("plain_reps", 10)
         plain_ms = (device_ms(r["plain"], reps=preps)
                     or cuda_ms(r["plain"], preps))
@@ -1138,19 +1181,19 @@ def main() -> int:
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib_ms))
-        log(f"phase 4: {name}: kernel {ms:.4f} ms on the device, "
+        log(f"phase 4: {name}: {ms:.6f} ms of device time a call (the "
+            f"kernel alone {kern_ms}), "
             f"{call_ms:.4f} ms a call with launch (bound "
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    # the two kernels against their library yardsticks, in turns (device
-    # times, medians of 5 rounds)
-    for name in ("compact_tokens", "place_literals"):
+    # the kernels against their library yardsticks, in turns (device
+    # times of the whole call, medians of 5 rounds)
+    for name in ("tokenize_planes", "compact_tokens", "place_literals"):
         r = rows[name]
         ts = {"kernel": [], "library": []}
         for _ in range(5):
-            ts["kernel"].append(device_ms(r["fn"], kernel=name + "_kernel")
-                                or cuda_ms(r["fn"]))
+            ts["kernel"].append(device_ms(r["fn"]) or cuda_ms(r["fn"]))
             ts["library"].append(device_ms(r["library"])
                                  or cuda_ms(r["library"]))
         med = {k: statistics.median(v) for k, v in ts.items()}

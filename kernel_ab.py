@@ -1,15 +1,20 @@
-"""Design A/B of two of the port's CUDA kernels on one card.
+"""Design A/B of four of the port's CUDA kernels on one card.
 
-    python3 kernel_ab.py [--rounds 3]
+    python3 kernel_ab.py [--rounds 3] [--only hzr_decode.cu,tokenize.cu]
+                         [--baseline DIR]
 
-Builds variants of ops/csrc/compact.cu and ops/csrc/place_literals.cu,
-each the committed source with some of its tile constants (or one
-line) replaced, into one shared library apiece (nvcc, sm_90a, all at
-once), and times each variant's kernel at the main path's shapes (the
-chip_smoke inputs: BASELINE config 2's pass 1 for compact_tokens, its
-device decode's emissions for place_literals) beside the library call
-that computes the same function, in turns, by torch.profiler device
-time (median of 30 launches a round; medians over the rounds printed).
+Builds variants of ops/csrc/hzr_decode.cu, tokenize.cu, compact.cu and
+place_literals.cu, each the committed source with some of its constants
+(or a line) replaced, into one shared library apiece (nvcc, sm_90a, all
+at once), and times each variant at the main path's shapes (the
+chip_smoke inputs: BASELINE config 2's device decode batch for
+hzr_decode, its xdelta signal for tokenize_planes, its pass 1 for
+compact_tokens, its device decode's emissions for place_literals)
+beside the library call that computes the same function where there is
+one, in turns, by torch.profiler device time of the whole call (every
+kernel and memset of it; mean of 30 calls a round, medians over the
+rounds printed). --baseline DIR adds the varied kernels' sources found
+in DIR (the csrc of an earlier checkout) as variant "baseline".
 Variants marked "diag" drop work (their output is not the function's)
 to show what the rest costs; every other variant is first checked bit
 for bit against the plain version. Prints the card's name and power
@@ -77,6 +82,53 @@ PLACE = {
 }
 
 
+DECODE = {
+    "cluster8_smem_skip": ({}, False),
+    "cluster4": ({"kRowsPerCta = 1;": "kRowsPerCta = 2;"}, False),
+    "cluster8_levels_l1": ({"kLevelsShared = true;":
+                            "kLevelsShared = false;"}, False),
+    # every lane decodes every sweep, changed entry or not
+    "cluster8_decode_all": ({"kSkipSame = true;": "kSkipSame = false;"},
+                            False),
+    # pad short lanes after every sweep instead of once after the last
+    "cluster8_pad_each_sweep": ({
+        "    tot = tile_totals(cluster, rank, nch, o, s_warp, s_part, par);\n":
+        "    tot = tile_totals(cluster, rank, nch, o, s_warp, s_part, par);\n"
+        "    for (int s = o.steps; s < tot.y; ++s)\n"
+        "      emit(erow, s, (int32_t)((uint32_t)o.outc << 9));\n"}, False),
+    "diag_no_stores": ({"  erow[(int64_t)s * kTileLanes] = v;":
+                        "  if (v == -7) erow[(int64_t)s * kTileLanes] = v;"},
+                       True),
+    # one sweep of every lane from its given entry (the trusted path)
+    "diag_one_sweep": ({"  const bool trust = p.ntc[t * 5 + 4] != 0;":
+                        "  const bool trust = true;"}, True),
+    # launch, table staging and the first cluster barrier only
+    "diag_staging_only": ({
+        "  int entry = entry0, nentry = nentry0, done = entry0;":
+        "  if (entry0 != -7) return;\n"
+        "  int entry = entry0, nentry = nentry0, done = entry0;"}, True),
+}
+TOKENIZE = {
+    "tile2048_summary": ({}, False),
+    "tile4096_summary": ({"kTile = 2048;": "kTile = 4096;"}, False),
+    "tile8192_summary": ({"kTile = 2048;": "kTile = 8192;",
+                          "kPer = 4;": "kPer = 8;"}, False),
+    "tile2048_scan": ({"kSummary = true;": "kSummary = false;"}, False),
+    "tile4096_scan": ({"kTile = 2048;": "kTile = 4096;",
+                       "kSummary = true;": "kSummary = false;"}, False),
+    "tile2048_per8": ({"kPer = 4;": "kPer = 8;"}, False),
+    "tile4096_per8": ({"kTile = 2048;": "kTile = 4096;",
+                       "kPer = 4;": "kPer = 8;"}, False),
+    "diag_no_hist": ({
+        "          if (hcnt) atomicAdd(&h[p][hsym], hcnt);":
+        "          if (hcnt == -7) atomicAdd(&h[p][hsym], hcnt);",
+        "    if (hcnt) atomicAdd(&h[p][hsym], hcnt);":
+        "    if (hcnt == -7) atomicAdd(&h[p][hsym], hcnt);"}, True),
+}
+TABLES = {"hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
+          "compact.cu": COMPACT, "place_literals.cu": PLACE}
+
+
 def variant_source(src: str, repl: dict) -> str:
     for old, new in repl.items():
         if src.count(old) != 1:
@@ -85,17 +137,22 @@ def variant_source(src: str, repl: dict) -> str:
     return src
 
 
-def build_variants(kernels, out_dir: Path):
+def build_variants(kernels, out_dir: Path, baseline=None):
     """{(kernel, variant): ctypes library}, every variant compiled by its
-    own nvcc, all started together."""
+    own nvcc, all started together; with baseline (a csrc directory),
+    its copy of each kernel's source as variant "baseline" too."""
     from rspt_tpu_torch.ops import _build
     nvcc = _build.find_nvcc()
     procs = {}
     for cu, variants in kernels.items():
         src = (CSRC / cu).read_text()
-        for name, (repl, _) in variants.items():
+        todo = [(name, variant_source(src, repl))
+                for name, (repl, _) in variants.items()]
+        if baseline is not None and (baseline / cu).exists():
+            todo.append(("baseline", (baseline / cu).read_text()))
+        for name, text in todo:
             path = out_dir / f"{Path(cu).stem}_{name}.cu"
-            path.write_text(variant_source(src, repl))
+            path.write_text(text)
             lib = path.with_suffix(".so")
             cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(CSRC), "-shared",
                    "-o", str(lib), str(path)]
@@ -111,9 +168,31 @@ def build_variants(kernels, out_dir: Path):
     return libs
 
 
+def _bind(cu, lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = {"compact.cu": {"rspt_compact_tiles": [I],
+                           "rspt_compact_tokens": [P] * 4 + [I] * 4 + [P]},
+            "place_literals.cu": {
+                "rspt_place_literals": [P] * 6 + [I] * 3 + [P]},
+            "hzr_decode.cu": {"rspt_hzr_decode": [P] * 17 + [I] * 7 + [P]},
+            "tokenize.cu": {"rspt_tokenize_planes": [P] * 5 + [I] * 3 + [P],
+                            "rspt_tokenize_tiles": []}}[cu]
+    if cu == "tokenize.cu" and not hasattr(lib, "rspt_tokenize_tiles"):
+        # a source without the summary pass: no scratch argument
+        sigs = {"rspt_tokenize_planes": [P] * 4 + [I] * 3 + [P]}
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = I
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", default=",".join(TABLES),
+                    help="comma-separated kernel sources to vary")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="csrc directory of an earlier checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is false",
@@ -134,10 +213,15 @@ def main() -> int:
     _, native = cs.make_ecg(ch, ns)
     words = torch.from_numpy(np.frombuffer(native, "<i4").copy()).to(dev)
     x = cs.kernel_inputs(ck, tc, words, ns, ch, 3)
+    enc = x["enc"]
     tokw, bases, T = x["tokw"], x["bases"], x["plan"].T
+    nb = tokw.shape[0]
     huff = torch.from_numpy(x["plan"].ntok > 0).to(dev)
     tok_huff = tokw[huff]
     valid_huff = ((tok_huff >> 27) & 1) != 0
+    valid = ((tokw >> 27) & 1) != 0
+    sym_idx = (torch.where(valid, tokw & 511, 261).to(torch.int64)
+               + 262 * torch.arange(nb, device=dev)[:, None]).reshape(-1)
     p = packers.new_xdelta_hzr(4, ch, ns, 3)
     comp = p.compress(native)
     _, streams, _ = p._streams(comp, p.nr_planes, 0)
@@ -153,65 +237,95 @@ def main() -> int:
            & live.reshape(nt, 1, 1024) & (e_pos < limit.reshape(nt, 1, 1024)))
     lit_pos, lit_val = e_pos[lit], (em[lit] & 0xFF).to(torch.uint8)
     lib_out = torch.zeros(total, dtype=torch.uint8, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
 
+    def compact(lib):
+        nstate = 1 + tokw.shape[0] * lib.rspt_compact_tiles(tokw.shape[1])
+        buf = torch.zeros(T + nstate, **i32)
+        err = lib.rspt_compact_tokens(
+            tokw.data_ptr(), bases.data_ptr(), buf.data_ptr(),
+            buf[T:].data_ptr(), tokw.shape[0], tokw.shape[1], T, 0, stream)
+        assert err == 0, err
+        return buf[:T]
+
+    def place(lib):
+        out = torch.zeros(total, dtype=torch.uint8, device=dev)
+        err = lib.rspt_place_literals(
+            emis.data_ptr(), steps.data_ptr(), base.data_ptr(),
+            limit.data_ptr(), live.data_ptr(), out.data_ptr(), nt, S,
+            total, stream)
+        assert err == 0, err
+        return out
+
+    def decode(lib):
+        outs = (torch.empty((nt, ck.MAX_STEPS, 8, 128), **i32),
+                torch.empty((nt * 8, 128), **i32),
+                torch.empty((nt * 8, 128), **i32), torch.empty((nt, 5), **i32))
+        err = lib.rspt_hzr_decode(
+            *[a.data_ptr() for a in dargs], *[o.data_ptr() for o in outs],
+            nt, dargs[1].shape[0], *[a.shape[0] for a in dargs[4:8]],
+            ck.MAX_STEPS, stream)
+        assert err == 0, err
+        return outs
+
+    def tokenize(lib):
+        nb_per = -(-enc.numel() // 65536)
+        outs = (torch.empty((nb, 65536), **i32),
+                torch.empty((nb, 16384), **i32), torch.empty((nb, 261), **i32))
+        ptrs = [o.data_ptr() for o in outs]
+        if hasattr(lib, "rspt_tokenize_tiles"):
+            summary = torch.empty(nb_per * lib.rspt_tokenize_tiles() * 8,
+                                  **i32)
+            ptrs.insert(0, summary.data_ptr())
+        err = lib.rspt_tokenize_planes(enc.data_ptr(), *ptrs, enc.numel(), 3,
+                                       nb_per, stream)
+        assert err == 0, err
+        return outs
+
+    def decode_view(out):   # what placement reads, and the lane results
+        return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])
+
+    only = args.only.split(",")
+    kinds = {   # source: (name, call, plain result, compare form)
+        "hzr_decode.cu": ("hzr_decode", decode,
+                          decode_view(ck.hzr_decode_plain(*dargs)),
+                          decode_view),
+        "tokenize.cu": ("tokenize_planes", tokenize,
+                        ck.tokenize_planes_plain(enc, 3), None),
+        "compact.cu": ("compact_tokens", compact,
+                       ck.compact_tokens_plain(tokw, bases, T), None),
+        "place_literals.cu": ("place_literals", place,
+                              ck.place_literals_plain(
+                                  emis, steps, base, limit, live,
+                                  torch.zeros(total, dtype=torch.uint8,
+                                              device=dev)), None)}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        libs = build_variants({"compact.cu": COMPACT,
-                               "place_literals.cu": PLACE}, Path(tmp))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        for (cu, _), lib in libs.items():
-            if cu == "compact.cu":
-                lib.rspt_compact_tiles.argtypes = [I]
-                lib.rspt_compact_tiles.restype = I
-                lib.rspt_compact_tokens.argtypes = [P] * 4 + [I] * 4 + [P]
-                lib.rspt_compact_tokens.restype = I
-            else:
-                lib.rspt_place_literals.argtypes = [P] * 6 + [I] * 3 + [P]
-                lib.rspt_place_literals.restype = I
-
-        def compact(lib):
-            nstate = 1 + tokw.shape[0] * lib.rspt_compact_tiles(tokw.shape[1])
-            buf = torch.zeros(T + nstate, dtype=torch.int32, device=dev)
-            err = lib.rspt_compact_tokens(
-                tokw.data_ptr(), bases.data_ptr(), buf.data_ptr(),
-                buf[T:].data_ptr(), tokw.shape[0], tokw.shape[1], T, 0,
-                stream)
-            assert err == 0, err
-            return buf[:T]
-
-        def place(lib):
-            out = torch.zeros(total, dtype=torch.uint8, device=dev)
-            err = lib.rspt_place_literals(
-                emis.data_ptr(), steps.data_ptr(), base.data_ptr(),
-                limit.data_ptr(), live.data_ptr(), out.data_ptr(), nt, S,
-                total, stream)
-            assert err == 0, err
-            return out
-
-        runs = {}   # name: (fn, profiler kernel name or None)
-        want_c = ck.compact_tokens_plain(tokw, bases, T)
-        want_p = ck.place_literals_plain(
-            emis, steps, base, limit, live,
-            torch.zeros(total, dtype=torch.uint8, device=dev))
+        libs = build_variants({cu: TABLES[cu] for cu in only}, Path(tmp),
+                              args.baseline)
+        runs = {}   # name: call
         for (cu, name), lib in libs.items():
-            kind, fn, want, table = (
-                ("compact_tokens", compact, want_c, COMPACT)
-                if cu == "compact.cu" else
-                ("place_literals", place, want_p, PLACE))
+            _bind(cu, lib)
+            kind, fn, want, view = kinds[cu]
             run = (lambda fn=fn, lib=lib: fn(lib))
-            if not table[name][1]:
-                cs.equal(f"{kind}/{name}", run(), want)
-            runs[f"{kind}/{name}"] = (run, kind + "_kernel")
-        runs["compact_tokens/library masked_select"] = (
-            lambda: torch.masked_select(tok_huff, valid_huff), None)
-        runs["place_literals/library index_put_"] = (
-            lambda: lib_out.index_put_((lit_pos,), lit_val), None)
+            if name == "baseline" or not TABLES[cu][name][1]:
+                got = run()
+                cs.equal(f"{kind}/{name}", view(got) if view else got, want)
+            runs[f"{kind}/{name}"] = run
+        if "tokenize.cu" in only:
+            runs["tokenize_planes/library bincount (histogram only)"] = (
+                lambda: torch.bincount(sym_idx, minlength=nb * 262))
+        if "compact.cu" in only:
+            runs["compact_tokens/library masked_select"] = (
+                lambda: torch.masked_select(tok_huff, valid_huff))
+        if "place_literals.cu" in only:
+            runs["place_literals/library index_put_"] = (
+                lambda: lib_out.index_put_((lit_pos,), lit_val))
         torch.cuda.synchronize()
         times = {name: [] for name in runs}
         for _ in range(args.rounds):
-            for name, (fn, kname) in runs.items():
-                times[name].append(cs.device_ms(fn, kernel=kname)
-                                   or cs.cuda_ms(fn))
+            for name, fn in runs.items():
+                times[name].append(cs.device_ms(fn) or cs.cuda_ms(fn))
     med = {name: statistics.median(ts) for name, ts in times.items()}
     for name, ts in times.items():
         print(f"{name}: median {med[name]:.6f} ms, rounds "

@@ -68,7 +68,8 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
         "rspt_xdelta_swizzle": [P, P, P, I, I, I, I, I, I, P],
-        "rspt_tokenize_planes": [P, P, P, P, I, I, I, P],
+        "rspt_tokenize_tiles": [],
+        "rspt_tokenize_planes": [P] * 5 + [I] * 3 + [P],
         "rspt_compact_tiles": [I],
         "rspt_compact_tokens": [P] * 4 + [I] * 4 + [P],
         "rspt_pack_flat": [P, P, P, P, P, P, I, I, I, P],
@@ -77,6 +78,7 @@ def _lib() -> ctypes.CDLL:
         "rspt_pack_blocks_tokw": [P] * 5 + [I] * 3 + [P],
         "rspt_fwht": [P, I, I, P],
         "rspt_fwht_launches": [I],
+        "rspt_hzr_decode_cluster": [],
         "rspt_hzr_decode": [P] * 17 + [I] * 7 + [P],
         "rspt_place_literals": [P] * 6 + [I] * 3 + [P],
         "rspt_group_windows": [P] * 7 + [I] + [P],
@@ -113,6 +115,10 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _launch(name: str, fn, *args, device: torch.device) -> None:
@@ -235,10 +241,13 @@ def tokenize_planes(enc: torch.Tensor, nr_planes: int):
     kw = dict(dtype=torch.int32, device=enc.device)
     tokw = torch.empty((nb, B), **kw)
     bwords = torch.empty((nb, B // 4), **kw)
-    hist = torch.empty((nb, NUM_SYMBOLS), **kw)
-    _launch("tokenize_planes", _lib().rspt_tokenize_planes, enc.data_ptr(),
-            tokw.data_ptr(), bwords.data_ptr(), hist.data_ptr(), plane_len,
-            nr_planes, nb_per, device=enc.device)
+    hist = torch.empty((nb, NUM_SYMBOLS), **kw)    # zeroed by the call
+    lib = _lib()
+    # the summary pass's first and last non-zero of every tile and plane
+    summary = torch.empty(nb_per * lib.rspt_tokenize_tiles() * 8, **kw)
+    _launch("tokenize_planes", lib.rspt_tokenize_planes, enc.data_ptr(),
+            summary.data_ptr(), tokw.data_ptr(), bwords.data_ptr(),
+            hist.data_ptr(), plane_len, nr_planes, nb_per, device=enc.device)
     tokenize_planes.launches += 1
     return tokw, bwords, hist
 
@@ -805,6 +814,9 @@ def hzr_decode(ntc, win, l1lo, l1hi, lv1, lv2, lv3, lv4, entry, segend,
             raise ValueError(f"lv{k + 1}: need (cap >= 1, nrows, 128)")
     if not _on_cuda(*args):
         return hzr_decode_plain(*args)
+    if not _aligned16(win, l1lo, l1hi, *lvs):
+        raise ValueError("hzr_decode: win, l1lo, l1hi and lv1..lv4 must be "
+                         "16-byte aligned")
     kw = dict(dtype=torch.int32, device=entry.device)
     emis = torch.empty((nt, MAX_STEPS, 8, 128), **kw)
     counts = torch.empty((nrows, 128), **kw)
@@ -931,10 +943,6 @@ def group_windows_plain(tokc, lut3):
             cbase.to(torch.int32).reshape(1, nc),
             (nbits.reshape(nc, 128) > 0).any(1).to(torch.int32).reshape(1, nc),
             nbits.sum(1).to(torch.int32).reshape(1, ng))
-
-
-def _aligned16(*tensors) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def group_windows(tokc: torch.Tensor, lut3: torch.Tensor):

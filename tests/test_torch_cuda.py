@@ -66,6 +66,19 @@ def test_packer_card_equals_cpu(rng, dev):
     assert pc.decompress(comp)[0] == native
 
 
+def decode_batch(payloads, dev):
+    """hzr_decode's inputs for the HUFF blocks of the payloads' streams
+    (one stream each), made by gpu_decoder's host half; returns
+    (LaneArrays, kernel arguments, decoded size)."""
+    streams = [tc.encode(p.tobytes(), device=dev) for p in payloads]
+    _, out, huff = gd._walk_all(streams)
+    blocks, _ = gd._device_blocks(huff)
+    la = gd.lane_arrays(blocks)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in la.kernel_inputs()]
+    return la, args, out.size
+
+
 def _decode_batch(rng, dev):
     """hzr_decode's inputs for a mixed batch: ECG-like planes, a sparse
     plane and 21-bit codes (all four nibble levels)."""
@@ -79,23 +92,28 @@ def _decode_batch(rng, dev):
     rng.shuffle(deep)
     payloads = [(walk & 255).astype(np.uint8),
                 ((walk >> 8) & 255).astype(np.uint8), sparse, deep]
-    streams = [tc.encode(p.tobytes(), device=dev) for p in payloads]
-    _, out, huff = gd._walk_all(streams)
-    blocks, _ = gd._device_blocks(huff)
-    la = gd.lane_arrays(blocks)
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for a in la.kernel_inputs()]
-    return la, args, out.size
+    return decode_batch(payloads, dev)
 
 
-@pytest.mark.parametrize("trusted", [False, True])
-def test_hzr_decode_matches_plain(rng, dev, trusted):
-    """hzr_decode vs hzr_decode_plain: counts, converged entries, stats
-    and every emission below the tile's step count; with trusted
-    (converged) entries, one sweep."""
-    _, args, _ = _decode_batch(rng, dev)
+def rank_edge_payloads(rng):
+    """Payloads (24 symbols, ~4.6 bits a byte: HUFF) whose blocks lay out
+    as: one 64 KiB block filling all 8 rows of tile 0, so that lane exits
+    cross every CTA boundary of hzr_decode's cluster; two 3-row blocks
+    and padding rows 6-7 in tile 1, between them and the next tile's
+    3-row block (tile 2, padding rows 3-7)."""
+    return ([rng.integers(0, 24, 65536).astype(np.uint8)]
+            + [rng.integers(0, 24, 20000).astype(np.uint8)
+               for _ in range(3)])
+
+
+def check_decode_vs_plain(args, trusted):
+    """hzr_decode vs hzr_decode_plain on one batch: counts, converged
+    entries, stats (with the sweep count) and every emission below the
+    tile's step count; with trusted (converged) entries, one sweep."""
     if trusted:
+        args = list(args)
         args[8] = ck.hzr_decode_plain(*args)[2]
+        args[0] = args[0].clone()
         args[0][:, 4] = 1
     got = ck.hzr_decode(*args)
     want = ck.hzr_decode_plain(*args)
@@ -104,6 +122,34 @@ def test_hzr_decode_matches_plain(rng, dev, trusted):
     assert torch.equal(gd.valid_emissions(got[0], got[3][:, 0]),
                        gd.valid_emissions(want[0], want[3][:, 0]))
     assert bool((got[3][:, 1] == 0).all()) == trusted
+    return got
+
+
+@pytest.mark.parametrize("trusted", [False, True])
+def test_hzr_decode_matches_plain(rng, dev, trusted):
+    """hzr_decode vs hzr_decode_plain on the mixed batch."""
+    _, args, _ = _decode_batch(rng, dev)
+    check_decode_vs_plain(args, trusted)
+
+
+@pytest.mark.parametrize("trusted", [False, True])
+def test_hzr_decode_rank_edges_match_plain(rng, dev, trusted):
+    """hzr_decode vs hzr_decode_plain where one block fills a whole tile
+    (every row a CTA of the cluster, exits crossing each boundary) and
+    padding rows sit between blocks; place_literals gives the same
+    bytes from it."""
+    la, args, total = decode_batch(rank_edge_payloads(rng), dev)
+    got = check_decode_vs_plain(args, trusted)
+    live = torch.from_numpy(la.lane_live).to(dev)
+    base = gd.lane_out_base(got[1], live,
+                            torch.from_numpy(la.out_off).to(dev),
+                            torch.from_numpy(la.block_first).to(dev))
+    pa = (got[3][:, 0].contiguous(), base,
+          torch.from_numpy(la.out_limit).to(dev), live)
+    assert torch.equal(
+        ck.place_literals(got[0], *pa, total),
+        ck.place_literals_plain(got[0], *pa, torch.zeros(
+            total, dtype=torch.uint8, device=dev)))
 
 
 def test_place_literals_matches_plain(rng, dev):
@@ -121,6 +167,59 @@ def test_place_literals_matches_plain(rng, dev):
         emis, steps, base, limit, live,
         torch.zeros(total, dtype=torch.uint8, device=dev))
     assert torch.equal(got, want)
+
+
+TOKENIZE_EDGE_CASES = ("tile_edges", "all_zero_slab", "all_literal_slab")
+
+
+def tokenize_edge_batch(rng, case):
+    """An int32 signal of one 64 KiB slab and a short last slab on the
+    edges of tokenize_planes' tiles (2,048 positions; the edges below are
+    multiples of 4,096, so they hold at 4,096 too), in all four byte
+    planes. "tile_edges": zero runs starting and ending on tile edges; in
+    plane p a run of 2 x 16,662 + 500 zeros from 4,096 * (5 + p) -
+    16,662, so that its second chunk starts on a tile edge and it
+    crosses many tiles; a last slab of 4,097 positions whose first 4,096
+    are one zero run. "all_zero_slab": a last slab of 4,095 ending in a
+    zero run. "all_literal_slab": every byte of the first slab non-zero,
+    a last slab of 1 position, a zero."""
+    tail = {"tile_edges": 4097, "all_zero_slab": 4095,
+            "all_literal_slab": 1}[case]
+    n = 65536 + tail
+    by = rng.integers(1, 256, (n, 4))
+    if case == "tile_edges":
+        by[rng.random((n, 4)) < 0.3] = 0
+        for a, b in ((53248, 57344), (59000, 61440), (65536, 69632)):
+            by[a:b] = 0
+            by[b] = rng.integers(1, 256, 4)
+            if a != 65536:
+                by[a - 1] = rng.integers(1, 256, 4)
+        for p in range(4):
+            a = 4096 * (5 + p) - 16662
+            by[a - 1, p] = 7
+            by[a:a + 2 * 16662 + 500, p] = 0
+            by[a + 2 * 16662 + 500, p] = 9
+    elif case == "all_zero_slab":
+        by[:65536] = 0
+        by[rng.random((n, 4)) < 0.3] = 0
+        by[n - 700:] = 0
+    else:
+        by[-1] = 0
+    word = (by.astype(np.uint32) << (8 * np.arange(4, dtype=np.uint32))).sum(
+        1, dtype=np.uint32)
+    return word.view(np.int32)
+
+
+@pytest.mark.parametrize("case", TOKENIZE_EDGE_CASES)
+def test_tokenize_edges_match_plain(dev, case):
+    """tokenize_planes vs its plain version on its tile edges (token
+    words, plane bytes, histograms), planes 1-4."""
+    x = torch.from_numpy(tokenize_edge_batch(np.random.default_rng(90),
+                                             case)).to(dev)
+    for planes in (1, 2, 3, 4):
+        for g, w in zip(ck.tokenize_planes(x, planes),
+                        ck.tokenize_planes_plain(x, planes)):
+            assert torch.equal(g, w)
 
 
 def compact_edge_batch(rng, case):

@@ -23,6 +23,7 @@ from rspt_tpu.hzr import pyref as jref  # noqa: E402
 from rspt_tpu_torch.hzr import gpu_decoder as gd  # noqa: E402
 from rspt_tpu_torch.hzr import walk  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from test_torch_cuda import decode_batch, rank_edge_payloads  # noqa: E402
 
 
 def _t(a):
@@ -329,6 +330,48 @@ def test_decode_many_matches_pallas_and_pyref(name, fresh_hints):
         if len(st) < 4096:
             assert o == jref.decode(st)
     assert _lane_arrays(run).lane_live.any()
+
+
+def test_rank_edge_batch_layout():
+    """tests/test_torch_cuda.py's rank-edge batch (the card test of
+    hzr_decode's cluster boundaries) lays out as it says: tile 0 is 8
+    live rows of one block, tile 1 two blocks then padding rows, tile 2
+    a block then padding."""
+    la, _, _ = decode_batch(rank_edge_payloads(np.random.default_rng(91)),
+                            "cpu")
+    first = la.block_first.reshape(-1, 8, 128)
+    live = la.lane_live.reshape(-1, 8, 128)
+    assert live.shape[0] == 3
+    assert live[0].any(1).all() and (first[0][live[0]] == 0).all()
+    assert live[1].any(1).tolist() == [True] * 6 + [False] * 2
+    assert live[2].any(1).tolist() == [True] * 3 + [False] * 5
+    assert len({int(f) for f in first[1][live[1]]}) == 2
+    # every lane but a block's first takes its left neighbour's exit
+    assert la.first.reshape(-1, 1024)[0].sum() == 1 + (~live[0]).sum()
+
+
+@pytest.mark.parametrize("trusted", [False, True])
+def test_rank_edge_batch_plain_decode(trusted, fresh_hints):
+    """hzr_decode_plain on the rank-edge batch converges (untrusted:
+    more than one sweep; trusted with its converged entries: none) and
+    the device decode path round-trips it to the payloads."""
+    payloads = rank_edge_payloads(np.random.default_rng(91))
+    _, args, _ = decode_batch(payloads, "cpu")
+    want = ck.hzr_decode_plain(*args)
+    if trusted:
+        args[8] = want[2]
+        args[0] = args[0].clone()
+        args[0][:, 4] = 1
+        got = ck.hzr_decode(*args)
+        assert int(got[3][:, 1].max()) == 0
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert torch.equal(gd.valid_emissions(got[0], got[3][:, 0]),
+                           gd.valid_emissions(want[0], want[3][:, 0]))
+    else:
+        assert int(want[3][:, 1].min()) >= 2
+    streams = [jref.encode(x.tobytes()) for x in payloads]
+    assert gd.decode_many(streams, device="cpu", hints=False) == [
+        x.tobytes() for x in payloads]
 
 
 def test_very_deep_codes_decode_on_device(fresh_hints):

@@ -7,6 +7,8 @@ All outputs are integer words, so every comparison is bit-exact
 one or two 64 KiB slabs a plane: interpret-mode tokenize is slow.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,7 @@ from rspt_tpu.ops import jax_ops as jops  # noqa: E402
 from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from test_torch_cuda import TOKENIZE_EDGE_CASES, tokenize_edge_batch  # noqa: E402,E501
 
 B = 65536
 
@@ -91,6 +94,34 @@ def test_tokenize_all_zero_and_all_literal_slabs(rng):
     np.testing.assert_array_equal(bwords.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(hist.numpy(),
                                   np.asarray(jax_coder.hist_from_tokw(jt)))
+
+
+@functools.lru_cache(maxsize=None)
+def _tokenize_edges_jax(case):
+    """The edge signal and the Pallas kernel's 4-plane token words, plane
+    bytes and histograms (rows are plane-major, so fewer planes are the
+    first rows)."""
+    x = tokenize_edge_batch(np.random.default_rng(90), case)
+    jt, jb = pk.tokenize_planes_pallas(jnp.asarray(x), 4, x.size,
+                                       interpret=True)
+    return x, np.asarray(jt), np.asarray(jb), np.asarray(
+        jax_coder.hist_from_tokw(jt))
+
+
+@pytest.mark.parametrize("planes", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", TOKENIZE_EDGE_CASES)
+def test_tokenize_tile_edges_vs_pallas(case, planes):
+    """K2 and hist_from_tokw on the CUDA kernel's tile edges
+    (tests/test_torch_cuda.py's tokenize_edge_batch: runs starting and
+    ending on 4,096 multiples, a run > 16,662 across 8 tiles with a
+    chunk start on a tile boundary, all-zero and all-literal slabs, last
+    slabs of 4,097, 4,095 and 1 positions); tolerance 0."""
+    x, jt, jb, jh = _tokenize_edges_jax(case)
+    tokw, bwords, hist = ck.tokenize_planes(_t(x), planes)
+    rows = planes * 2
+    np.testing.assert_array_equal(tokw.numpy(), jt[:rows])
+    np.testing.assert_array_equal(bwords.numpy(), jb[:rows])
+    np.testing.assert_array_equal(hist.numpy(), jh[:rows])
 
 
 def _plan(x, planes):
