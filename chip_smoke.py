@@ -21,10 +21,15 @@ Phases: 1 build; 2 encode kernels vs plain on every chain (pack_flat_lanes
 too; group_windows, place_windows_aligned and windows_place_flat, with both
 windows routes' payload bytes equal to pack_flat's), compact_tokens on
 the edges of its tile split and look-back (tests/test_torch_cuda.py's
-compact_edge_batch) and tokenize_planes on the edges of its tiles
-(tokenize_edge_batch, planes 1-4); 3 compress / host-decode decompress; 5
-decode kernels (hzr_decode, place_literals) vs plain at the main-path
-shape and on edge inputs (rank_edge_payloads: a block across every CTA of
+compact_edge_batch), tokenize_planes on the edges of its tiles
+(tokenize_edge_batch, planes 1-4), and pack_flat and pack_flat_lanes on
+the edges of their tiles and look-back (pack_flat_edge_batch: blocks of
+1-2, 2,047-2,049 and several tiles, COPY/FILL/empty blocks between, a
+token spanning the word two tiles share, segment boundaries crossed by a
+tile's first token and by a block's last, nwords one word short, tokc
+cut inside a block, overlapping blocks, 1,080-1,152 tiles); 3 compress /
+host-decode decompress; 5 decode kernels (hzr_decode, place_literals)
+vs plain at the main-path shape and on edge inputs (rank_edge_payloads: a block across every CTA of
 a tile's cluster, padding rows between blocks; trusted and not),
 place_literals also on the word-store edges of place_edge_batch; 6
 decompress(device_decode=True) and decompress_many with and without
@@ -40,12 +45,11 @@ times each kernel's call (profiler device time of every device operation
 of the wrapper's call: kernels, memsets, copies) beside its bound, its
 plain version and a library yardstick (tokenize_planes in turns with
 bincount, compact_tokens with masked_select, place_literals with
-index_put_), hzr_decode's clusters and tokenize_planes' working blocks,
-and the host
-stages and wall times of every path. The last two lines are a JSON
-object of the kernels and the result line. Exits nonzero, with no
-result line, when there is no CUDA card or any check fails. Imports
-nothing of JAX or of the JAX package.
+index_put_), hzr_decode's clusters, tokenize_planes' and pack_flat's
+working blocks, and the host stages and wall times of every path. The
+last two lines are a JSON object of the kernels and the result line.
+Exits nonzero, with no result line, when there is no CUDA card or any
+check fails. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -424,6 +428,28 @@ def main() -> int:
         w, b = torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev)
         equal(f"compact_tokens {case}", ck.compact_tokens(w, b, T, nzv),
               ck.compact_tokens_plain(w, b, T, nzv))
+    pf_cover = {}
+    if ck._lib().rspt_pack_flat_tile() != edges.PACK_TILE:
+        raise AssertionError("pack_flat's tile differs from PACK_TILE: the "
+                             "edge cases miss the kernel's tile edges")
+    for case in edges.PACK_FLAT_EDGE_CASES:
+        pe = edges.pack_flat_edge_batch(np.random.default_rng(110), case)
+        pf_cover[case] = edges.pack_flat_edges_covered(pe)
+        edges.check_pack_flat_edges_covered(case, pf_cover[case])
+        if ck._lib().rspt_pack_flat_state(pe["args"][2].numel(),
+                                          pe["args"][0].numel()) != 2 * (
+                1 + pf_cover[case]["status_words"]):
+            raise AssertionError(f"pack_flat {case}: status words differ "
+                                 "from the kernel's")
+        a, pa = (tuple(v.to(dev) if torch.is_tensor(v) else v
+                       for v in pe[k]) for k in ("args", "plain_args"))
+        ln = tuple(v.to(dev) for v in pe["lanes"])
+        want = ck.pack_flat_plain(*pa)
+        equal(f"pack_flat {case}", ck.pack_flat(*a), want)
+        got = ck.pack_flat_lanes(*a, *ln)
+        equal(f"pack_flat_lanes {case}", got,
+              ck.pack_flat_lanes_plain(*pa, *ln))
+        equal(f"pack_flat_lanes {case} words", got[0], want)
     for case in edges.TOKENIZE_EDGE_CASES:
         t = torch.from_numpy(edges.tokenize_edge_batch(
             np.random.default_rng(90), case)).to(dev)
@@ -474,7 +500,10 @@ def main() -> int:
         "all-valid row, ragged tiles, trash rows between packed rows, "
         "nonzero_valid and a single row; pack_flat_lanes too, its words "
         "equal to pack_flat's; both windows routes' payload bytes equal "
-        f"to pack_flat's on every chain (groups per chain {chain_groups})")
+        f"to pack_flat's on every chain (groups per chain {chain_groups}); "
+        "pack_flat and pack_flat_lanes on their edge batch (tiles, "
+        "segment crossings by a tile's first token and a block's last, "
+        f"tokens straddling a shared word: {pf_cover})")
 
     # phase 3: the main path through the packer's entry points
     for k in ck.KERNELS:
@@ -1158,6 +1187,12 @@ def main() -> int:
         f"tokenize_planes: {len(limits) * (65536 // tok_tile)} blocks of "
         f"{tok_tile} positions, {sum(-(-n // tok_tile) for n in limits)} "
         f"working (slab lengths {limits})")
+    pf_tile = lib.rspt_pack_flat_tile()
+    pf_work = sum(-(-int(n) // pf_tile) for n in plan.ntok)
+    log(f"phase 4: pack_flat / pack_flat_lanes at the main path: a grid of "
+        f"{-(-plan.T // pf_tile) + nb} CTAs of {pf_tile} tokens, {pf_work} "
+        f"working over {n_huff} HUFF blocks (at most "
+        f"{-(-int(plan.ntok.max()) // pf_tile)} tiles a block)")
     kernels = []
     for name, r in rows.items():
         # device time of the wrapper's call from the profiler: every

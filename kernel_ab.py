@@ -1,25 +1,28 @@
-"""Design A/B of four of the port's CUDA kernels on one card.
+"""Design A/B of five of the port's CUDA kernels on one card.
 
     python3 kernel_ab.py [--rounds 3] [--only hzr_decode.cu,tokenize.cu]
                          [--baseline DIR]
 
-Builds variants of ops/csrc/hzr_decode.cu, tokenize.cu, compact.cu and
-place_literals.cu, each the committed source with some of its constants
-(or a line) replaced, into one shared library apiece (nvcc, sm_90a, all
-at once), and times each variant at the main path's shapes (the
-chip_smoke inputs: BASELINE config 2's device decode batch for
-hzr_decode, its xdelta signal for tokenize_planes, its pass 1 for
-compact_tokens, its device decode's emissions for place_literals)
-beside the library call that computes the same function where there is
-one, in turns, by torch.profiler device time of the whole call (every
-kernel and memset of it; mean of 30 calls a round, medians over the
-rounds printed). --baseline DIR adds the varied kernels' sources found
-in DIR (the csrc of an earlier checkout) as variant "baseline".
-Variants marked "diag" drop work (their output is not the function's)
-to show what the rest costs; every other variant is first checked bit
-for bit against the plain version. Prints the card's name and power
-limit and one JSON line of the medians. Needs a CUDA card and nvcc;
-imports nothing of JAX.
+Builds variants of ops/csrc/hzr_decode.cu, tokenize.cu, compact.cu,
+place_literals.cu and pack_flat.cu, each the committed source with some
+of its constants (or a line) replaced, into one shared library apiece
+(nvcc, sm_90a, all at once), and times each variant at the main path's
+shapes (the chip_smoke inputs: BASELINE config 2's device decode batch
+for hzr_decode, its xdelta signal for tokenize_planes, its pass 1 for
+compact_tokens and, compacted, for both modes of pack_flat, its device
+decode's emissions for place_literals) beside the library call that
+computes the same function where there is one, in turns, by
+torch.profiler device time of the whole call (every kernel and memset
+of it; mean of 30 calls a round, medians over the rounds printed).
+--baseline DIR adds the varied kernels' sources found in DIR (the csrc
+of an earlier checkout) as variant "baseline". pack_flat's
+two_launches and global_atomics variants put back designs that lost
+this A/B (a first launch of tile sums; a global atomicOr a token
+field). Variants marked "diag" drop work (their output is not the
+function's) to show what the rest costs; every other variant is first
+checked bit for bit against the plain version. Prints the card's name
+and power limit and one JSON line of the medians. Needs a CUDA card and
+nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -125,8 +128,70 @@ TOKENIZE = {
         "    if (hcnt) atomicAdd(&h[p][hsym], hcnt);":
         "    if (hcnt == -7) atomicAdd(&h[p][hsym], hcnt);"}, True),
 }
+# per-tile bit counts in a first launch (each tile publishes its own
+# count and stops), then the placement launch on the second int32 of the
+# ticket word, its look-backs over the first launch's counts
+_TWO_LAUNCHES = {
+    "  int nb, ntokc, nwords, nlanes, nstatus;":
+    "  int nb, ntokc, nwords, nlanes, nstatus, sums;",
+    "      if (!direct) prefix = look_back(a.status, g, t, total);":
+    "      if (!direct && a.sums && lane == 0)\n"
+    "        atomicExch(a.status + g,\n"
+    "                   (t ? kAggregate : kInclusive) | (unsigned)total);\n"
+    "      if (!direct && !a.sums) prefix = look_back(a.status, g, t, total);",
+    "    __syncthreads();\n    if (direct) {":
+    "    __syncthreads();\n    if (a.sums) continue;\n    if (direct) {",
+    "  a.nstatus = status_words(a.nb, a.ntokc);\n":
+    "  a.nstatus = status_words(a.nb, a.ntokc);\n"
+    "  Args sums = a;\n"
+    "  sums.sums = 1;\n"
+    "  pack_flat_kernel<<<a.nstatus, kThreads, 0, stream>>>(sums);\n"
+    "  a.ticket += 1;\n"}
+# a global atomicOr a token field into the output (the one-CTA-a-block
+# kernel's store) instead of the words built in shared memory
+_GLOBAL_ATOMICS = {
+    "    for (int k = tid; k < kWords; k += kThreads) s.words[k] = 0;\n": "",
+    "      const int lb = s0 + x;\n"
+    "      const int sh = lb & 31;\n"
+    "      const int wi = lb >> 5;\n"
+    "      const uint64_t lo = val << sh;\n"
+    "      if ((uint32_t)lo) atomicOr(s.words + wi, (uint32_t)lo);\n"
+    "      if ((uint32_t)(lo >> 32) && wi + 1 < nw)\n"
+    "        atomicOr(s.words + wi + 1, (uint32_t)(lo >> 32));\n"
+    "      if (sh && (uint32_t)(val >> (64 - sh)) && wi + 2 < nw)\n"
+    "        atomicOr(s.words + wi + 2, (uint32_t)(val >> (64 - sh)));\n":
+    "      const int64_t bit = tile_bit + x;\n"
+    "      const int sh = (int)(bit & 31);\n"
+    "      const int64_t wi = bit >> 5;\n"
+    "      const uint64_t lo = val << sh;\n"
+    "      const uint32_t f[3] = {(uint32_t)lo, (uint32_t)(lo >> 32),\n"
+    "                             sh ? (uint32_t)(val >> (64 - sh)) : 0u};\n"
+    "      for (int k = 0; k < 3; ++k)\n"
+    "        if (f[k] && wi + k < a.nwords) atomicOr(a.out + wi + k, f[k]);\n",
+    "    for (int k = tid; k < nw; k += kThreads) {":
+    "    for (int k = tid; k < nw && nw < 0; k += kThreads) {"}
+PACK = {
+    "tile2048_t256": ({}, False),
+    "tile4096_t512": ({"kThreads = 256;": "kThreads = 512;"}, False),
+    "tile8192_t1024": ({"kThreads = 256;": "kThreads = 1024;",
+                        "kMinCtas = 2;": "kMinCtas = 1;"}, False),
+    "two_launches": (_TWO_LAUNCHES, False),
+    "global_atomics": (_GLOBAL_ATOMICS, False),
+    # every tile starts its block at bit 0: no look-back wait
+    "diag_no_lookback": ({
+        "      if (!direct) prefix = look_back(a.status, g, t, total);": ""},
+        True),
+    # no token's fields ORed into the words (nor lanes stored)
+    "diag_no_token_or": ({"      if (!nb) continue;":
+                          "      if (nb >= 0) continue;"}, True),
+    # no word stores from shared memory to the output
+    "diag_no_word_stores": ({
+        "    for (int k = tid; k < nw; k += kThreads) {":
+        "    for (int k = tid; k < nw && nw < 0; k += kThreads) {"}, True),
+}
 TABLES = {"hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
-          "compact.cu": COMPACT, "place_literals.cu": PLACE}
+          "compact.cu": COMPACT, "place_literals.cu": PLACE,
+          "pack_flat.cu": PACK}
 
 
 def variant_source(src: str, repl: dict) -> str:
@@ -176,10 +241,18 @@ def _bind(cu, lib):
                 "rspt_place_literals": [P] * 6 + [I] * 3 + [P]},
             "hzr_decode.cu": {"rspt_hzr_decode": [P] * 17 + [I] * 7 + [P]},
             "tokenize.cu": {"rspt_tokenize_planes": [P] * 5 + [I] * 3 + [P],
-                            "rspt_tokenize_tiles": []}}[cu]
+                            "rspt_tokenize_tiles": []},
+            "pack_flat.cu": {"rspt_pack_flat_state": [I, I],
+                             "rspt_pack_flat": [P] * 7 + [I] * 3 + [P],
+                             "rspt_pack_flat_lanes": [P] * 9 + [I] * 4
+                             + [P]}}[cu]
     if cu == "tokenize.cu" and not hasattr(lib, "rspt_tokenize_tiles"):
         # a source without the summary pass: no scratch argument
         sigs = {"rspt_tokenize_planes": [P] * 4 + [I] * 3 + [P]}
+    if cu == "pack_flat.cu" and not hasattr(lib, "rspt_pack_flat_state"):
+        # a source with one CTA a block: no state argument
+        sigs = {"rspt_pack_flat": [P] * 6 + [I] * 3 + [P],
+                "rspt_pack_flat_lanes": [P] * 8 + [I] * 4 + [P]}
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -282,23 +355,54 @@ def main() -> int:
         assert err == 0, err
         return outs
 
+    pk_args = (x["tokc"], bases, x["ntok"], x["bit0"], x["lut"],
+               x["plan"].nwords)
+    meta, init = x["lanes"]
+
+    def pack(lib, lanes):
+        """pack_flat (lanes=False) or pack_flat_lanes through lib, as the
+        wrappers call them (the output's and state's memset included)."""
+        tokc, nwords = x["tokc"], x["plan"].nwords
+        ptrs = [a.data_ptr() for a in pk_args[:5]]
+        if hasattr(lib, "rspt_pack_flat_state"):
+            out, state = ck._pack_buffers(nwords, nb, tokc, lib)
+            state = [state.data_ptr()]
+        else:
+            out, state = torch.zeros(nwords, **i32), []
+        if not lanes:
+            err = lib.rspt_pack_flat(*ptrs, out.data_ptr(), *state, nb,
+                                     tokc.numel(), nwords, stream)
+            assert err == 0, err
+            return out
+        entries = init.clone()
+        err = lib.rspt_pack_flat_lanes(
+            *ptrs, out.data_ptr(), meta.data_ptr(), entries.data_ptr(),
+            *state, nb, tokc.numel(), nwords, entries.numel(), stream)
+        assert err == 0, err
+        return out, entries
+
     def decode_view(out):   # what placement reads, and the lane results
         return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])
 
     only = args.only.split(",")
-    kinds = {   # source: (name, call, plain result, compare form)
-        "hzr_decode.cu": ("hzr_decode", decode,
-                          decode_view(ck.hzr_decode_plain(*dargs)),
-                          decode_view),
-        "tokenize.cu": ("tokenize_planes", tokenize,
-                        ck.tokenize_planes_plain(enc, 3), None),
-        "compact.cu": ("compact_tokens", compact,
-                       ck.compact_tokens_plain(tokw, bases, T), None),
-        "place_literals.cu": ("place_literals", place,
-                              ck.place_literals_plain(
-                                  emis, steps, base, limit, live,
-                                  torch.zeros(total, dtype=torch.uint8,
-                                              device=dev)), None)}
+    kinds = {   # source: [(name, call, plain result, compare form)]
+        "hzr_decode.cu": [("hzr_decode", decode,
+                           decode_view(ck.hzr_decode_plain(*dargs)),
+                           decode_view)],
+        "tokenize.cu": [("tokenize_planes", tokenize,
+                         ck.tokenize_planes_plain(enc, 3), None)],
+        "compact.cu": [("compact_tokens", compact,
+                        ck.compact_tokens_plain(tokw, bases, T), None)],
+        "place_literals.cu": [("place_literals", place,
+                               ck.place_literals_plain(
+                                   emis, steps, base, limit, live,
+                                   torch.zeros(total, dtype=torch.uint8,
+                                               device=dev)), None)],
+        "pack_flat.cu": [
+            ("pack_flat", lambda lib: pack(lib, False),
+             ck.pack_flat_plain(*pk_args), None),
+            ("pack_flat_lanes", lambda lib: pack(lib, True),
+             ck.pack_flat_lanes_plain(*pk_args, meta, init), None)]}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build_variants({cu: TABLES[cu] for cu in only}, Path(tmp),
@@ -306,12 +410,13 @@ def main() -> int:
         runs = {}   # name: call
         for (cu, name), lib in libs.items():
             _bind(cu, lib)
-            kind, fn, want, view = kinds[cu]
-            run = (lambda fn=fn, lib=lib: fn(lib))
-            if name == "baseline" or not TABLES[cu][name][1]:
-                got = run()
-                cs.equal(f"{kind}/{name}", view(got) if view else got, want)
-            runs[f"{kind}/{name}"] = run
+            for kind, fn, want, view in kinds[cu]:
+                run = (lambda fn=fn, lib=lib: fn(lib))
+                if name == "baseline" or not TABLES[cu][name][1]:
+                    got = run()
+                    cs.equal(f"{kind}/{name}", view(got) if view else got,
+                             want)
+                runs[f"{kind}/{name}"] = run
         if "tokenize.cu" in only:
             runs["tokenize_planes/library bincount (histogram only)"] = (
                 lambda: torch.bincount(sym_idx, minlength=nb * 262))

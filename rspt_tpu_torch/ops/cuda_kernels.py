@@ -72,8 +72,10 @@ def _lib() -> ctypes.CDLL:
         "rspt_tokenize_planes": [P] * 5 + [I] * 3 + [P],
         "rspt_compact_tiles": [I],
         "rspt_compact_tokens": [P] * 4 + [I] * 4 + [P],
-        "rspt_pack_flat": [P, P, P, P, P, P, I, I, I, P],
-        "rspt_pack_flat_lanes": [P] * 8 + [I] * 4 + [P],
+        "rspt_pack_flat_state": [I, I],
+        "rspt_pack_flat_tile": [],
+        "rspt_pack_flat": [P] * 7 + [I] * 3 + [P],
+        "rspt_pack_flat_lanes": [P] * 9 + [I] * 4 + [P],
         "rspt_pack_blocks": [P] * 8 + [I] * 3 + [P],
         "rspt_pack_blocks_tokw": [P] * 5 + [I] * 3 + [P],
         "rspt_fwht": [P, I, I, P],
@@ -383,6 +385,17 @@ def _check_pack_args(tokc, tok_base, ntok, bit0, lut, nwords):
     return nb
 
 
+def _pack_buffers(nwords: int, nb: int, tokc: torch.Tensor, lib=None):
+    """One zeroed buffer: the (nwords,) output words, then, at an 8-byte
+    offset, the state of lib's (default: the port's) pack_flat kernel
+    (its tile ticket and one status word a tile): returns (out, state)."""
+    lib = lib or _lib()
+    nw = nwords + (nwords & 1)
+    buf = torch.zeros(nw + lib.rspt_pack_flat_state(nb, tokc.numel()),
+                      dtype=torch.int32, device=tokc.device)
+    return buf[:nwords], buf[nw:]
+
+
 def pack_flat(tokc: torch.Tensor, tok_base: torch.Tensor, ntok: torch.Tensor,
               bit0: torch.Tensor, lut: torch.Tensor,
               nwords: int) -> torch.Tensor:
@@ -390,18 +403,21 @@ def pack_flat(tokc: torch.Tensor, tok_base: torch.Tensor, ntok: torch.Tensor,
     its LUT lut[b] (code | cbits << 24) and place them LSB-first from
     absolute bit bit0[b] of a zeroed (nwords,) int32 payload buffer
     (ntok[b] = 0 skips a block). The caller sizes nwords to hold every
-    block's last bit; the kernel reads no token outside tokc and writes
-    no word past nwords."""
+    block's last bit, and the blocks' bit ranges do not overlap; the
+    kernel reads no token outside tokc (tokens past its end count as
+    invalid) and writes no word past nwords. Codes have cbits <= 23 and
+    tokens ebits <= 14 (flat_plan's LUTs, rle_tokenize's tokens); on the
+    card, input outside that can stop the launch with a device error."""
     nb = _check_pack_args(tokc, tok_base, ntok, bit0, lut, nwords)
     if not _on_cuda(tokc, tok_base, ntok, bit0, lut):
         return pack_flat_plain(tokc, tok_base, ntok, bit0, lut, nwords)
-    out = torch.zeros(nwords, dtype=torch.int32, device=tokc.device)
     if nb == 0 or nwords == 0:
-        return out
+        return torch.zeros(nwords, dtype=torch.int32, device=tokc.device)
+    out, state = _pack_buffers(nwords, nb, tokc)
     _launch("pack_flat", _lib().rspt_pack_flat, tokc.data_ptr(),
             tok_base.data_ptr(), ntok.data_ptr(), bit0.data_ptr(),
-            lut.data_ptr(), out.data_ptr(), nb, tokc.numel(), nwords,
-            device=tokc.device)
+            lut.data_ptr(), out.data_ptr(), state.data_ptr(), nb,
+            tokc.numel(), nwords, device=tokc.device)
     pack_flat.launches += 1
     return out
 
@@ -452,15 +468,16 @@ def pack_flat_lanes(tokc: torch.Tensor, tok_base: torch.Tensor,
     if not _on_cuda(*args):
         return pack_flat_lanes_plain(tokc, tok_base, ntok, bit0, lut, nwords,
                                      meta, init)
-    out = torch.zeros(nwords, dtype=torch.int32, device=tokc.device)
     entries = init.clone()
     if nb == 0 or nwords == 0:
-        return out, entries
+        return (torch.zeros(nwords, dtype=torch.int32, device=tokc.device),
+                entries)
+    out, state = _pack_buffers(nwords, nb, tokc)
     _launch("pack_flat_lanes", _lib().rspt_pack_flat_lanes, tokc.data_ptr(),
             tok_base.data_ptr(), ntok.data_ptr(), bit0.data_ptr(),
             lut.data_ptr(), out.data_ptr(), meta.data_ptr(),
-            entries.data_ptr(), nb, tokc.numel(), nwords, entries.numel(),
-            device=tokc.device)
+            entries.data_ptr(), state.data_ptr(), nb, tokc.numel(), nwords,
+            entries.numel(), device=tokc.device)
     pack_flat_lanes.launches += 1
     return out, entries
 

@@ -267,6 +267,312 @@ def test_compact_tokens_edges_match_plain(rng, dev, case):
         assert torch.equal(ck.compact_tokens(tokw, b, T, nzv), want)
 
 
+PACK_TILE = 2048          # pack_flat's tile: the tokens of one CTA
+# pack_flat_edge_batch's cases; the first five also go through the JAX
+# chain on the CPU (tests/test_torch_kernels.py, test_torch_sidecar.py)
+PACK_FLAT_EDGE_CASES = ("ntok_edges", "copy_fill_between", "one_token",
+                        "nwords_short", "avail_guard", "overlap",
+                        "many_tiles", "long_block")
+PACK_FLAT_JAX_CASES = PACK_FLAT_EDGE_CASES[:5]
+_RUN_EBITS = np.array([0, 2, 4, 8, 14])   # extra bits of syms 256-260
+
+
+def _pass1_tokens(rng, n):
+    """n valid pass-1 token words (sym | ebits << 9 | extra << 13 | 1 <<
+    27): skewed literals, single zeros and run symbols with their extra
+    bits."""
+    u = rng.random(n)
+    sym = np.where(u < 0.15, 0, np.minimum(rng.geometric(0.12, n), 60))
+    run = u > 0.9
+    sym = np.where(run, rng.integers(256, 261, n), sym)
+    eb = np.where(run, _RUN_EBITS[np.clip(sym - 256, 0, 4)], 0)
+    extra = rng.integers(0, 1 << 14, n) & ((1 << eb) - 1)
+    return sym | (eb << 9) | (extra << 13) | (1 << 27)
+
+
+def _token_lengths(tok, lut_row):
+    """Bits of each token word under one block's LUT row (0 if invalid)."""
+    cb = (np.asarray(lut_row).astype(np.int64) & 0xFFFFFFFF) >> 24
+    valid = ((tok >> 27) & 1) != 0
+    return np.where(valid, cb[np.minimum(tok & 511, 260)]
+                    + ((tok >> 9) & 15), 0)
+
+
+def _steer(tok, L, mid, lo, ilim, hi, mod, shift, win, rng):
+    """Swap tokens i in [lo, ilim) with j in (mid, hi) until the bits
+    before token mid, plus shift, lie in [win[0], win[1]] modulo mod.
+    Each swap raises that sum, never past win[1], so it converges."""
+    x = int(L[:mid].sum())
+    for _ in range(200000):
+        r = (x + shift) % mod
+        if win[0] <= r <= win[1]:
+            return
+        room = (win[0] - r) % mod + win[1] - win[0]
+        i, j = int(rng.integers(lo, ilim)), int(rng.integers(mid + 1, hi))
+        d = int(L[j] - L[i])
+        if 0 < d <= room:
+            tok[[i, j]], L[[i, j]] = tok[[j, i]], L[[j, i]]
+            x += d
+    raise AssertionError("pack_flat_edge_batch: no token order found")
+
+
+def _swap_in(tok, L, at, j):
+    tok[[at, j]], L[[at, j]] = tok[[j, at]], L[[j, at]]
+
+
+def _huff_block(rng, n, hoff, cross=(), straddle=(), last=False):
+    """A HUFF block of n tokens whose payload starts at byte hoff, its
+    token order chosen so that the first token of each tile start in
+    `cross` crosses a decode segment boundary, the token before each
+    tile start in `straddle` spans the word it shares with the next
+    tile, and (last) the block's last token crosses a boundary. Returns
+    (token words in order, payload bytes)."""
+    last = last or n - 1 in cross
+    cross = tuple(p for p in cross if p != n - 1)
+    steered = sorted(cross + tuple(straddle))
+    for _ in range(100):
+        tok = _pass1_tokens(rng, n)
+        tables = tc.build_block_tables(np.bincount(tok & 511,
+                                                   minlength=261))
+        if tables is None:    # one code class: a FILL block
+            continue
+        _, cbits, _, dbits = tables
+        L = cbits[tok & 511].astype(np.int64) + ((tok >> 9) & 15)
+        total = int(L.sum())
+        comp = (dbits + total + 7) // 8
+        # the decoder's segment width (gpu_decoder.lane_rows)
+        body = -(-max(comp * 8 - dbits, 1) // 32)
+        W = max(8, -(-body // 1024)) * 32
+        lo = steered[-1] + 1 if steered else 0
+        if last:   # a last token longer than the bits past a boundary
+            cand = np.flatnonzero(L[lo:n - 1] > total % W) + lo
+            if cand.size == 0:
+                continue
+            _swap_in(tok, L, n - 1, int(cand[0]))
+        lo = 0
+        for P in steered:
+            if P in cross:
+                _swap_in(tok, L, P, P + 1 + int(np.argmax(L[P + 1:n - 1])))
+                _steer(tok, L, P, lo, P, n - 1, W, 0,
+                       (W - int(L[P]), W - 1), rng)
+            else:
+                _swap_in(tok, L, P - 1, lo + int(np.argmax(L[lo:P - 1])))
+                _steer(tok, L, P, lo, P - 1, n - 1, 32, hoff * 8 + dbits,
+                       (1, int(L[P - 1]) - 1), rng)
+            lo = P + 1
+        return tok, comp
+    raise AssertionError("pack_flat_edge_batch: no HUFF block found")
+
+
+def _pass1_rows(rng, blocks):
+    """(tokw (nb, 65536) int32, lengths) of blocks given as ("huff", n,
+    _huff_block's options), ("copy",), ("fill",) or ("empty",): each
+    block's tokens at sorted random positions of its row, junk words
+    without the valid bit between them."""
+    nb = len(blocks)
+    tokw = rng.integers(0, 1 << 27, (nb, 65536))
+    lengths = np.full(nb, 65536, np.int32)
+    hoff = 0
+    for b, spec in enumerate(blocks):
+        if spec[0] == "huff":
+            tok, comp = _huff_block(rng, spec[1], hoff, **spec[2])
+            hoff += comp
+        elif spec[0] == "copy":   # ~8 bits a token: Huffman >= 64 KiB
+            tok = rng.integers(0, 256, 65536) | (1 << 27)
+        elif spec[0] == "fill":   # one code class
+            tok = np.full(3000, 7 | (1 << 27))
+        else:
+            lengths[b] = 0
+            continue
+        pos = np.sort(rng.choice(65536, tok.size, replace=False))
+        tokw[b, pos] = tok
+    return tokw.astype(np.int32), lengths
+
+
+def pack_flat_edges_covered(x):
+    """What a pack_flat_edge_batch case exercises, counted from its
+    kernel arguments alone: tiles (tiles), the kernel's status words
+    (status_words: one a tile of non-overlapping blocks; tiles past them
+    sum their block's earlier tokens directly), the most tiles of one
+    block (block_tiles: look-backs past 32 tiles need more than 33),
+    tiles whose first token crosses a decode segment boundary
+    (first_cross), blocks whose last token does (last_cross), tile
+    starts whose previous token spans the word the two tiles share
+    (straddle)."""
+    tokc, tok_base, ntok, bit0, lut, _ = (
+        a.numpy() if torch.is_tensor(a) else a for a in x["args"])
+    meta = x["lanes"][0].numpy()
+    got = dict(tiles=0, block_tiles=0, first_cross=0, last_cross=0,
+               straddle=0,
+               status_words=-(-tokc.size // PACK_TILE) + ntok.size)
+    for b in range(ntok.size):
+        n = min(int(ntok[b]), max(tokc.size - int(tok_base[b]), 0))
+        if n <= 0:
+            continue
+        tok = tokc[tok_base[b]:tok_base[b] + n].astype(np.int64)
+        L = _token_lengths(tok, lut[b])
+        xs = np.cumsum(L) - L
+        W = int(meta[b, 0])
+        cross = xs // W < (xs + L) // W
+        got["tiles"] += -(-n // PACK_TILE)
+        got["block_tiles"] = max(got["block_tiles"], -(-n // PACK_TILE))
+        got["last_cross"] += int(cross[-1] and n == int(ntok[b]))
+        for P in range(PACK_TILE, n, PACK_TILE):
+            got["first_cross"] += int(cross[P])
+            a = int(bit0[b]) + int(xs[P])
+            got["straddle"] += int(0 < a % 32 < int(L[P - 1]))
+    return got
+
+
+def check_pack_flat_edges_covered(case, cov):
+    """Assert that a pack_flat_edge_batch case reaches the kernel paths
+    it is built for (cov: pack_flat_edges_covered's counts)."""
+    need = {"tiles"}
+    if case in PACK_FLAT_JAX_CASES:
+        need |= {"first_cross", "last_cross", "straddle"}
+    elif case != "overlap":
+        need |= {"first_cross", "straddle"}
+    assert all(cov[k] > 0 for k in need), (case, cov)
+    if case == "overlap":
+        assert cov["tiles"] > cov["status_words"], cov
+    if case == "many_tiles":
+        assert cov["tiles"] > 132 * 8, cov
+    if case == "long_block":
+        assert cov["block_tiles"] > 33, cov
+
+
+def pack_flat_edge_batch(rng, case):
+    """One edge case of pack_flat / pack_flat_lanes (tiles of 2,048
+    tokens, a status word a tile, each tile's first and last words
+    shared with its neighbours).
+
+    Pass-1 token words (nb, 65536) of HUFF, COPY, FILL and empty blocks
+    and their flat plan, so that the same input feeds the JAX chain and
+    the port: ntok_edges (HUFF blocks of 2,047, 2,048, 2,049, 2 and
+    6,144 tokens: a tile's first token, also its block's last,
+    crossing a segment boundary, a token spanning the word two tiles
+    share, block-final tokens crossing boundaries), copy_fill_between
+    (COPY, FILL and empty blocks between HUFF blocks of 4,097, 5,000 and
+    10,241 tokens), many_tiles (36 blocks of 61,000 tokens: 1,080 tiles,
+    more than 132 x 8 resident CTAs). The direct cases change
+    ntok_edges' (or many_tiles') kernel arguments: one_token (the
+    2-token block cut to 1), nwords_short (nwords one word short of the
+    last block's end), avail_guard (tokc cut 1,000 tokens before the
+    last block's end), overlap (two blocks over the same tokens: more
+    tiles than status words), long_block (one block over all of
+    many_tiles' tokens: 1,152 tiles, look-backs past 32 tiles).
+
+    Returns a dict: tokw, lengths and plan, and jax_tokw (the token
+    words that the JAX chain packs to the same words: the cut tokens
+    made invalid; None where no such words exist) as numpy; args
+    (tokc, tok_base, ntok, bit0, lut, nwords), plain_args (the same
+    function's arguments for the plain version, which reads every token
+    of a block: avail_guard's tokc zero-padded to its full length) and
+    lanes (meta, init) as CPU tensors."""
+    from rspt_tpu_torch.hzr import sidecar
+    T = PACK_TILE
+    if case in ("many_tiles", "long_block"):
+        blocks = [("huff", 61000, {})] * 36
+    elif case == "copy_fill_between":
+        blocks = [("huff", 2 * T + 1, dict(straddle=(T,), last=True)),
+                  ("copy",), ("huff", 5000, dict(cross=(T,))), ("fill",),
+                  ("empty",), ("huff", 5 * T + 1,
+                               dict(cross=(3 * T,), straddle=(T, 2 * T)))]
+    else:
+        blocks = [("huff", T - 1, {}), ("huff", T, dict(last=True)),
+                  ("huff", T + 1, dict(cross=(T,))), ("huff", 2, {}),
+                  ("huff", 3 * T, dict(cross=(T,), straddle=(2 * T,),
+                                       last=True))]
+    tokw, lengths = _pass1_rows(rng, blocks)
+    hist = np.stack([np.bincount(r[((r >> 27) & 1) != 0] & 511,
+                                 minlength=261) for r in tokw])
+    plan = tc.flat_plan(hist, lengths)
+    assert list(np.flatnonzero(plan.ntok > 0)) == [
+        b for b, s in enumerate(blocks) if s[0] == "huff"]
+    assert list(plan.is_copy) == [s[0] == "copy" for s in blocks]
+    bases = torch.from_numpy(plan.bases)
+    tokc = ck.compact_tokens_plain(torch.from_numpy(tokw), bases, plan.T)
+    hp = sidecar.plan_hints(lengths, plan.comp_len, plan.desc_bits,
+                            plan.comp_len > 0)
+    args = [tokc, bases, torch.from_numpy(plan.ntok),
+            torch.from_numpy(plan.bit0), torch.from_numpy(plan.lut),
+            plan.nwords]
+    meta, init = torch.from_numpy(hp.meta), torch.from_numpy(hp.init)
+    jax_tokw = tokw.copy()
+    plain_args = None
+
+    def drop_tail(b, k):   # block b's last k valid tokens made invalid
+        pos = np.flatnonzero((jax_tokw[b] >> 27) & 1)[-k:]
+        jax_tokw[b, pos] &= ~(1 << 27)
+
+    if case == "one_token":
+        args[2] = args[2].clone()
+        args[2][3] = 1
+        drop_tail(3, 1)
+    elif case == "nwords_short":
+        tok = tokc[plan.bases[4]:plan.bases[4] + plan.ntok[4]].numpy()
+        end = int(plan.bit0[4]) + int(_token_lengths(
+            tok.astype(np.int64), plan.lut[4]).sum())
+        args[5] = (end - 1) // 32
+    elif case == "avail_guard":
+        args[0] = tokc[:int(plan.bases[4]) + int(plan.ntok[4]) - 1000].clone()
+        drop_tail(4, 1000)
+        # the plain version reads every token: the same words from tokc
+        # with the cut tokens made zero (invalid)
+        plain_args = (torch.cat([args[0], torch.zeros_like(
+            tokc[args[0].numel():])]), *args[1:])
+    elif case in ("overlap", "long_block"):
+        jax_tokw = None
+        rows = [4, 2] if case == "overlap" else [0]
+        k = len(rows)
+        tok = tokc.numpy().astype(np.int64)
+        totals = [int(_token_lengths(tok, plan.lut[r]).sum()) for r in rows]
+        bit0 = np.array([0, totals[0] + 5][:k], np.int64)
+        nseg = [t // 256 + 1 for t in totals]
+        nlanes = 4096 if case == "long_block" else sum(nseg) + 3
+        args = [tokc, torch.zeros(k, dtype=torch.int32),
+                torch.full((k,), tokc.numel(), dtype=torch.int32),
+                torch.from_numpy(bit0),
+                torch.from_numpy(plan.lut[rows].copy()),
+                (int(bit0[-1]) + totals[-1]) // 32 + 2]
+        meta = torch.from_numpy(np.stack(
+            [np.full(k, 256), np.concatenate([[0], np.cumsum(nseg)[:-1]]),
+             np.array([0, 7][:k])], 1).astype(np.int32))
+        init = torch.from_numpy(np.arange(nlanes, dtype=np.int32) * 3)
+    return dict(tokw=tokw, lengths=lengths, plan=plan, jax_tokw=jax_tokw,
+                args=tuple(args), plain_args=plain_args or tuple(args),
+                lanes=(meta, init))
+
+
+@pytest.mark.parametrize("case", PACK_FLAT_EDGE_CASES)
+def test_pack_flat_edges_match_plain(dev, case):
+    """pack_flat and pack_flat_lanes vs their plain versions on
+    pack_flat_edge_batch, tolerance 0: blocks of 1, 2, 2,047-2,049 and
+    several tiles' tokens, COPY/FILL/empty blocks between HUFF ones, a
+    token spanning the word two tiles share, segment boundaries crossed
+    by a tile's first token and by a block's last one (no entry), nwords
+    one word short, tokc cut inside a block, overlapping blocks (more
+    tiles than status words), 1,080-1,152 tiles (more than the resident
+    CTAs; look-backs past 32 tiles); 3 launches give the same words."""
+    x = pack_flat_edge_batch(np.random.default_rng(110), case)
+    cov = pack_flat_edges_covered(x)
+    check_pack_flat_edges_covered(case, cov)
+    assert ck._lib().rspt_pack_flat_tile() == PACK_TILE
+    assert ck._lib().rspt_pack_flat_state(
+        x["args"][2].numel(), x["args"][0].numel()) == 2 * (
+            1 + cov["status_words"])
+    args, plain_args = (tuple(a.to(dev) if torch.is_tensor(a) else a
+                              for a in x[k]) for k in ("args", "plain_args"))
+    lanes = tuple(t.to(dev) for t in x["lanes"])
+    want = ck.pack_flat_plain(*plain_args)
+    want_l = ck.pack_flat_lanes_plain(*plain_args, *lanes)
+    assert torch.equal(want_l[0], want) and bool(want.any())
+    for _ in range(3):
+        assert torch.equal(ck.pack_flat(*args), want)
+        got = ck.pack_flat_lanes(*args, *lanes)
+        assert torch.equal(got[0], want) and torch.equal(got[1], want_l[1])
+
+
 def place_edge_batch(rng, steps, S):
     """place_literals inputs that keep hzr_decode's contract, with the
     edges of the kernel's word stores: emissions (len(steps), S, 8, 128)

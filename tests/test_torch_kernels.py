@@ -22,6 +22,9 @@ from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from test_torch_cuda import TOKENIZE_EDGE_CASES, tokenize_edge_batch  # noqa: E402,E501
+from test_torch_cuda import (PACK_FLAT_EDGE_CASES, PACK_FLAT_JAX_CASES,  # noqa: E402,E501
+                             check_pack_flat_edges_covered,
+                             pack_flat_edge_batch, pack_flat_edges_covered)
 
 B = 65536
 
@@ -217,21 +220,72 @@ def test_pack_tokens_flat_vs_pallas(rng):
 
     _, T, ng, g2b, gfirst = tc.flat_compact_layout(
         hist_np, plan.ntok > 0)
+    assert (T, ng) == (plan.T, plan.g2b.size)
+    assert np.array_equal(g2b, plan.g2b)
+    assert np.array_equal(gfirst, plan.gfirst)
+    want = jax_pack_flat2(tokw.numpy(), plan)
+    nbytes = plan.total_payload
+    np.testing.assert_array_equal(
+        words.numpy().view(np.uint8)[:nbytes],
+        np.asarray(want).reshape(-1).view(np.uint8)[:nbytes])
+
+
+def jax_pack_flat2(tokw, plan, gmeta=None, hint_rows=0):
+    """jax_coder.pack_tokens_flat2 in interpret mode on pass-1 token
+    words under a flat plan: K3 + K4 + glue + K5, or with gmeta and
+    hint_rows K3 + K10 + glue + K11 + K5 (returns (words, entries))."""
+    ng, g2b = plan.g2b.size, plan.g2b
     lut3 = np.zeros((ng, 3 * 128), np.int32)
     lut3[:, :261] = plan.lut[g2b]
     desc_bits = plan.bit0 - plan.hoff * 8
     nrows_f = -(-(plan.total_payload // 4 + 2) // 128) + pk.ACC_ROWS
     nrows_f = -(-nrows_f // 8) * 8
-    want = jax_coder.pack_tokens_flat2(
-        jnp.asarray(tokw.numpy()), jnp.asarray(plan.bases),
+    return jax_coder.pack_tokens_flat2(
+        jnp.asarray(tokw), jnp.asarray(plan.bases),
         jnp.asarray(lut3.reshape(ng, 3, 128)),
         jnp.asarray(desc_bits[g2b].astype(np.int32)),
-        jnp.asarray(plan.hoff[g2b].astype(np.int32)), jnp.asarray(gfirst),
-        t_rows=T // 128 + 512 + 24, T=T, nrows_f=nrows_f, interpret=True)
-    nbytes = plan.total_payload
+        jnp.asarray(plan.hoff[g2b].astype(np.int32)),
+        jnp.asarray(plan.gfirst), t_rows=plan.T // 128 + 512 + 24,
+        T=plan.T, nrows_f=nrows_f, interpret=True,
+        gmeta=None if gmeta is None else jnp.asarray(gmeta),
+        hint_rows=hint_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def pack_flat_edges(case):
+    return pack_flat_edge_batch(np.random.default_rng(110), case)
+
+
+@pytest.mark.parametrize("case", PACK_FLAT_EDGE_CASES)
+def test_pack_flat_edges_reach_their_paths(case):
+    """Each pack_flat_edge_batch case, counted from its kernel arguments
+    with the kernel's 2,048-token tile, reaches what it is built for:
+    tile-first tokens crossing segment boundaries, block-last ones,
+    tokens spanning the word two tiles share, more tiles than status
+    words (overlap), more than 132 x 8 tiles (many_tiles), a block of
+    more than 33 tiles (long_block)."""
+    check_pack_flat_edges_covered(case,
+                                  pack_flat_edges_covered(pack_flat_edges(case)))
+
+
+@pytest.mark.parametrize("case", PACK_FLAT_JAX_CASES)
+def test_pack_flat_edges_vs_pallas(case):
+    """pack_flat's plain version on tests/test_torch_cuda.py's
+    pack_flat_edge_batch (the CUDA kernel's 2,048-token tiles: blocks of
+    2, 2,047-2,049 and several tiles, COPY/FILL/empty blocks between,
+    tokens spanning the word two tiles share; a block cut to one token,
+    nwords one word short, tokc cut inside a block) against K3 + K4 +
+    glue + K5 through jax_coder.pack_tokens_flat2 on the same tokens
+    (the cut ones made invalid); payload bytes, tolerance 0."""
+    x = pack_flat_edges(case)
+    check_pack_flat_edges_covered(case, pack_flat_edges_covered(x))
+    words = ck.pack_flat(*x["plain_args"])
+    want = np.asarray(jax_pack_flat2(x["jax_tokw"], x["plan"]))
+    nbytes = min(x["plan"].total_payload, 4 * words.numel())
+    assert nbytes > 4 * 1500
     np.testing.assert_array_equal(
         words.numpy().view(np.uint8)[:nbytes],
-        np.asarray(want).reshape(-1).view(np.uint8)[:nbytes])
+        want.reshape(-1).view(np.uint8)[:nbytes])
 
 
 def test_wrappers_validate_inputs():

@@ -23,6 +23,7 @@ from rspt_tpu_torch.formats.hzr_constants import (  # noqa: E402
 from rspt_tpu_torch.hzr import gpu_decoder as gd  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from test_torch_cuda import PACK_FLAT_JAX_CASES  # noqa: E402
 
 CH, N, BPS, PLANES = 2, 40000, 4, 3
 
@@ -179,3 +180,34 @@ def test_lanes_mode_words_unchanged(rng):
     changed = entries.numpy() != hp.init
     assert changed.sum() > 0
     assert (entries.numpy()[~changed] == hp.init[~changed]).all()
+
+
+@pytest.mark.parametrize("case", PACK_FLAT_JAX_CASES)
+def test_lanes_tile_edges_vs_jax(case):
+    """pack_flat_lanes' plain version on tests/test_torch_cuda.py's
+    pack_flat_edge_batch (segment boundaries crossed by a tile's first
+    token and by a block's last token, which writes no entry; blocks of
+    2, 2,047-2,049 and several 2,048-token tiles; COPY/FILL/empty blocks
+    between; a block cut to one token, nwords one word short, tokc cut
+    inside a block) against the JAX hints, K10 + K11 through
+    jax_coder.pack_tokens_flat2 on the same tokens and lanes (the cut
+    ones made invalid): the entries where a store lands and the init
+    plane elsewhere, and the payload bytes; tolerance 0."""
+    from test_torch_kernels import jax_pack_flat2, pack_flat_edges
+    x = pack_flat_edges(case)
+    plan = x["plan"]
+    meta, init = (t.numpy() for t in x["lanes"])
+    words, entries = ck.pack_flat_lanes(*x["plain_args"], *x["lanes"])
+    g2b = plan.g2b
+    gmeta = np.stack([(np.arange(g2b.size) == plan.gfirst), meta[g2b, 0],
+                      meta[g2b, 1] + 1, meta[g2b, 2]], 1).astype(np.int32)
+    nrows = init.size // 128
+    jw, raw = jax_pack_flat2(x["jax_tokw"], plan, gmeta, nrows + 32)
+    raw = np.asarray(raw)[:nrows].reshape(-1)
+    want = np.where(raw > 0, raw, init)
+    assert (want != init).sum() > 200
+    np.testing.assert_array_equal(entries.numpy(), want)
+    nbytes = min(plan.total_payload, 4 * words.numel())
+    np.testing.assert_array_equal(
+        words.numpy().view(np.uint8)[:nbytes],
+        np.asarray(jw).reshape(-1).view(np.uint8)[:nbytes])
