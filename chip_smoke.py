@@ -33,21 +33,30 @@ vs plain at the main-path shape and on edge inputs (rank_edge_payloads: a block 
 a tile's cluster, padding rows between blocks; trusted and not),
 place_literals also on the word-store edges of place_edge_batch; 6
 decompress(device_decode=True) and decompress_many with and without
-hints; 7 fwht vs plain; 8 the Hadamard path; 9 the hzr path; 10 the
-hints path; 11 the stream encoder: pack_blocks and pack_blocks_tokw vs
-plain (the main payload as 26 blocks, the main pass 1's 21 blocks, an
-edge batch), encode on the card against the CPU, a device decode and
-the out_capacity rule, entropy_streams_blocks against the flat path; 12
-the windows routes (pack_tokens_fused and pack_tokens_windows give the main container's streams, each through its
-kernels once), compact_tokens on the main pass 1 in 10 launches with
+hints; 7 fwht vs plain (tests/test_torch_cuda.py's FWHT_CASES: every
+change of its cluster size, 1, 13 and 1,001 rows, the global passes; x
+unchanged); 8 the Hadamard path; 9 the hzr path; 10 the hints path; 11
+the stream encoder: pack_blocks and pack_blocks_tokw vs plain (the main
+payload as 26 blocks, the main pass 1's 21 blocks, an edge batch with an
+overflowing row and pack_blocks_edge_batch: partial last tiles, tokens
+spanning the word two tiles share, an empty tile between valid ones, a
+row passing nwords in a middle tile, 1 and 48 blocks), encode on the
+card against the CPU, a device decode and the out_capacity rule,
+entropy_streams_blocks against the flat path; 12 the windows routes
+(pack_tokens_fused and pack_tokens_windows give the main container's
+streams, each through its kernels once), compact_tokens on the main
+pass 1 in 10 launches with
 equal words, and the xdelta growth rule at bps 1-3 on the card; 4, last,
 times each kernel's call (profiler device time of every device operation
 of the wrapper's call: kernels, memsets, copies) beside its bound, its
 plain version and a library yardstick (tokenize_planes in turns with
 bincount, compact_tokens with masked_select, place_literals with
-index_put_), hzr_decode's clusters, tokenize_planes' and pack_flat's
-working blocks, and the host stages and wall times of every path. The
-last two lines are a JSON object of the kernels and the result line.
+index_put_; fwht, pack_blocks and pack_blocks_tokw as medians of 5
+rounds beside their rounds), hzr_decode's and fwht's clusters,
+tokenize_planes', pack_flat's and pack_blocks' working blocks, and the
+host stages and wall times of every path (the Hadamard path, encode and
+entropy_streams_blocks with their spread). The last two lines are a
+JSON object of the kernels and the result line.
 Exits nonzero, with no result line, when there is no CUDA card or any
 check fails. Imports nothing of JAX or of the JAX package.
 """
@@ -151,14 +160,53 @@ def device_ms(fn, reps=REPS, kernel=None):
     return (statistics.median(us) if kernel else sum(us) / reps) / 1e3
 
 
-def wall_s(fn, reps=3):
+def wall_times(fn, reps=3):
+    """Wall seconds of reps calls, each ended by a synchronise."""
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return statistics.median(times)
+    return times
+
+
+def wall_s(fn, reps=3):
+    return statistics.median(wall_times(fn, reps))
+
+
+def spread(times):
+    """median [min, max] of a list of times, for a log line."""
+    return (f"{statistics.median(times):.4f} [{min(times):.4f}, "
+            f"{max(times):.4f}]")
+
+
+def hadamard_input(native, ch, dev, n3=2 ** 14):
+    """The centred (ch, n3) rows that the Hadamard compress at BASELINE
+    config 3 (the main signal cut to n3 samples) gives fwht."""
+    from rspt_tpu_torch.ops import torch_ops as tops
+    w3 = torch.from_numpy(np.frombuffer(native[:n3 * ch * 4], "<i4").copy())
+    sig3 = tops.native_to_i32(w3.to(dev), n3, ch, 4).contiguous()
+    m3 = tops.average32_host(tops.row_sums64(sig3).cpu().numpy(), n3)
+    return tops._wrap32(sig3.long() - torch.from_numpy(
+        m3.astype(np.int64)).to(dev)[:, None])
+
+
+def stream_blocks_args(tc, native, dev):
+    """pack_blocks' arguments for the main payload's bytes as one hzr
+    stream (26 blocks): (syms, extras, ebits, tvalid, lut, desc_bits),
+    and the blocks and lengths."""
+    blk, lengths = tc.split_blocks(np.frombuffer(native, np.uint8))
+    f = tc.tokenize_blocks(torch.from_numpy(blk).to(dev),
+                           torch.from_numpy(lengths).to(dev))
+    return (*f[:4], *block_tables(tc, f[4], lengths, dev)), blk, lengths
+
+
+def pass1_blocks_args(tc, x, dev):
+    """pack_blocks_tokw's arguments for a pass 1 of 3 planes
+    (kernel_inputs' x): (tokw, lut, desc_bits)."""
+    _, lengths = tc.block_layout(x["enc"].numel(), 3)
+    return (x["tokw"], *block_tables(tc, x["hist"], lengths, dev))
 
 
 def kernel_inputs(ck, tc, raw, ns, ch, planes, bps=4, swizzle=True,
@@ -684,12 +732,11 @@ def main() -> int:
     gd._hint_registry.clear()
 
     # phase 7: fwht vs its plain version, the global passes included
+    # (the card tests' FWHT_CASES: every change of the cluster size, rows
+    # of 1, 13 and 1,001, the global passes)
     rng7 = np.random.default_rng(17)
-    fw_cases = {}
-    for rows, n in ((12, 2 ** 14), (3, 2 ** 17), (1, 2 ** 20), (5, 2),
-                    (7, 8)):
-        fw_cases[f"{rows}x{n}"] = rng7.integers(
-            -2 ** 31, 2 ** 31 - 1, (rows, n), dtype=np.int64).astype(np.int32)
+    fw_cases = {f"{rows}x{n}": edges.fwht_case(rng7, rows, n)
+                for rows, n in edges.FWHT_CASES}
     ext = np.full((4, 1024), -2 ** 31, np.int32)
     ext[1] = 2 ** 31 - 1
     ext[2, 1::2] = 2 ** 31 - 1
@@ -698,8 +745,12 @@ def main() -> int:
     for name, a in fw_cases.items():
         t = torch.from_numpy(a).to(dev)
         equal(f"fwht {name}", ck.fwht(t), ck.fwht_plain(t))
+        equal(f"fwht {name}: x after the call", t.cpu(), torch.from_numpy(a))
     torch.cuda.synchronize()
-    log(f"phase 7: fwht bit-exact against fwht_plain at {list(fw_cases)}")
+    clusters = {n: ck._lib().rspt_fwht_cluster(n.bit_length() - 1)
+                for n in sorted({n for _, n in edges.FWHT_CASES})}
+    log(f"phase 7: fwht bit-exact against fwht_plain at {list(fw_cases)}, "
+        f"x unchanged; CTAs a row's cluster by n {clusters}")
 
     # phase 8: the Hadamard path at BASELINE config 3
     n3 = 2 ** 14
@@ -814,23 +865,18 @@ def main() -> int:
     gd._hint_registry.clear()
 
     # phase 11: the hzr stream encoder and the per-block pack kernels
-    data11 = np.frombuffer(native, np.uint8)   # the main payload, one stream
-    blk11, len11 = tc.split_blocks(data11)
+    # (the main payload as one stream)
+    k13a_args, blk11, len11 = stream_blocks_args(tc, native, dev)
     if blk11.shape[0] != 26 or int(len11[-1]) != 3152:
         raise AssertionError(f"stream blocks: {blk11.shape}, {len11[-1]}")
-    f11 = tc.tokenize_blocks(torch.from_numpy(blk11).to(dev),
-                             torch.from_numpy(len11).to(dev))
-    equal("tokenize_blocks card vs CPU", f11,
-          tc.tokenize_blocks(torch.from_numpy(blk11), torch.from_numpy(len11)))
-    lut11, d11 = block_tables(tc, f11[4], len11, dev)
-    k13a_args = (*f11[:4], lut11, d11)
+    equal("tokenize_blocks card vs CPU", k13a_args[:4],
+          tc.tokenize_blocks(torch.from_numpy(blk11),
+                             torch.from_numpy(len11))[:4])
     equal("pack_blocks main", ck.pack_blocks(*k13a_args),
           ck.pack_blocks_plain(*k13a_args))
     # K13b on the main path's own pass 1 (21 blocks, 3 planes, 7 COPY)
     plane_len = main_x["enc"].numel()
-    _, len_m = tc.block_layout(plane_len, 3)
-    lut_m, d_m = block_tables(tc, main_x["hist"], len_m, dev)
-    k13b_args = (main_x["tokw"], lut_m, d_m)
+    k13b_args = pass1_blocks_args(tc, main_x, dev)
     equal("pack_blocks_tokw main", ck.pack_blocks_tokw(*k13b_args),
           ck.pack_blocks_tokw_plain(*k13b_args))
     # edge batch: a random block under 20-bit codes (its bits overflow the
@@ -862,11 +908,29 @@ def main() -> int:
     if not (int(got_e[1][0]) > 32 * got_e[0].shape[1]
             and fill_e.tolist() == [False, True, False]):
         raise AssertionError("edge batch: no overflow row or no FILL block")
+    # the card tests' pack_blocks_edge_batch: partial last tiles, tokens
+    # spanning the word two tiles share, an empty tile between valid
+    # ones, a row passing nwords in a middle tile, 1 and 48 blocks
+    pb_cov = {}
+    for case in edges.PACK_BLOCKS_EDGE_CASES:
+        xb = edges.pack_blocks_edge_batch(np.random.default_rng(120), case)
+        pb_cov[case] = edges.pack_blocks_edges_covered(xb)
+        edges.check_pack_blocks_edges_covered(case, pb_cov[case])
+        fb = [torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+              for f in xb["fields"]]
+        tb, lb, db = (torch.from_numpy(xb[k]).to(dev)
+                      for k in ("tokw", "lut", "desc_bits"))
+        want_b = ck.pack_blocks_plain(*fb, lb, db)
+        equal(f"pack_blocks {case}", ck.pack_blocks(*fb, lb, db), want_b)
+        equal(f"pack_blocks_tokw {case}", ck.pack_blocks_tokw(tb, lb, db),
+              want_b)
+    torch.cuda.synchronize()
     log(f"phase 11: pack_blocks bit-exact against its plain version at "
-        f"{tuple(f11[0].shape)} (the main payload as one stream), "
+        f"{tuple(k13a_args[0].shape)} (the main payload as one stream), "
         f"pack_blocks_tokw at {tuple(main_x['tokw'].shape)} (main pass 1); "
         f"edge batch (overflow {int(got_e[1][0])} bits, FILL, 3,152 B "
-        f"tail) equal in both forms; tokenize_blocks equal to the CPU's")
+        f"tail) equal in both forms; tokenize_blocks equal to the CPU's; "
+        f"pack_blocks_edge_batch equal in both forms: {pb_cov}")
     for k in ck.KERNELS:
         k.launches = 0
     s11 = tc.encode(native, device=dev)
@@ -1078,18 +1142,15 @@ def main() -> int:
         bytes=emis_b + 9 * nl + 4 * ntiles + n_placed,
         ops=8 * emis_b // 4)
     # fwht at config 3: the centred signal the Hadamard compress gives it
-    w3 = torch.from_numpy(np.frombuffer(nat3, "<i4").copy()).to(dev)
-    sig3 = tops.native_to_i32(w3, n3, ch, 4).contiguous()
-    m3 = tops.average32_host(tops.row_sums64(sig3).cpu().numpy(), n3)
-    cen3 = tops._wrap32(sig3.long() - torch.from_numpy(
-        m3.astype(np.int64)).to(dev)[:, None])
+    cen3 = hadamard_input(native, ch, dev, n3)
     rows["fwht"] = dict(
         replaces="rspt_tpu/ops/pallas_kernels.py:56",
         source="rspt_tpu_torch/ops/csrc/fwht.cu",
-        kernel="fwht_smem_kernel",
+        kernel="fwht_kernel",
         fn=lambda: ck.fwht(cen3),
         plain=lambda: ck.fwht_plain(cen3),
         library=None,
+        # x read once, out written once (no copy of x: out of place)
         bytes=2 * 4 * ch * n3, ops=ch * n3 * 14)
     nl_h = main_x["lanes"][1].numel()
     rows["pack_flat_lanes"] = dict(
@@ -1105,7 +1166,7 @@ def main() -> int:
     # the per-block packs: every token slot read once (four int32 fields
     # or one token word), the LUTs and description bit counts read once,
     # the rows and bit totals written once
-    nb11, nb_m = f11[0].shape[0], main_x["tokw"].shape[0]
+    nb11, nb_m = k13a_args[0].shape[0], main_x["tokw"].shape[0]
     row_b = 4 * ck.blocks_nwords(65536)
     launches.update(pack_blocks=enc_launches["pack_blocks"],
                     pack_blocks_tokw=esb_launches["pack_blocks_tokw"])
@@ -1187,6 +1248,15 @@ def main() -> int:
         f"tokenize_planes: {len(limits) * (65536 // tok_tile)} blocks of "
         f"{tok_tile} positions, {sum(-(-n // tok_tile) for n in limits)} "
         f"working (slab lengths {limits})")
+    fw_cl = lib.rspt_fwht_cluster(14)
+    pb_tile = lib.rspt_pack_blocks_tile()
+    log(f"phase 4: fwht at config 3 ({ch} x {n3}): {ch} clusters (one a "
+        f"row) of {fw_cl} CTAs, {ch * fw_cl} CTAs of {n3 // fw_cl} words, "
+        f"{lib.rspt_fwht_launches(14)} launch; pack_blocks: "
+        f"{nb11 * -(-65536 // pb_tile)} working tiles of {pb_tile} slots "
+        f"({nb11} blocks of the main payload as one stream), "
+        f"pack_blocks_tokw: {nb_m * -(-65536 // pb_tile)} ({nb_m} blocks of "
+        f"the main pass 1), a CTA a tile")
     pf_tile = lib.rspt_pack_flat_tile()
     pf_work = sum(-(-int(n) // pf_tile) for n in plan.ntok)
     log(f"phase 4: pack_flat / pack_flat_lanes at the main path: a grid of "
@@ -1222,6 +1292,17 @@ def main() -> int:
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    # the three kernels redesigned last: device times of the whole call,
+    # medians of 5 rounds, beside their rounds
+    for name in ("fwht", "pack_blocks", "pack_blocks_tokw"):
+        r = rows[name]
+        ts = [device_ms(r["fn"]) or cuda_ms(r["fn"]) for _ in range(5)]
+        row = next(k for k in kernels if k["name"] == name)
+        row.update(ms=statistics.median(ts))
+        log(f"phase 4: {name} medians of 5: {row['ms']:.6f} ms "
+            f"[{min(ts):.6f}, {max(ts):.6f}], bound {row['bound_ms']:.6f} "
+            f"ms ({row['ms'] / row['bound_ms']:.1f}x); rounds "
+            f"{[round(t, 6) for t in ts]}")
     # the kernels against their library yardsticks, in turns (device
     # times of the whole call, medians of 5 rounds)
     for name in ("tokenize_planes", "compact_tokens", "place_literals"):
@@ -1257,20 +1338,20 @@ def main() -> int:
         f"(cross-checked against the unhinted one) {hd_first_s:.4f} s, "
         f"stages {hd_first_stages}")
     fw20 = torch.from_numpy(fw_cases["1x1048576"]).to(dev)
-    log(f"phase 4: fwht at 1 x 2^20 (a global pass, then shared memory): "
-        f"{device_ms(lambda: ck.fwht(fw20), reps=10):.4f} ms of device time "
-        f"a call (the input's clone included), "
-        f"{cuda_ms(lambda: ck.fwht(fw20), reps=10):.4f} ms a call")
-    # the new paths' wall times, medians of 3
-    had_c = wall_s(lambda: ph.compress(nat3))
+    log(f"phase 4: fwht at 1 x 2^20 (a global pass, then a cluster "
+        f"launch): {device_ms(lambda: ck.fwht(fw20), reps=10):.4f} ms of "
+        f"device time a call, {cuda_ms(lambda: ck.fwht(fw20), reps=10):.4f} "
+        f"ms a call")
+    # the new paths' wall times, medians of 3 [min, max]
+    had_c = wall_times(lambda: ph.compress(nat3))
     had_c_st = dict(ph.stage_seconds)
-    had_d = wall_s(lambda: ph.decompress(c_had))
+    had_d = wall_times(lambda: ph.decompress(c_had))
     had_d_st = dict(ph.stage_seconds)
-    had_dd = wall_s(lambda: phd.decompress(c_had))
+    had_dd = wall_times(lambda: phd.decompress(c_had))
     had_dd_st = dict(phd.stage_seconds)
-    log(f"phase 4: Hadamard compress {had_c:.4f} s {had_c_st}; decompress "
-        f"{had_d:.4f} s {had_d_st}; device-decode decompress {had_dd:.4f} s "
-        f"{had_dd_st}")
+    log(f"phase 4: Hadamard compress {spread(had_c)} s {had_c_st}; "
+        f"decompress {spread(had_d)} s {had_d_st}; device-decode decompress "
+        f"{spread(had_dd)} s {had_dd_st}")
     hzr_c = wall_s(lambda: pz.compress(native))
     hzr_c_st = dict(pz.stage_seconds)
     hzr_d = wall_s(lambda: pz.decompress(c_hzr))
@@ -1288,14 +1369,15 @@ def main() -> int:
     log(f"phase 4: compress {statistics.median(cw):.4f} s against "
         f"compress_with_hints {statistics.median(cwh):.4f} s (medians of 5 "
         f"in turns), stages of the last with hints {pw.stage_seconds}")
-    enc11 = wall_s(lambda: tc.encode(native, device=dev))
+    enc11 = wall_times(lambda: tc.encode(native, device=dev))
     st11 = {}
     t11 = time.perf_counter()
     pk11, tb11, fl11 = tc.encode_blocks_device(blk11, len11, dev, st11)
     t11b = time.perf_counter()
     tc.assemble(blk11, len11, pk11, tb11, fl11)
     st11["assemble"] = time.perf_counter() - t11b
-    log(f"phase 4: encode {enc11:.4f} s (median of 3, {len(native)} B as "
+    log(f"phase 4: encode {spread(enc11)} s (median of 3 [min, max], "
+        f"{len(native)} B as "
         f"one stream); stages of a staged run {st11} "
         f"({t11b - t11 + st11['assemble']:.4f} s)")
     eb_t, ef_t = [], []
@@ -1308,9 +1390,8 @@ def main() -> int:
             main_x["tokw"], main_x["bwords"], hist_m, plane_len, 3, st_f),
             reps=1))
     log(f"phase 4: main pass-1 streams: entropy_streams_blocks "
-        f"{statistics.median(eb_t):.4f} s {st_b} against entropy_streams "
-        f"{statistics.median(ef_t):.4f} s {st_f} (medians of 3 in turns, "
-        f"stages of the last)")
+        f"{spread(eb_t)} s {st_b} against entropy_streams {spread(ef_t)} s "
+        f"{st_f} (medians of 3 [min, max] in turns, stages of the last)")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,19 +1,22 @@
-"""Design A/B of five of the port's CUDA kernels on one card.
+"""Design A/B of seven of the port's CUDA kernels on one card.
 
     python3 kernel_ab.py [--rounds 3] [--only hzr_decode.cu,tokenize.cu]
                          [--baseline DIR]
 
 Builds variants of ops/csrc/hzr_decode.cu, tokenize.cu, compact.cu,
-place_literals.cu and pack_flat.cu, each the committed source with some
-of its constants (or a line) replaced, into one shared library apiece
-(nvcc, sm_90a, all at once), and times each variant at the main path's
-shapes (the chip_smoke inputs: BASELINE config 2's device decode batch
-for hzr_decode, its xdelta signal for tokenize_planes, its pass 1 for
-compact_tokens and, compacted, for both modes of pack_flat, its device
-decode's emissions for place_literals) beside the library call that
-computes the same function where there is one, in turns, by
-torch.profiler device time of the whole call (every kernel and memset
-of it; mean of 30 calls a round, medians over the rounds printed).
+place_literals.cu, pack_flat.cu, fwht.cu and pack_blocks.cu, each the
+committed source with some of its constants (or a line) replaced, into
+one shared library apiece (nvcc, sm_90a, all at once), and times each
+variant at the main path's shapes (the chip_smoke inputs: BASELINE
+config 2's device decode batch for hzr_decode, its xdelta signal for
+tokenize_planes, its pass 1 for compact_tokens and, compacted, for both
+modes of pack_flat, its device decode's emissions for place_literals,
+config 3's centred rows for fwht, the main payload as one stream for
+pack_blocks and the main pass 1 for pack_blocks_tokw) beside the
+library call that computes the same function where there is one, in
+turns, by torch.profiler device time of the whole call (every kernel
+and memset of it; mean of 30 calls a round, medians over the rounds
+printed).
 --baseline DIR adds the varied kernels' sources found in DIR (the csrc
 of an earlier checkout) as variant "baseline". pack_flat's
 two_launches and global_atomics variants put back designs that lost
@@ -134,11 +137,8 @@ TOKENIZE = {
 _TWO_LAUNCHES = {
     "  int nb, ntokc, nwords, nlanes, nstatus;":
     "  int nb, ntokc, nwords, nlanes, nstatus, sums;",
-    "      if (!direct) prefix = look_back(a.status, g, t, total);":
-    "      if (!direct && a.sums && lane == 0)\n"
-    "        atomicExch(a.status + g,\n"
-    "                   (t ? kAggregate : kInclusive) | (unsigned)total);\n"
-    "      if (!direct && !a.sums) prefix = look_back(a.status, g, t, total);",
+    "        prefix = rspt::look_back(a.status, g, t, total);":
+    "        if (!a.sums) prefix = rspt::look_back(a.status, g, t, total);",
     "    __syncthreads();\n    if (direct) {":
     "    __syncthreads();\n    if (a.sums) continue;\n    if (direct) {",
     "  a.nstatus = status_words(a.nb, a.ntokc);\n":
@@ -168,8 +168,7 @@ _GLOBAL_ATOMICS = {
     "                             sh ? (uint32_t)(val >> (64 - sh)) : 0u};\n"
     "      for (int k = 0; k < 3; ++k)\n"
     "        if (f[k] && wi + k < a.nwords) atomicOr(a.out + wi + k, f[k]);\n",
-    "    for (int k = tid; k < nw; k += kThreads) {":
-    "    for (int k = tid; k < nw && nw < 0; k += kThreads) {"}
+    "    rspt::store_tile(s.words, nw, a.out, w0, a.nwords);\n": ""}
 PACK = {
     "tile2048_t256": ({}, False),
     "tile4096_t512": ({"kThreads = 256;": "kThreads = 512;"}, False),
@@ -179,19 +178,78 @@ PACK = {
     "global_atomics": (_GLOBAL_ATOMICS, False),
     # every tile starts its block at bit 0: no look-back wait
     "diag_no_lookback": ({
-        "      if (!direct) prefix = look_back(a.status, g, t, total);": ""},
+        "        prefix = rspt::look_back(a.status, g, t, total);": ""},
         True),
     # no token's fields ORed into the words (nor lanes stored)
     "diag_no_token_or": ({"      if (!nb) continue;":
                           "      if (nb >= 0) continue;"}, True),
     # no word stores from shared memory to the output
     "diag_no_word_stores": ({
-        "    for (int k = tid; k < nw; k += kThreads) {":
-        "    for (int k = tid; k < nw && nw < 0; k += kThreads) {"}, True),
+        "    rspt::store_tile(s.words, nw, a.out, w0, a.nwords);\n": ""},
+        True),
+}
+# fwht at 2^14: a cluster of 2^14 / 2^kCtaLog CTAs a row, 2^kItemsLog
+# words a thread
+FWHT = {
+    "cluster8_items8": ({}, False),
+    "cluster16_items8": ({"kCtaLog = 11;": "kCtaLog = 10;"}, False),
+    "cluster8_items16": ({"kItemsLog = 3;": "kItemsLog = 4;"}, False),
+    "cluster16_items16": ({"kCtaLog = 11;": "kCtaLog = 10;",
+                           "kItemsLog = 3;": "kItemsLog = 4;"}, False),
+    "cluster4_items16": ({"kCtaLog = 11;": "kCtaLog = 12;",
+                          "kItemsLog = 3;": "kItemsLog = 4;"}, False),
+    # the cluster stage reads the CTA's own words instead of its peers'
+    "diag_no_dsmem": ({
+        "c[q] = *cluster.map_shared_rank(s + j, q);": "c[q] = s[j];"},
+        True),
+}
+BLOCKS = {
+    "tile2048_t256": ({}, False),
+    "tile4096_t512": ({"kThreads = 256;": "kThreads = 512;",
+                       "kMinCtasFields = 8;": "kMinCtasFields = 4;"}, False),
+    "tile4096_t256": ({"kRounds = 8;": "kRounds = 16;"}, False),
+    # registers for other counts of resident CTAs an SM (K13a 8, K13b 2)
+    "minctas2_8": ({"kMinCtasFields = 8;": "kMinCtasFields = 2;",
+                    "kMinCtasTokw = 2;": "kMinCtasTokw = 8;"}, False),
+    "minctas4_4": ({"kMinCtasFields = 8;": "kMinCtasFields = 4;",
+                    "kMinCtasTokw = 2;": "kMinCtasTokw = 4;"}, False),
+    # one ticket counter for every tile instead of one a block:
+    # (block, tile) = divmod(ticket, tiles)
+    "one_ticket": ({
+        "  const int b = blockIdx.x / a.tiles;\n"
+        "  if (tid == 0) s.ticket = atomicAdd(a.ticket + 2 * b, 1);":
+        "  if (tid == 0) s.ticket = atomicAdd(a.ticket, 1);",
+        "  const int t = s.ticket;":
+        "  const int b = s.ticket / a.tiles;\n"
+        "  const int t = s.ticket - b * a.tiles;"}, False),
+    # a thread's first and last words by atomicOr, the words between by
+    # plain stores
+    "stores_between": ({
+        "      atomicOr(words + wi++, t0);\n      t0 = t1;\n      t1 = t2;":
+        "      if (first) atomicOr(words + wi++, t0); else words[wi++] = t0;\n"
+        "      first = false;\n      t0 = t1;\n      t1 = t2;",
+        "        atomicOr(words + wi++, t0);\n        t0 = t1;\n      }":
+        "        words[wi++] = t0;\n        t0 = t1;\n      }",
+        "  uint32_t cur = 0;       // those bits":
+        "  uint32_t cur = 0;       // those bits\n  bool first = true;"}, False),
+    # the tile of blockIdx.x, no ticket: what the ticket's round trip costs
+    "diag_no_ticket": ({
+        "  if (tid == 0) s.ticket = atomicAdd(a.ticket + 2 * b, 1);":
+        "  if (tid == 0) s.ticket = blockIdx.x - b * a.tiles;"}, True),
+    # no word stores from shared memory to the rows
+    "diag_no_word_stores": ({
+        "  rspt::store_tile(": "  if (s0 < 0) rspt::store_tile("}, True),
+    # no token's bits ORed into the shared words
+    "diag_no_token_or": ({"    if (!nb) continue;":
+                          "    if (nb >= 0) continue;"}, True),
+    # every tile starts its block at bit desc_bits: no look-back wait
+    "diag_no_lookback": ({
+        "    const long long prefix = rspt::look_back(a.status, g, t, s.total);":
+        "    const long long prefix = 0;"}, True),
 }
 TABLES = {"hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "compact.cu": COMPACT, "place_literals.cu": PLACE,
-          "pack_flat.cu": PACK}
+          "pack_flat.cu": PACK, "fwht.cu": FWHT, "pack_blocks.cu": BLOCKS}
 
 
 def variant_source(src: str, repl: dict) -> str:
@@ -211,15 +269,16 @@ def build_variants(kernels, out_dir: Path, baseline=None):
     procs = {}
     for cu, variants in kernels.items():
         src = (CSRC / cu).read_text()
-        todo = [(name, variant_source(src, repl))
+        todo = [(name, variant_source(src, repl), CSRC)
                 for name, (repl, _) in variants.items()]
         if baseline is not None and (baseline / cu).exists():
-            todo.append(("baseline", (baseline / cu).read_text()))
-        for name, text in todo:
+            # with the headers of its own checkout
+            todo.append(("baseline", (baseline / cu).read_text(), baseline))
+        for name, text, include in todo:
             path = out_dir / f"{Path(cu).stem}_{name}.cu"
             path.write_text(text)
             lib = path.with_suffix(".so")
-            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(CSRC), "-shared",
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(include), "-shared",
                    "-o", str(lib), str(path)]
             procs[(cu, name)] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -245,7 +304,13 @@ def _bind(cu, lib):
             "pack_flat.cu": {"rspt_pack_flat_state": [I, I],
                              "rspt_pack_flat": [P] * 7 + [I] * 3 + [P],
                              "rspt_pack_flat_lanes": [P] * 9 + [I] * 4
-                             + [P]}}[cu]
+                             + [P]},
+            "fwht.cu": {"rspt_fwht_cluster": [I],
+                        "rspt_fwht": [P, P, I, I, P]},
+            "pack_blocks.cu": {
+                "rspt_pack_blocks_state": [I, I],
+                "rspt_pack_blocks": [P] * 9 + [I] * 3 + [P],
+                "rspt_pack_blocks_tokw": [P] * 6 + [I] * 3 + [P]}}[cu]
     if cu == "tokenize.cu" and not hasattr(lib, "rspt_tokenize_tiles"):
         # a source without the summary pass: no scratch argument
         sigs = {"rspt_tokenize_planes": [P] * 4 + [I] * 3 + [P]}
@@ -253,6 +318,13 @@ def _bind(cu, lib):
         # a source with one CTA a block: no state argument
         sigs = {"rspt_pack_flat": [P] * 6 + [I] * 3 + [P],
                 "rspt_pack_flat_lanes": [P] * 8 + [I] * 4 + [P]}
+    if cu == "fwht.cu" and not hasattr(lib, "rspt_fwht_cluster"):
+        # a source that transforms in place: one CTA a row
+        sigs = {"rspt_fwht": [P, I, I, P]}
+    if cu == "pack_blocks.cu" and not hasattr(lib, "rspt_pack_blocks_state"):
+        # a source with one CTA a block: no state argument
+        sigs = {"rspt_pack_blocks": [P] * 8 + [I] * 3 + [P],
+                "rspt_pack_blocks_tokw": [P] * 5 + [I] * 3 + [P]}
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -381,6 +453,45 @@ def main() -> int:
         assert err == 0, err
         return out, entries
 
+    cen3 = cs.hadamard_input(native, ch, dev)
+    rows3, log3 = cen3.shape[0], cen3.shape[1].bit_length() - 1
+
+    def fwht(lib):
+        """fwht through lib as its wrapper calls it: out of place, or a
+        clone transformed in place (a source without clusters)."""
+        if not hasattr(lib, "rspt_fwht_cluster"):
+            out = cen3.clone()
+            err = lib.rspt_fwht(out.data_ptr(), rows3, log3, stream)
+        else:
+            out = torch.empty_like(cen3)
+            err = lib.rspt_fwht(cen3.data_ptr(), out.data_ptr(), rows3, log3,
+                                stream)
+        assert err == 0, err
+        return out
+
+    k13a_args = cs.stream_blocks_args(tc, native, dev)[0]
+    k13b_args = cs.pass1_blocks_args(tc, x, dev)
+
+    def blocks(lib, tokw_form):
+        """pack_blocks (K13a form on the main payload as one stream) or
+        pack_blocks_tokw (K13b on the main pass 1) through lib, as the
+        wrappers call them (the memset of the rows and state included)."""
+        *toks, lut, dbits = k13b_args if tokw_form else k13a_args
+        nb_b, n = toks[0].shape
+        if hasattr(lib, "rspt_pack_blocks_state"):
+            words, state = ck._blocks_buffers(nb_b, n, dev, lib)
+            state = [state.data_ptr()]
+        else:
+            words = torch.empty((nb_b, ck.blocks_nwords(n)), **i32)
+            state = []
+        total = torch.empty(nb_b, **i32)
+        fn = lib.rspt_pack_blocks_tokw if tokw_form else lib.rspt_pack_blocks
+        err = fn(*[t.data_ptr() for t in toks], lut.data_ptr(),
+                 dbits.data_ptr(), words.data_ptr(), total.data_ptr(),
+                 *state, nb_b, n, words.shape[1], stream)
+        assert err == 0, err
+        return words, total
+
     def decode_view(out):   # what placement reads, and the lane results
         return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])
 
@@ -402,16 +513,24 @@ def main() -> int:
             ("pack_flat", lambda lib: pack(lib, False),
              ck.pack_flat_plain(*pk_args), None),
             ("pack_flat_lanes", lambda lib: pack(lib, True),
-             ck.pack_flat_lanes_plain(*pk_args, meta, init), None)]}
+             ck.pack_flat_lanes_plain(*pk_args, meta, init), None)],
+        "fwht.cu": [("fwht", fwht, ck.fwht_plain(cen3), None)],
+        "pack_blocks.cu": [
+            ("pack_blocks", lambda lib: blocks(lib, False),
+             ck.pack_blocks_plain(*k13a_args), None),
+            ("pack_blocks_tokw", lambda lib: blocks(lib, True),
+             ck.pack_blocks_tokw_plain(*k13b_args), None)]}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build_variants({cu: TABLES[cu] for cu in only}, Path(tmp),
                               args.baseline)
         runs = {}   # name: call
+        kernel_of = {}  # name: the kernel's name (a substring of it)
         for (cu, name), lib in libs.items():
             _bind(cu, lib)
             for kind, fn, want, view in kinds[cu]:
                 run = (lambda fn=fn, lib=lib: fn(lib))
+                kernel_of[f"{kind}/{name}"] = kind + "_kernel"
                 if name == "baseline" or not TABLES[cu][name][1]:
                     got = run()
                     cs.equal(f"{kind}/{name}", view(got) if view else got,
@@ -431,10 +550,15 @@ def main() -> int:
         for _ in range(args.rounds):
             for name, fn in runs.items():
                 times[name].append(cs.device_ms(fn) or cs.cuda_ms(fn))
+        # the named kernel of a call alone (median of its launches),
+        # without the call's memsets, copies and other kernels
+        alone = {name: cs.device_ms(fn, kernel=kernel_of[name])
+                 for name, fn in runs.items() if name in kernel_of}
     med = {name: statistics.median(ts) for name, ts in times.items()}
     for name, ts in times.items():
-        print(f"{name}: median {med[name]:.6f} ms, rounds "
-              f"{[round(t, 6) for t in ts]}", flush=True)
+        print(f"{name}: median {med[name]:.6f} ms (the kernel alone "
+              f"{alone.get(name)}), rounds {[round(t, 6) for t in ts]}",
+              flush=True)
     print(smi)
     print(json.dumps({"kernel_ab_ms": med, "device": smi}))
     return 0

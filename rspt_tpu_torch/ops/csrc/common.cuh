@@ -3,7 +3,9 @@
 // Block-wide exclusive scans built from warp shuffles plus one shared
 // slot per warp. blockDim.x must be a multiple of 32 (every kernel here
 // launches 256, 512 or 1024 threads) and every thread of the block must
-// call the scan (it synchronises).
+// call the scan (it synchronises). Then what the two tiled Huffman bit
+// packs (pack_flat.cu, pack_blocks.cu) share: the store of a tile's words
+// and the decoupled look-back that carries a block's bits across tiles.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,6 +68,78 @@ __device__ int block_scan_excl(int v, int ident, Op op, bool reverse,
   }
   __syncthreads();
   return op(scratch[wid], ex);
+}
+
+// ---------------------------------------------------------------------
+// Huffman bit packs in tiles (pack_flat.cu, pack_blocks.cu)
+// ---------------------------------------------------------------------
+
+// Store a tile's nw words at word w0 of out (none at or past nwords):
+// interior words with plain coalesced stores, the first and last (which a
+// neighbouring tile, block or description may share) with a global
+// atomicOr. The shared words hold the tile's bits from bit s0 of word 0,
+// or from bit 0 (then shifted up by s0 = 1..31 on the way out; word nw - 1
+// of them is 0). Every thread of the CTA calls it.
+__device__ __forceinline__ void store_tile(const uint32_t* words, int nw,
+                                           uint32_t* out, int64_t w0,
+                                           int64_t nwords, int s0 = 0) {
+  for (int k = threadIdx.x; k < nw; k += blockDim.x) {
+    const int64_t gw = w0 + k;
+    if (gw >= nwords) break;
+    uint32_t v = words[k];
+    if (s0) v = v << s0 | (k ? words[k - 1] >> (32 - s0) : 0u);
+    if (k == 0 || k == nw - 1) {
+      if (v) atomicOr(out + gw, v);
+    } else {
+      out[gw] = v;
+    }
+  }
+}
+
+// Status words of a single-pass decoupled look-back over tiles: 0 until a
+// tile publishes, then flag | bits.
+constexpr unsigned long long kAggregate = 1ull << 62;  // a tile's own bits
+constexpr unsigned long long kInclusive = 1ull << 63;  // bits through it
+constexpr unsigned long long kValue = kAggregate - 1;
+
+// One thread: publish tile g's bit count `total`, tile t of its block
+// (the first tile's count is its inclusive prefix).
+__device__ __forceinline__ void publish(unsigned long long* status, int g,
+                                        int t, int total) {
+  atomicExch(status + g, (t ? kAggregate : kInclusive) | (unsigned)total);
+}
+
+// Warp 0, after tile g's publish: the bits of its block's earlier tiles
+// (t of them, in status slots g - t .. g - 1); publishes tile g's
+// inclusive prefix. Every tile publishes its own count before it waits,
+// and tiles are numbered by an atomic ticket in launch order, so it waits
+// only on tiles held by running CTAs: no deadlock, whatever order the
+// CTAs run in.
+__device__ inline long long look_back(unsigned long long* status, int g,
+                                      int t, int total) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) return 0;
+  const int first = g - t;
+  long long prefix = 0;
+  for (int k = g - 1;; k -= 32) {
+    const int idx = k - lane;
+    unsigned long long v = kInclusive;  // before the block: never summed
+    if (idx >= first) {
+      while ((v = *(volatile unsigned long long*)(status + idx)) == 0) {
+      }
+    }
+    const unsigned inc = __ballot_sync(kFull, (v & kInclusive) != 0);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    long long add = lane <= stop ? (long long)(v & kValue) : 0;
+    for (int o = 16; o; o >>= 1) add += __shfl_xor_sync(kFull, add, o);
+    prefix += add;
+    if (inc) break;
+  }
+  if (lane == 0) {
+    atomicExch(status + g,
+               kInclusive | (unsigned long long)(prefix + total));
+  }
+  return prefix;
 }
 
 }  // namespace rspt

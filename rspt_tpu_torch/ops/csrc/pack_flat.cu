@@ -53,6 +53,8 @@
 // published its inclusive prefix, and publishes its own. Tickets are
 // drawn in order, so a tile waits only on tiles held by running CTAs
 // (no deadlock), and the result does not depend on the ticket order.
+// The look-back and the word stores are common.cuh's, shared with
+// pack_blocks.cu.
 // Tickets past the status words (only overlapping blocks reach them)
 // sum their block's earlier tokens directly. The tile's bits are one
 // contiguous range of at most kTile * 37 bits, so its words are
@@ -85,9 +87,6 @@ constexpr int kTile = kWarps * kWarpSpan;    // 2,048 tokens
 constexpr int kNSym = 261;
 constexpr int kMaxBits = 37;                 // cbits <= 23, ebits <= 14
 constexpr int kWords = kTile * kMaxBits / 32 + 2;  // a tile's words
-constexpr unsigned long long kAggregate = 1ull << 62;  // a tile's own bits
-constexpr unsigned long long kInclusive = 1ull << 63;  // bits through it
-constexpr unsigned long long kValue = kAggregate - 1;
 
 struct Args {
   const int32_t* tokc;
@@ -136,39 +135,6 @@ __device__ __forceinline__ uint64_t token_value(const Smem& s, int32_t w) {
   const uint32_t e = (uint32_t)s.lut[w & 511];
   return (uint64_t)(e & 0xFFFFFFu) |
          ((uint64_t)((w >> 13) & 16383) << (e >> 24));
-}
-
-// Warp 0: publish tile g's bit count and return the bits of its block's
-// earlier tiles (t of them, in slots g - t .. g - 1).
-__device__ long long look_back(unsigned long long* status, int g, int t,
-                               int total) {
-  const int lane = threadIdx.x & 31;
-  if (t == 0) {
-    if (lane == 0) atomicExch(status + g, kInclusive | (unsigned)total);
-    return 0;
-  }
-  if (lane == 0) atomicExch(status + g, kAggregate | (unsigned)total);
-  const int first = g - t;
-  long long prefix = 0;
-  for (int k = g - 1;; k -= 32) {
-    const int idx = k - lane;
-    unsigned long long v = kInclusive;  // before the block: never summed
-    if (idx >= first) {
-      while ((v = *(volatile unsigned long long*)(status + idx)) == 0) {
-      }
-    }
-    const unsigned inc = __ballot_sync(rspt::kFull, (v & kInclusive) != 0);
-    const int stop = inc ? __ffs(inc) - 1 : 31;
-    long long add = lane <= stop ? (long long)(v & kValue) : 0;
-    for (int o = 16; o; o >>= 1) add += __shfl_xor_sync(rspt::kFull, add, o);
-    prefix += add;
-    if (inc) break;
-  }
-  if (lane == 0) {
-    atomicExch(status + g,
-               kInclusive | (unsigned long long)(prefix + total));
-  }
-  return prefix;
 }
 
 template <bool kLanes>
@@ -236,7 +202,10 @@ __device__ __forceinline__ void pack_tiles(const Args& a, Smem& s) {
       const int total = __shfl_sync(rspt::kFull, incl, 31);
       if (lane < kWarps) s.warp[lane] = incl - v;
       long long prefix = 0;
-      if (!direct) prefix = look_back(a.status, g, t, total);
+      if (!direct) {
+        if (lane == 0) rspt::publish(a.status, g, t, total);
+        prefix = rspt::look_back(a.status, g, t, total);
+      }
       if (lane == 0) {
         s.prefix = prefix;
         s.total = total;
@@ -302,16 +271,7 @@ __device__ __forceinline__ void pack_tiles(const Args& a, Smem& s) {
       }
     }
     __syncthreads();
-    for (int k = tid; k < nw; k += kThreads) {
-      const int64_t gw = w0 + k;
-      if (gw >= a.nwords) break;
-      const uint32_t v = s.words[k];
-      if (k == 0 || k == nw - 1) {
-        if (v) atomicOr(a.out + gw, v);   // shared with a neighbour
-      } else {
-        a.out[gw] = v;
-      }
-    }
+    rspt::store_tile(s.words, nw, a.out, w0, a.nwords);
   }
 }
 

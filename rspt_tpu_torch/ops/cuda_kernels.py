@@ -76,10 +76,13 @@ def _lib() -> ctypes.CDLL:
         "rspt_pack_flat_tile": [],
         "rspt_pack_flat": [P] * 7 + [I] * 3 + [P],
         "rspt_pack_flat_lanes": [P] * 9 + [I] * 4 + [P],
-        "rspt_pack_blocks": [P] * 8 + [I] * 3 + [P],
-        "rspt_pack_blocks_tokw": [P] * 5 + [I] * 3 + [P],
-        "rspt_fwht": [P, I, I, P],
+        "rspt_pack_blocks_state": [I, I],
+        "rspt_pack_blocks_tile": [],
+        "rspt_pack_blocks": [P] * 9 + [I] * 3 + [P],
+        "rspt_pack_blocks_tokw": [P] * 6 + [I] * 3 + [P],
+        "rspt_fwht": [P, P, I, I, P],
         "rspt_fwht_launches": [I],
+        "rspt_fwht_cluster": [I],
         "rspt_hzr_decode_cluster": [],
         "rspt_hzr_decode": [P] * 17 + [I] * 7 + [P],
         "rspt_place_literals": [P] * 6 + [I] * 3 + [P],
@@ -529,19 +532,31 @@ def _check_blocks_args(tokens, names, lut, desc_bits):
     _check(desc_bits, "desc_bits", torch.int32, (nb,))
 
 
+def _blocks_buffers(nb: int, n: int, dev, lib=None):
+    """One zeroed buffer: the (nb, blocks_nwords(n)) rows, then, at an
+    8-byte offset, the state of lib's (default: the port's) pack_blocks
+    kernels (a tile ticket counter a block, a status word a tile):
+    returns (rows, state)."""
+    lib = lib or _lib()
+    nw = nb * blocks_nwords(n)
+    nw += nw & 1
+    buf = torch.zeros(nw + lib.rspt_pack_blocks_state(nb, n),
+                      dtype=torch.int32, device=dev)
+    return buf[:nb * blocks_nwords(n)].view(nb, -1), buf[nw:]
+
+
 def _launch_blocks(name, fn, tokens, lut, desc_bits):
-    """Allocate the rows and bit totals and launch one block per row."""
+    """Allocate the rows, bit totals and state and launch a CTA a tile."""
     nb, n = tokens[0].shape
-    nwords = blocks_nwords(n)
     dev = lut.device
-    if any(t.data_ptr() % 16 for t in tokens):
-        raise ValueError(f"{name}: token arrays must be 16-byte aligned")
-    words = torch.empty((nb, nwords), dtype=torch.int32, device=dev)
     total = torch.empty(nb, dtype=torch.int32, device=dev)
-    if nb:
-        _launch(name, fn, *[t.data_ptr() for t in tokens], lut.data_ptr(),
-                desc_bits.data_ptr(), words.data_ptr(), total.data_ptr(), nb,
-                n, nwords, device=dev)
+    if not nb:
+        return torch.empty((0, blocks_nwords(n)), dtype=torch.int32,
+                           device=dev), total
+    words, state = _blocks_buffers(nb, n, dev)
+    _launch(name, fn, *[t.data_ptr() for t in tokens], lut.data_ptr(),
+            desc_bits.data_ptr(), words.data_ptr(), total.data_ptr(),
+            state.data_ptr(), nb, n, words.shape[1], device=dev)
     return words, total
 
 
@@ -557,7 +572,9 @@ def pack_blocks(syms: torch.Tensor, extras: torch.Tensor, ebits: torch.Tensor,
 
     Returns (words (nb, blocks_nwords(n)) int32: bits at or past the row
     end are dropped; total_bits (nb,) int32 = desc_bits + the tokens'
-    bits, exact for every row). n is a multiple of 8 up to 65,536."""
+    bits, exact for every row). n is a multiple of 8 up to 65,536. Codes
+    have cbits <= 23 (host_tables' limit); on the card, a LUT outside
+    that can stop the launch with a device error."""
     fields = (syms, extras, ebits, tvalid)
     _check_blocks_args(fields, ("syms", "extras", "ebits", "tvalid"), lut,
                        desc_bits)
@@ -610,8 +627,10 @@ def fwht_plain(x: torch.Tensor) -> torch.Tensor:
 def fwht(x: torch.Tensor) -> torch.Tensor:
     """Walsh-Hadamard transform along the rows of x ((rows, n) int32,
     n = 2^k, 2 <= n <= 2^30), int32 wraparound butterflies
-    (fwht.c:4-28); a new tensor. Rows longer than 2^15 add one global
-    pass per 5 index bits above that: 2 launches up to n = 2^20."""
+    (fwht.c:4-28); a new tensor, x unchanged. On the card a row of
+    n > 2,048 words is a cluster of n / 2,048 CTAs (up to 16); rows
+    longer than 2^15 add one global pass per 5 index bits above that: 2
+    launches up to n = 2^20."""
     _check(x, "x", torch.int32)
     if x.dim() != 2:
         raise ValueError("x: need (rows, n)")
@@ -620,12 +639,12 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("x: need rows < 2^31 of 2^k words, 2 <= n <= 2^30")
     if not _on_cuda(x):
         return fwht_plain(x)
-    out = x.clone()
+    out = torch.empty_like(x)
     if rows == 0:
         return out
     log_n = n.bit_length() - 1
     lib = _lib()
-    _launch("fwht", lib.rspt_fwht, out.data_ptr(), rows, log_n,
+    _launch("fwht", lib.rspt_fwht, x.data_ptr(), out.data_ptr(), rows, log_n,
             device=x.device)
     fwht.launches += lib.rspt_fwht_launches(log_n)
     return out

@@ -21,6 +21,11 @@ from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
 from rspt_tpu_torch import packers as gpack  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from test_torch_cuda import (PACK_BLOCKS_EDGE_CASES,  # noqa: E402
+                             PACK_BLOCKS_JAX_CASES,
+                             check_pack_blocks_edges_covered,
+                             pack_blocks_edge_batch,
+                             pack_blocks_edges_covered)
 
 B = 65536
 RUNS = (1, 2, 3, 6, 7, 22, 23, 278, 279, 16662, 40000)
@@ -157,6 +162,47 @@ def test_pack_blocks_tokw_plain_vs_k13b_interp():
                                       jnp.asarray(cbits),
                                       jnp.asarray(desc_bits), mode="interp")
     _compare_rows(got, want, is_huff)
+
+
+def pack_blocks_edges(case):
+    return pack_blocks_edge_batch(np.random.default_rng(120), case)
+
+
+@pytest.mark.parametrize("case", PACK_BLOCKS_EDGE_CASES)
+def test_pack_blocks_edges_reach_their_paths(case):
+    """Each pack_blocks_edge_batch case, counted from its arrays with the
+    kernel's 2,048-slot tile, reaches what it is built for: partial last
+    tiles (n = 2,040, 2,056, 65,528), tokens spanning the word two tiles
+    share, an empty tile between valid ones and a row passing nwords in
+    a middle tile (n65536), one block of one tile (n2040), 48 blocks of
+    more tiles than the card holds at once (many_blocks), description
+    bits off a multiple of 32 everywhere."""
+    check_pack_blocks_edges_covered(
+        case, pack_blocks_edges_covered(pack_blocks_edges(case)))
+
+
+@pytest.mark.parametrize("case", PACK_BLOCKS_JAX_CASES)
+def test_pack_blocks_edges_vs_k13_interp(case):
+    """pack_blocks_plain and pack_blocks_tokw_plain (the wrappers on CPU
+    tensors) on pack_blocks_edge_batch against jax_coder.pack_blocks
+    (K13a) and pack_blocks_tokw (K13b) in interpret mode: every bit
+    total, and every row whose bits fit its n + 512 bytes (an
+    overflowing row falls back to COPY and JAX's clamps leave scratch
+    there); the two forms give the same rows."""
+    x = pack_blocks_edges(case)
+    check_pack_blocks_edges_covered(case, pack_blocks_edges_covered(x))
+    fields = [_t(f) for f in x["fields"]]
+    tables = (x["codes"], x["cbits"], x["desc_bits"])
+    got = tc.pack_blocks(*fields, *tables)
+    got_w = tc.pack_blocks_tokw(_t(x["tokw"]), *tables)
+    assert torch.equal(got[0], got_w[0]) and torch.equal(got[1], got_w[1])
+    jt = [jnp.asarray(a) for a in tables]
+    fits = got[1].numpy() <= 8 * got[0].shape[1]
+    _compare_rows(got, jax_coder.pack_blocks(
+        *[jnp.asarray(f) for f in x["fields"]], *jt, mode="interp"), fits)
+    _compare_rows(got_w, jax_coder.pack_blocks_tokw(
+        jnp.asarray(x["tokw"]), *jt, mode="interp"), fits)
+    assert fits.sum() >= len(fits) - 1
 
 
 def test_pack_blocks_forms_agree():

@@ -674,15 +674,33 @@ def test_packer_device_decode(rng, dev):
     assert pc.decompress_many([comp, comp]) == [native, native]
 
 
-@pytest.mark.parametrize("rows,n", [(12, 2 ** 14), (3, 2 ** 17),
-                                    (1, 2 ** 20), (5, 2), (7, 8)])
-def test_fwht_matches_plain(rng, dev, rows, n):
-    """fwht vs fwht_plain, the global passes (n > 2^15) included, with
-    INT32_MIN/MAX spliced in."""
+# fwht's (rows, n): the Hadamard shape and the global passes (n > 2^15),
+# n = 2 and 8, rows of 32 and 64 words (the warp's reach), every change
+# of the cluster size (1 CTA for n <= 2,048, then 2, 4, 8, 16 CTAs a
+# row, then a global pass), 1 and 13 rows, and 1,001 rows of 8 words (no
+# multiple of a CTA's 256-row grouping: a partial last CTA)
+FWHT_CASES = ((12, 2 ** 14), (3, 2 ** 17), (1, 2 ** 20), (5, 2), (7, 8),
+              (13, 32), (13, 64), (1001, 8), (13, 2 ** 11), (1, 2 ** 11),
+              (13, 2 ** 12), (1, 2 ** 13), (13, 2 ** 13), (1, 2 ** 14),
+              (13, 2 ** 14), (1, 2 ** 15), (13, 2 ** 15), (1, 2 ** 16),
+              (13, 2 ** 16))
+
+
+def fwht_case(rng, rows, n):
+    """(rows, n) random int32 words with INT32_MIN/MAX spliced in."""
     x = rng.integers(-2 ** 31, 2 ** 31 - 1, (rows, n), dtype=np.int64)
     x[0, :2] = [-2 ** 31, 2 ** 31 - 1]
-    t = torch.from_numpy(x.astype(np.int32)).to(dev)
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("rows,n", FWHT_CASES)
+def test_fwht_matches_plain(rng, dev, rows, n):
+    """fwht vs fwht_plain, tolerance 0, at FWHT_CASES' shapes; x is
+    unchanged by the call."""
+    t = torch.from_numpy(fwht_case(rng, rows, n)).to(dev)
+    x0 = t.clone()
     assert torch.equal(ck.fwht(t), ck.fwht_plain(t))
+    assert torch.equal(t, x0)
 
 
 def test_pack_flat_lanes_matches_plain(rng, dev):
@@ -743,6 +761,171 @@ def _block_batch(rng):
     codes[1] = np.arange(261) * 2477 & 0xFFFFF
     cbits[1] = 20
     return fields, tc.lut_words(codes, cbits), desc_bits
+
+
+BLOCKS_TILE = 2048        # pack_blocks' tile: the slots of one CTA
+# pack_blocks_edge_batch's cases; the first four also go through the JAX
+# pack on the CPU (tests/test_torch_blocks.py)
+PACK_BLOCKS_EDGE_CASES = ("n65536", "n2040", "n2056", "n65528",
+                          "many_blocks")
+PACK_BLOCKS_JAX_CASES = PACK_BLOCKS_EDGE_CASES[:4]
+
+
+def _slot_tokens(rng, n, straddle=()):
+    """n valid pass-1 token words, one a slot, their codes and code bits
+    and description bits (the tables' own, moved off a multiple of 32),
+    the order chosen so that the token before each tile start in
+    `straddle` spans the word it shares with that tile."""
+    tok = _pass1_tokens(rng, n)
+    codes, cbits, _, dbits = tc.build_block_tables(
+        np.bincount(tok & 511, minlength=261))
+    dbits += 0 if dbits % 32 else 5
+    L = cbits[tok & 511].astype(np.int64) + ((tok >> 9) & 15)
+    lo = 0
+    for P in straddle:
+        _swap_in(tok, L, P - 1, lo + int(np.argmax(L[lo:P - 1])))
+        _steer(tok, L, P, lo, P - 1, n, 32, dbits, (1, int(L[P - 1]) - 1),
+               rng)
+        lo = P + 1
+    return tok, codes, cbits, dbits
+
+
+def _sparse_slots(rng, n, skip):
+    """A block of n slots: valid tokens at sorted random slots outside the
+    slot range `skip`, junk words without the valid bit elsewhere; with
+    its codes, code bits and description bits."""
+    row = rng.integers(0, 1 << 27, n)
+    free = np.setdiff1d(np.arange(n), np.arange(*skip))
+    pos = np.sort(rng.choice(free, free.size // 3, replace=False))
+    tok, codes, cbits, dbits = _slot_tokens(rng, pos.size)
+    row[pos] = tok
+    return row, codes, cbits, dbits
+
+
+def pack_blocks_edge_batch(rng, case):
+    """One edge case of pack_blocks / pack_blocks_tokw (tiles of 2,048
+    slots of one block, a status word a tile, each tile's first and last
+    words shared with its neighbours).
+
+    n65536: 4 blocks of 65,536 slots: every slot a token, the tokens
+    before the starts of tiles 1 and 30 spanning the word two tiles
+    share; every slot a token under 20-bit codes, whose bits pass the
+    row's nwords in a middle tile (a COPY candidate: total_bits exact);
+    sparse tokens with no valid slot in tile 2, between valid tiles;
+    junk without a valid slot. n2040: one block of one partial tile.
+    n2056: 3 blocks of a full and an 8-slot tile, the token before the
+    second spanning the shared word. n65528: 2 blocks of 31 tiles and a
+    partial one (dense, the last start straddled; sparse). many_blocks:
+    48 dense blocks of 65,536 slots (1,536 tiles, more than 132 x 8
+    resident CTAs wait in the look-back). Every description bit count
+    is off a multiple of 32.
+
+    Returns a dict of numpy arrays: tokw (nb, n) int32, fields (syms,
+    extras, ebits, tvalid: tokw's fields, tokenize_blocks' layout),
+    codes (nb, 261) uint32, cbits (nb, 261) int32, lut (nb, 261) int32
+    (code | cbits << 24) and desc_bits (nb,) int32."""
+    T = BLOCKS_TILE
+    if case == "n65536":
+        n = 65536
+        dense = _slot_tokens(rng, n, (T, 30 * T))
+        tok = _pass1_tokens(rng, n)
+        wide = (tok, np.arange(261, dtype=np.uint32) * 2477 & 0xFFFFF,
+                np.full(261, 20, np.int32), 3)
+        blocks = [dense, wide, _sparse_slots(rng, n, (2 * T, 3 * T)),
+                  (rng.integers(0, 1 << 27, n), np.zeros(261, np.uint32),
+                   np.zeros(261, np.int32), 33)]
+    elif case == "n2040":
+        blocks = [_slot_tokens(rng, 2040)]
+    elif case == "n2056":
+        blocks = [_slot_tokens(rng, 2056, (T,)) for _ in range(3)]
+    elif case == "n65528":
+        blocks = [_slot_tokens(rng, 65528, (31 * T,)),
+                  _sparse_slots(rng, 65528, (0, 0))]
+    else:
+        blocks = [_slot_tokens(rng, 65536) for _ in range(48)]
+    tokw = np.stack([b[0] for b in blocks]).astype(np.int32)
+    codes = np.stack([b[1] for b in blocks]).astype(np.uint32)
+    cbits = np.stack([b[2] for b in blocks]).astype(np.int32)
+    desc = np.array([b[3] for b in blocks], np.int32)
+    fields = (tokw & 511, (tokw >> 13) & 16383, (tokw >> 9) & 15,
+              (tokw >> 27) & 1)
+    return dict(tokw=tokw, fields=fields, codes=codes, cbits=cbits,
+                lut=tc.lut_words(codes, cbits), desc_bits=desc)
+
+
+def pack_blocks_edges_covered(x):
+    """What a pack_blocks_edge_batch case exercises, counted from its
+    arrays with the kernel's 2,048-slot tile: blocks (nb), slots (n),
+    tiles, tile starts whose previous token spans the word the two tiles
+    share (straddle), tiles without a token between tiles with tokens
+    (empty_between), blocks whose bits pass the row in a tile that is
+    neither the block's first nor its last (overflow_mid), description
+    bit counts off a multiple of 32 (odd_desc)."""
+    tokw, lut, desc = x["tokw"].astype(np.int64), x["lut"], x["desc_bits"]
+    nb, n = tokw.shape
+    T = BLOCKS_TILE
+    ntiles = -(-n // T)
+    row_bits = 32 * ck.blocks_nwords(n)
+    got = dict(nb=nb, n=n, tiles=nb * ntiles, straddle=0, empty_between=0,
+               overflow_mid=0, odd_desc=int((desc % 32 != 0).sum()))
+    for b in range(nb):
+        L = _token_lengths(tokw[b], lut[b])
+        xs = int(desc[b]) + np.cumsum(L) - L
+        for P in range(T, n, T):
+            prev = np.flatnonzero(L[:P])
+            if prev.size:
+                a = int(xs[P])
+                got["straddle"] += int(0 < a % 32 and
+                                       xs[prev[-1]] < a - a % 32)
+        live = np.add.reduceat(L, np.arange(0, n, T)) > 0
+        for k in range(1, ntiles - 1):
+            got["empty_between"] += int(not live[k] and live[:k].any()
+                                        and live[k + 1:].any())
+        end = xs + L
+        if end[-1] > row_bits:
+            k = int(np.argmax(end > row_bits)) // T
+            got["overflow_mid"] += int(0 < k < ntiles - 1)
+    return got
+
+
+def check_pack_blocks_edges_covered(case, cov):
+    """Assert that a pack_blocks_edge_batch case reaches what it is built
+    for (cov: pack_blocks_edges_covered's counts)."""
+    assert cov["odd_desc"] == cov["nb"], cov
+    if case != "n2040":
+        assert cov["straddle"] > 0, cov
+    if case == "n65536":
+        assert cov["empty_between"] > 0 and cov["overflow_mid"] > 0, cov
+    if case in ("n2040", "n2056", "n65528"):
+        assert cov["n"] % BLOCKS_TILE, cov
+    if case == "n2040":
+        assert cov["nb"] == 1 and cov["tiles"] == 1, cov
+    if case == "many_blocks":
+        assert cov["nb"] >= 40 and cov["tiles"] > 132 * 8, cov
+
+
+@pytest.mark.parametrize("case", PACK_BLOCKS_EDGE_CASES)
+def test_pack_blocks_edges_match_plain(dev, case):
+    """pack_blocks and pack_blocks_tokw vs their plain versions on
+    pack_blocks_edge_batch, tolerance 0: n = 65,536, 2,040, 2,056 and
+    65,528 (partial last tiles), a token spanning the word two tiles
+    share, an empty tile between valid ones, a row overflowing nwords in
+    a middle tile (total_bits exact), description bits off a multiple of
+    32, nb = 1 and 48 (1,536 tiles); 3 launches give the same words."""
+    x = pack_blocks_edge_batch(np.random.default_rng(120), case)
+    check_pack_blocks_edges_covered(case, pack_blocks_edges_covered(x))
+    assert ck._lib().rspt_pack_blocks_tile() == BLOCKS_TILE
+    fields = [torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+              for f in x["fields"]]
+    tokw, lut, d = (torch.from_numpy(x[k]).to(dev)
+                    for k in ("tokw", "lut", "desc_bits"))
+    want = ck.pack_blocks_plain(*fields, lut, d)
+    assert torch.equal(ck.pack_blocks_tokw_plain(tokw, lut, d)[0], want[0])
+    for _ in range(3):
+        got = ck.pack_blocks(*fields, lut, d)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = ck.pack_blocks_tokw(tokw, lut, d)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_pack_blocks_matches_plain(rng, dev):

@@ -55,13 +55,20 @@ def _extremes():
     return x
 
 
-@pytest.mark.parametrize("case", ["3x4096", "n2", "extremes"])
+@pytest.mark.parametrize("case", ["3x4096", "n2", "extremes", "13x2048",
+                                  "1001x8"])
 def test_fwht_plain_vs_jax(rng, case):
-    """fwht_plain == jops.fwht == fwht_pallas(interpret=True)."""
+    """fwht_plain == jops.fwht == fwht_pallas(interpret=True), on shapes
+    of the card tests' FWHT_CASES too (13 rows of 2,048: the longest
+    rows one CTA holds; 1,001 rows of 8 words); x is unchanged."""
     x = {"3x4096": lambda: _rows(rng, 3, 4096),
          "n2": lambda: _rows(rng, 5, 2),
-         "extremes": _extremes}[case]()
-    got = ck.fwht(torch.from_numpy(x)).numpy()
+         "extremes": _extremes,
+         "13x2048": lambda: _rows(rng, 13, 2048),
+         "1001x8": lambda: _rows(rng, 1001, 8)}[case]()
+    t = torch.from_numpy(x.copy())
+    got = ck.fwht(t).numpy()
+    np.testing.assert_array_equal(t.numpy(), x)
     np.testing.assert_array_equal(got, np.asarray(jops.fwht(jnp.asarray(x))))
     np.testing.assert_array_equal(
         got, np.asarray(pk.fwht_pallas(jnp.asarray(x), interpret=True)))
