@@ -17,8 +17,9 @@ compress_with_hints at the main shape, the hzr stream encoder
 torch_coder.encode on the main payload's bytes as one stream, and the
 windows routes of the flat pack on the main pass 1.
 
-Phases: 1 build; 2 encode kernels vs plain on every chain (pack_flat_lanes
-too; group_windows, place_windows_aligned and windows_place_flat, with both
+Phases: 1 build (the kernels with nvcc and the host runtime,
+rspt_tpu_torch/native, with g++, at once); 2 encode kernels vs plain on
+every chain (pack_flat_lanes too; group_windows, place_windows_aligned and windows_place_flat, with both
 windows routes' payload bytes equal to pack_flat's), compact_tokens on
 the edges of its tile split and look-back (tests/test_torch_cuda.py's
 compact_edge_batch), tokenize_planes on the edges of its tiles
@@ -46,7 +47,12 @@ entropy_streams_blocks against the flat path; 12 the windows routes
 (pack_tokens_fused and pack_tokens_windows give the main container's
 streams, each through its kernels once), compact_tokens on the main
 pass 1 in 10 launches with
-equal words, and the xdelta growth rule at bps 1-3 on the card; 4, last,
+equal words, and the xdelta growth rule at bps 1-3 on the card; 13 the
+host runtime against its plain Python versions at the main path's
+shapes (CRC32C over the main container and each of its blocks,
+build_tables on the main pass 1's histograms, decode_planes_blocks on
+the main, Hadamard and hzr containers, lut_nib_batch on the main
+decode's 14 HUFF blocks), each equal, with both times; 4, last,
 times each kernel's call (profiler device time of every device operation
 of the wrapper's call: kernels, memsets, copies) beside its bound, its
 plain version and a library yardstick (tokenize_planes in turns with
@@ -67,6 +73,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -379,6 +386,121 @@ def block_modes(stream):
     return modes
 
 
+def block_crcs(stream):
+    """(stored CRC32C, the bytes it covers) of every block of an hzr
+    stream."""
+    out = []
+    left = int.from_bytes(stream[:4], "little")
+    pos = 4
+    while left > 0:
+        size = int.from_bytes(stream[pos:pos + 2], "little") + 1
+        n = 1 if stream[pos + 6] == 2 else size
+        out.append((int.from_bytes(stream[pos + 2:pos + 6], "little"),
+                    np.frombuffer(stream[pos + 7:pos + 7 + n], np.uint8)))
+        pos += 7 + n
+        left -= min(left, 65536)
+    return out
+
+
+def timed(fn):
+    """(fn(), its wall seconds)."""
+    t0 = time.perf_counter()
+    r = fn()
+    return r, time.perf_counter() - t0
+
+
+def check_runtime(containers, hist_m, plane_len):
+    """Phase 13: each function of the host runtime against its plain
+    Python version at the main path's shapes, equal, with both times
+    (the runtime's a median of 5 calls, the plain version's of one).
+    containers: {name: (container, planes, header bytes, plane bytes)},
+    the main one first."""
+    from rspt_tpu_torch.formats.crc32c import crc32c, crc32c_plain
+    from rspt_tpu_torch.hzr import gpu_decoder as gd
+    from rspt_tpu_torch.hzr import pyref, walk
+    from rspt_tpu_torch.hzr import torch_coder as tc
+    from rspt_tpu_torch.native import bindings as rt
+
+    times = {}
+
+    def both(name, fast, plain):
+        want, tp = timed(plain)
+        got = fast()
+        times[name] = (wall_s(fast, reps=5), tp)
+        return got, want
+
+    comp = containers["main"][0]
+    buf = np.frombuffer(comp, np.uint8)
+    got, want = both("crc32c container", lambda: crc32c(buf),
+                     lambda: crc32c_plain(buf))
+    if got != want:
+        raise AssertionError(f"crc32c over the container: {got} != {want}")
+    streams = _plane_streams(comp, 3, 0)
+    blocks = [b for s in streams for b in block_crcs(s)]
+    got, want = both("crc32c blocks",
+                     lambda: [crc32c(b) for _, b in blocks],
+                     lambda: [crc32c_plain(b) for _, b in blocks])
+    if not got == want == [c for c, _ in blocks]:
+        raise AssertionError("crc32c of the main container's blocks")
+    lengths = tc.block_layout(plane_len, 3)[1]
+    got, want = both("build_tables",
+                     lambda: tc.host_tables(hist_m, lengths),
+                     lambda: tc.host_tables_plain(hist_m, lengths))
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError("build_tables differs from host_tables_plain")
+    decoded = {}
+    for name, (c, nplanes, hsize, n) in containers.items():
+        cb = np.frombuffer(c, np.uint8)
+        ss = _plane_streams(c, nplanes, hsize)
+        (got, used), want = both(
+            f"decode_planes_blocks {name}",
+            lambda: rt.decode_planes_blocks(cb[1 + hsize:], nplanes, n),
+            lambda: [pyref.decode(s, n) for s in ss])
+        if used + 1 + hsize != len(c) or [g.tobytes() for g in got] != want:
+            raise AssertionError(f"decode_planes_blocks {name} != pyref")
+        decoded[name] = len(c)
+
+    def walked(light):
+        huff = []
+        for st in streams:
+            size = int.from_bytes(st[:4], "little")
+            walk.walk_stream(np.frombuffer(st, np.uint8), size, 0,
+                             np.zeros(size, np.uint8), huff, light)
+        return huff
+
+    huff = walked(False)
+    (luts, dbits), want = both(
+        "lut_nib_batch",
+        lambda: rt.lut_nib_batch([h[0] for h in walked(True)]),
+        lambda: [gd.build_lut_nib(h[5]) for h in walked(False)])
+    if len(luts) != 14 or dbits.tolist() != [h[2] for h in huff]:
+        raise AssertionError(f"lut_nib_batch: {len(luts)} blocks, dbits")
+    for g, w in zip(luts, want):
+        if (not np.array_equal(g[0], w[0]) or g[2] != w[2] or not all(
+                np.array_equal(a, b) for a, b in zip(g[1], w[1]))):
+            raise AssertionError("lut_nib_batch differs from build_lut_nib")
+    log(f"phase 13: host runtime equal to its plain versions: crc32c over "
+        f"the {len(comp)} B main container and its {len(blocks)} blocks "
+        f"(stored CRCs), build_tables on the main pass 1's "
+        f"{hist_m.reshape(-1, 261).shape[0]} histograms, "
+        f"decode_planes_blocks on {decoded} B containers, lut_nib_batch on "
+        f"the main decode's {len(luts)} HUFF blocks (walk included)")
+    for name, (tn, tp) in times.items():
+        log(f"phase 13: {name}: runtime {tn:.6f} s, plain {tp:.6f} s "
+            f"({tp / tn:.0f}x)")
+
+
+def _plane_streams(comp, nplanes, hsize):
+    """The stream of each plane of a container."""
+    out, pos = [], 1 + hsize
+    for _ in range(nplanes):
+        n = int.from_bytes(comp[pos:pos + 4], "little")
+        out.append(comp[pos + 4:pos + 4 + n])
+        pos += 4 + n
+    return out
+
+
 def symbols_decoded(emis, counts, steps):
     """Symbols of the final sweep: every step below a lane's own step
     count raises its output count (by 1 for a byte, >= 2 for a zero run);
@@ -403,6 +525,8 @@ def main() -> int:
     from rspt_tpu_torch.formats.crc32c import crc32c
     from rspt_tpu_torch.hzr import gpu_decoder as gd
     from rspt_tpu_torch.hzr import torch_coder as tc
+    from rspt_tpu_torch.native import _build as native_build
+    from rspt_tpu_torch.native import bindings as rt_bindings
     from rspt_tpu_torch.ops import _build
     from rspt_tpu_torch.ops import cuda_kernels as ck
     from rspt_tpu_torch.ops import torch_ops as tops
@@ -417,11 +541,28 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    # phase 1: build
+    # phase 1: build the kernels (nvcc) and the host runtime (g++) at once
     t0 = time.perf_counter()
+    rt_built = {}
+
+    def build_runtime():
+        try:
+            rt_built["lib"] = native_build.load_library()
+        except Exception as e:  # re-raised below
+            rt_built["error"] = e
+        rt_built["s"] = time.perf_counter() - t0
+
+    rt_thread = threading.Thread(target=build_runtime)
+    rt_thread.start()
     lib = _build.load_library()
     log(f"phase 1: kernels built/loaded in {time.perf_counter() - t0:.2f} s "
         f"({lib._name})")
+    rt_thread.join()
+    if "error" in rt_built:
+        raise rt_built["error"]
+    log(f"phase 1: host runtime built/loaded in {rt_built['s']:.2f} s "
+        f"({rt_built['lib']._name}), CRC32C instruction "
+        f"{rt_bindings.crc32c_hw_ok()}")
     ptxas = _build.BUILD_ROOT / _build.source_hash() / "ptxas.log"
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
@@ -1043,6 +1184,12 @@ def main() -> int:
         "782,762 B; bps 1/2/3 growth "
         "from 1 plane gives 1/2/3 planes and 18/39/58 B, equal to the CPU, "
         "exact round trips")
+
+    # phase 13: the host runtime against its plain versions
+    check_runtime({
+        "main": (comp, 3, 0, plane_len),
+        "Hadamard": (c_had, 3, 3 * ch, ch * n3),
+        "hzr": (c_hzr, 4, 0, plane_len)}, hist_m, plane_len)
 
     # phase 4: timings at main-path shapes
     x = main_x

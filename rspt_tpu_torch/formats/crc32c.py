@@ -3,14 +3,17 @@
 Convention: init 0xFFFFFFFF, process reflected, final xor 0xFFFFFFFF —
 matching the reference's table fallback (lib_rspt/lib_hzr/hzr_crc32c.c:76-84).
 
-The port's own copy of rspt_tpu/formats/crc32c.py (the port imports
-nothing of rspt_tpu). It is the slice-by-8 spec in numpy; a native or
-device CRC is later work (ROADMAP.md).
+``crc32c`` runs in the port's host runtime (rspt_tpu_torch/native: the
+CPU's CRC32C instruction when it has one). ``crc32c_plain`` is the
+port's own copy of rspt_tpu/formats/crc32c.py, the slice-by-8 spec in
+numpy, kept as the oracle.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..native import bindings as _native
 
 _POLY = 0x82F63B78
 
@@ -35,7 +38,13 @@ for _j in range(1, 8):
 
 
 def crc32c(data, crc: int = 0) -> int:
-    """CRC32C of ``data`` (bytes-like or uint8 ndarray)."""
+    """CRC32C of ``data`` (bytes-like or uint8 ndarray); ``crc`` is the
+    CRC32C of the bytes before it."""
+    return _native.crc32c(data, crc)
+
+
+def crc32c_plain(data, crc: int = 0) -> int:
+    """crc32c in numpy, slice-by-8."""
     buf = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8) \
         if not isinstance(data, np.ndarray) else data.astype(np.uint8, copy=False)
     c = np.uint32(~np.uint32(crc) & 0xFFFFFFFF)

@@ -10,11 +10,14 @@ lanes' literal emissions (``outc << 9 | byte``) are then written to
 their output bytes by one ``place_literals`` launch, which takes the
 place of the TPU's K7-K9 placement chain.
 
-Host half (own copies of pallas_decoder.py): the stream walk
-(``walk.walk_stream``), the 8-bit-root + 4-bit nibble-level LUTs
-(``build_lut_nib``), the lane layout shared with encode-side hints
-(``lane_rows``), the kernel's input arrays (``lane_arrays``) and the
-decode-hints registry with its per-digest cross-check. COPY and FILL
+Host half (own copies of pallas_decoder.py): the light stream walk
+(``walk.walk_stream(..., light=True)``), the 8-bit-root + 4-bit
+nibble-level LUTs of every HUFF block recovered from its payload bits in
+one call of the host runtime (``native.lut_nib_batch``; ``build_lut_nib``
+of a tree from the full walk is the plain version), the lane layout
+shared with encode-side hints (``lane_rows``), the kernel's input
+arrays (``lane_arrays``) and the decode-hints registry with its
+per-digest cross-check. COPY and FILL
 blocks resolve on the host; every HUFF block decodes on the device.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..native import bindings as native
 from ..ops import cuda_kernels as ck
 from ..ops.cuda_kernels import SEG_PER_BLOCK
 from .walk import walk_stream
@@ -278,7 +282,7 @@ def lane_arrays(dev) -> LaneArrays:
     out_off = np.zeros(nl, np.int32)
     out_limit = np.zeros(nl, np.int32)
     lane_block = np.full(nl, -1, np.int32)
-    firsts = {}
+    firsts, frames = {}, {}
     for r, (bi, seg_lo) in enumerate(rows):
         if bi < 0:
             continue
@@ -303,13 +307,14 @@ def lane_arrays(dev) -> LaneArrays:
         # exit; dead tail lanes stay pinned, or neighbour exits would
         # walk down the dead tail one lane per sweep (~128 sweeps)
         first[r, 1 if seg_lo == 0 else 0:nj] = 0
-        # per-lane word windows through one strided view
-        need = (dbits // 32) + nseg * segw + wseg + 2
-        pw = np.zeros(need * 4, np.uint8)
-        pw[:payload.size] = payload
-        wsrc = pw.view("<u4").view(np.int32)
-        frames = np.lib.stride_tricks.sliding_window_view(wsrc, wseg)
-        win[:, r, :nj] = frames[e0 >> 5].T
+        # per-lane word windows through one strided view of the block
+        if bi not in frames:
+            need = (dbits // 32) + nseg * segw + wseg + 2
+            pw = np.zeros(need * 4, np.uint8)
+            pw[:payload.size] = payload
+            frames[bi] = np.lib.stride_tricks.sliding_window_view(
+                pw.view("<u4").view(np.int32), wseg)
+        win[:, r, :nj] = frames[bi][e0 >> 5].T
         li = r * 128
         lane_live[li:li + nj] = True
         lane_block[li:li + nj] = bi
@@ -355,7 +360,7 @@ def lane_out_base(counts: torch.Tensor, lane_live: torch.Tensor,
 # Orchestrator
 # ---------------------------------------------------------------------------
 
-def _walk_all(datas):
+def _walk_all(datas, light: bool = False):
     srcs = [np.frombuffer(memoryview(d).cast("B"), np.uint8)
             if not isinstance(d, np.ndarray) else d.reshape(-1)
             for d in datas]
@@ -370,23 +375,27 @@ def _walk_all(datas):
     out = np.zeros(total, np.uint8)
     huff = []
     for src, (gstart, ssize) in zip(srcs, spans):
-        walk_stream(src, ssize, gstart, out, huff)
+        walk_stream(src, ssize, gstart, out, huff, light)
     return spans, out, huff
 
 
 def _device_blocks(huff):
-    """Every HUFF block with its LUTs, and the parts of the hints
-    digest. The kernel covers every legal block: one indexed load per
-    nibble level, whatever a level's chunk count, so no block is routed
-    to a host decoder on cost (the JAX decoder routes dense trees away
-    because its lookup sweeps 128-entry chunks)."""
+    """Every HUFF block with its LUTs and description bits from the host
+    runtime (one batch call), and the parts of the hints digest. A walk
+    that recovered the trees (description bits >= 0) must agree with
+    the runtime's bits. The kernel covers every legal block: one
+    indexed load per nibble level, whatever a level's chunk count, so
+    no block is routed to a host decoder on cost (the JAX decoder
+    routes dense trees away because its lookup sweeps 128-entry
+    chunks)."""
+    luts, nat_dbits = native.lut_nib_batch([h[0] for h in huff])
     dev, digest_parts = [], []
-    for payload, pbits, dbits, ooff, olen, tree, crc in huff:
-        lut = build_lut_nib(tree)
-        if lut is None:
-            raise ValueError("hzr: a code longer than 24 bits")
-        digest_parts.append((crc, payload.size, dbits, ooff, olen))
-        dev.append((payload, pbits, dbits, ooff, olen) + lut)
+    for (payload, pbits, dbits, ooff, olen, _, crc), lut, nd in zip(
+            huff, luts, nat_dbits.tolist()):
+        if dbits >= 0 and dbits != nd:
+            raise ValueError("hzr: description bits differ from the walk's")
+        digest_parts.append((crc, payload.size, nd, ooff, olen))
+        dev.append((payload, pbits, nd, ooff, olen) + lut)
     return dev, digest_parts
 
 
@@ -403,7 +412,7 @@ def decode_device(datas, device=None, hints=None, return_hints=False):
     global _hints_disabled
     device = resolve_device(device)
     t0 = time.perf_counter()
-    spans, out, huff = _walk_all(datas)
+    spans, out, huff = _walk_all(datas, light=True)
     dev, digest_parts = _device_blocks(huff)
     info = dict(tiles=0, lanes=0, steps=[], fp_iters=[], literals=0,
                 device_blocks=len(dev), hinted=False)

@@ -4,9 +4,10 @@ rspt_tpu/hzr/pyref.py it needs (the port imports nothing of rspt_tpu).
 Kept: the greedy Huffman build with the reference's exact tie-breaking
 (hzr_encode.c:222-283), the preorder tree serialization
 (hzr_encode.c:177-219), LSB-first bit packing, the FILL-class test
-(hzr_encode.c:285-305) and the sequential block decoder
-(hzr_decode.c:263-674). Pure Python/numpy: a native host runtime is
-later work (ROADMAP.md).
+(hzr_encode.c:285-305), the sequential block decoder
+(hzr_decode.c:263-674) and hzr_verify (hzr_decode.c:569-624). Pure
+Python/numpy: the plain versions that the port's host runtime
+(rspt_tpu_torch/native) is held against.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..formats.crc32c import crc32c_plain
 from ..formats.hzr_constants import (
     BLOCK_HEADER_SIZE,
     ENCODING_COPY,
@@ -300,3 +302,36 @@ def decode(data, expected_size: Optional[int] = None) -> bytes:
         left -= blk
     return b"".join(chunks)
 
+
+def decoded_size(data) -> int:
+    src = memoryview(bytes(data) if isinstance(data, np.ndarray) else data).cast("B")
+    return int.from_bytes(src[0:4], "little")
+
+
+def verify(data) -> int:
+    """hzr_verify equivalent: walk blocks and check CRC32C
+    (reference: hzr_decode.c:569-624). Returns decoded size; raises on error."""
+    src = memoryview(bytes(data) if isinstance(data, np.ndarray) else data).cast("B")
+    if len(src) < HEADER_SIZE:
+        raise ValueError("hzr: input too small")
+    out_size = int.from_bytes(src[0:4], "little")
+    pos = HEADER_SIZE
+    left = out_size
+    while left > 0:
+        blk = min(left, MAX_BLOCK_SIZE)
+        if pos + BLOCK_HEADER_SIZE > len(src):
+            raise ValueError("hzr: truncated block header")
+        encoded_size = int.from_bytes(src[pos:pos + 2], "little") + 1
+        expected_crc = int.from_bytes(src[pos + 2:pos + 6], "little")
+        mode = src[pos + 6]
+        if mode > ENCODING_FILL:
+            raise ValueError("hzr: unsupported encoding")
+        payload = src[pos + BLOCK_HEADER_SIZE:pos + BLOCK_HEADER_SIZE + encoded_size]
+        if crc32c_plain(np.frombuffer(payload, np.uint8)) != expected_crc:
+            raise ValueError("hzr: CRC32C mismatch")
+        if mode == ENCODING_FILL:
+            pos += BLOCK_HEADER_SIZE + 1
+        else:
+            pos += BLOCK_HEADER_SIZE + encoded_size
+        left -= blk
+    return out_size

@@ -1,11 +1,13 @@
 """hzr two-pass encoder around the CUDA kernels (counterpart of
 rspt_tpu/hzr/jax_coder.py).
 
-Host half (own copies of jax_coder.py:541-582, 740-788, 856-936 and the
-fallback build_block_tables :211-229): block splitting, per-block
-Huffman tables from the histograms, the exact stream layout those
-imply, and the final assembly (7-byte block headers, CRC32C, COPY and
-FILL fallbacks, the reference's output-capacity rule).
+Host half (own copies of jax_coder.py:541-582, 740-788, 856-936 and
+build_block_tables :211-229): block splitting, per-block Huffman tables
+from the histograms (the host runtime's table builder, rspt_tpu_torch/
+native; ``host_tables_plain`` is the Python oracle), the exact stream
+layout those imply, and the final assembly (7-byte block headers, the
+runtime's CRC32C, COPY and FILL fallbacks, the reference's
+output-capacity rule).
 
 Device half, two pack designs:
 - ``pack_tokens_flat``, the flat exact-offset pack
@@ -55,6 +57,7 @@ from ..formats.hzr_constants import (
     NUM_SYMBOLS,
     SYMBOL_SIZE,
 )
+from ..native import bindings as native
 from ..ops import cuda_kernels as ck
 from ..ops import torch_ops as tops
 from . import pyref, sidecar
@@ -88,7 +91,25 @@ def build_block_tables(hist: np.ndarray):
 
 
 def host_tables(hist_np: np.ndarray, lengths_np: np.ndarray):
-    """Per-block code LUTs, packed tree descriptions and FILL flags."""
+    """Per-block code LUTs, packed tree descriptions and FILL flags:
+    (codes, cbits, desc_bytes, desc_bits, is_fill), built in the host
+    runtime's threads. An empty block is FILL."""
+    codes, cbits, desc_bytes, desc_bits, is_fill = native.build_tables(
+        hist_np, DESC_STRIDE)
+    is_fill |= np.asarray(lengths_np) == 0
+    _check_code_bits(cbits)
+    return codes, cbits, desc_bytes, desc_bits, is_fill
+
+
+def _check_code_bits(cbits: np.ndarray) -> None:
+    # the combined code | cbits << 24 LUT word needs cbits <= 23 — the
+    # Huffman depth over <= 64Ki+261 weights is Fibonacci-bounded there
+    if cbits.size and int(cbits.max()) > 23:
+        raise ValueError("hzr: pathological code length")
+
+
+def host_tables_plain(hist_np: np.ndarray, lengths_np: np.ndarray):
+    """host_tables one block at a time in Python (pyref's tree)."""
     nb = hist_np.shape[0]
     codes = np.zeros((nb, NUM_SYMBOLS), np.uint32)
     cbits = np.zeros((nb, NUM_SYMBOLS), np.int32)
@@ -105,10 +126,7 @@ def host_tables(hist_np: np.ndarray, lengths_np: np.ndarray):
             continue
         codes[i], cbits[i], db, desc_bits[i] = t
         desc_bytes[i, :db.size] = db
-    # the combined code | cbits << 24 LUT word needs cbits <= 23 — the
-    # Huffman depth over <= 64Ki+261 weights is Fibonacci-bounded there
-    if cbits.size and int(cbits.max()) > 23:
-        raise ValueError("hzr: pathological code length")
+    _check_code_bits(cbits)
     return codes, cbits, desc_bytes, desc_bits, is_fill
 
 

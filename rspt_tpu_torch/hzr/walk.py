@@ -1,10 +1,13 @@
 """Host walk of hzr streams for the device decoder (the port's copy of
-rspt_tpu/hzr/jax_decoder.py:319-356, ``_walk_stream``).
+rspt_tpu/hzr/jax_decoder.py:319-393, ``_walk_stream`` and its light
+form ``_walk_stream_light``).
 
 COPY and FILL blocks are resolved straight into the output; every
-HUFF+RLE block has its tree recovered (the port's pyref) and is queued
-for the device as (payload, payload bits, description bits, output
-offset, output length, tree, stored CRC32C).
+HUFF+RLE block is queued for the device as (payload, payload bits,
+description bits, output offset, output length, tree, stored CRC32C).
+The light walk, the decoder's, leaves the tree to the host runtime's
+LUT builder (description bits -1, tree None); the full walk recovers
+each tree in Python (pyref), the plain version.
 """
 
 from __future__ import annotations
@@ -23,11 +26,11 @@ from . import pyref
 
 
 def walk_stream(src: np.ndarray, out_size: int, gbase: int, out: np.ndarray,
-                huff: list) -> None:
+                huff: list, light: bool = False) -> None:
     """Walk one stream's blocks; its output starts at ``out[gbase]``.
 
     The stored CRC32C field (hzr_encode.c:474-481) rides along as a
-    content digest for binding decode hints."""
+    content digest for binding decode hints. light: recover no tree."""
     pos = HEADER_SIZE
     left = out_size
     out_off = gbase
@@ -52,11 +55,14 @@ def walk_stream(src: np.ndarray, out_size: int, gbase: int, out: np.ndarray,
             if dstart + esz > src.size:
                 raise ValueError("hzr: truncated block")
             payload = src[dstart:dstart + esz]
-            br = pyref._BitReader(memoryview(payload.tobytes()), 0,
-                                  payload.size)
-            tree = pyref._recover_tree(br)
+            dbits, tree = -1, None
+            if not light:
+                br = pyref._BitReader(memoryview(payload.tobytes()), 0,
+                                      payload.size)
+                tree = pyref._recover_tree(br)
+                dbits = br.pos
             crc = int.from_bytes(src[pos + 2:pos + 6].tobytes(), "little")
-            huff.append((payload, payload.size * 8, br.pos, out_off, blen,
+            huff.append((payload, payload.size * 8, dbits, out_off, blen,
                          tree, crc))
             pos = dstart + esz
         else:

@@ -1,0 +1,197 @@
+"""ctypes bindings of the port's host runtime (``rspt_torch_native.cpp``).
+
+Each function computes what its plain Python version computes, byte for
+byte: ``crc32c`` as ``formats.crc32c.crc32c_plain``, ``build_tables``
+as ``hzr.torch_coder.host_tables_plain``, the decoders as
+``hzr.pyref.decode``, ``verify`` as ``hzr.pyref.verify`` and
+``lut_nib_batch`` as ``hzr.gpu_decoder.build_lut_nib`` of
+``hzr.pyref._recover_tree``. Bad input raises ValueError, as the plain
+versions do. The library is built on the first call (``_build``); a
+failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Tuple
+
+import numpy as np
+
+from ..formats.hzr_constants import BLOCK_HEADER_SIZE, HEADER_SIZE, \
+    MAX_BLOCK_SIZE, NUM_SYMBOLS
+from . import _build
+
+NIB_LEVELS = 4        # 4-bit levels past the 8-bit root LUT
+NIB_CAP_SLOTS = 260   # slots a level can need: a tree has < 260 branches
+NIB_CHUNK = 64        # blocks a LUT batch call: 4.3 MB of slot scratch
+
+_P = ctypes.c_void_p
+_SZ = ctypes.c_size_t
+_I = ctypes.c_int
+_SIGNATURES = {
+    "rpt_crc32c": (ctypes.c_uint32, [_P, _SZ, ctypes.c_uint32]),
+    "rpt_crc32c_sw": (ctypes.c_uint32, [_P, _SZ, ctypes.c_uint32]),
+    "rpt_crc32c_hw_ok": (_I, []),
+    "rpt_hzr_decode": (_I, [_P, _SZ, _P, _SZ, _P]),
+    "rpt_hzr_verify": (_I, [_P, _SZ, _P]),
+    "rpt_hzr_decode_blocks_mt": (_I, [_P, _SZ, _P, _SZ, _I]),
+    "rpt_decode_planes_blocks_mt": (_I, [_P, _SZ, _I, _SZ, _P, _P, _I]),
+    "rpt_build_tables": (_I, [_P, _I, _P, _P, _P, _SZ, _P, _P, _I]),
+    "rpt_declutnib_batch": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                 _I]),
+}
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library()
+    for name, (res, args) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def _u8(data) -> np.ndarray:
+    """A contiguous uint8 view of bytes-like data (an ndarray's values
+    taken as uint8)."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data.astype(np.uint8, copy=False)
+                                    .reshape(-1))
+    return np.frombuffer(memoryview(data).cast("B"), np.uint8)
+
+
+def _p(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C of ``data``; ``crc`` is the CRC32C of the bytes before it,
+    so that crc32c(b, crc32c(a)) == crc32c(a + b)."""
+    buf = _u8(data)
+    return int(_lib().rpt_crc32c(_p(buf), buf.size, crc & 0xFFFFFFFF))
+
+
+def crc32c_sw(data, crc: int = 0) -> int:
+    """crc32c through the software slice-by-8 loop alone (for tests)."""
+    buf = _u8(data)
+    return int(_lib().rpt_crc32c_sw(_p(buf), buf.size, crc & 0xFFFFFFFF))
+
+
+def crc32c_hw_ok() -> bool:
+    """True when crc32c runs on the CPU's CRC32C instruction."""
+    return bool(_lib().rpt_crc32c_hw_ok())
+
+
+def build_tables(hists: np.ndarray, desc_stride: int):
+    """Per-block Huffman tables of (nb, 261) histograms, in threads.
+
+    Returns (codes u32 (nb, 261), cbits i32 (nb, 261), desc_bytes u8
+    (nb, desc_stride), desc_bits i32 (nb,), is_fill bool (nb,)); a FILL
+    block (one code class, or no symbol at all) has zero tables."""
+    h = np.ascontiguousarray(hists, np.uint32).reshape(-1, NUM_SYMBOLS)
+    nb = h.shape[0]
+    codes = np.zeros((nb, NUM_SYMBOLS), np.uint32)
+    cbits = np.zeros((nb, NUM_SYMBOLS), np.int32)
+    desc_bytes = np.zeros((nb, desc_stride), np.uint8)
+    desc_bits = np.zeros(nb, np.int32)
+    is_fill = np.zeros(nb, np.uint8)
+    if _lib().rpt_build_tables(_p(h), nb, _p(codes), _p(cbits),
+                               _p(desc_bytes), desc_stride, _p(desc_bits),
+                               _p(is_fill), 0):
+        raise ValueError("hzr: a tree description passes desc_stride")
+    return codes, cbits, desc_bytes, desc_bits, is_fill.astype(bool)
+
+
+def _stream_size(buf: np.ndarray) -> int:
+    """The stream's decoded size, checked against what its bytes can
+    hold (a block takes >= 8 bytes and gives <= 64 KiB)."""
+    if buf.size < HEADER_SIZE:
+        raise ValueError("hzr: input too small")
+    total = int.from_bytes(buf[:HEADER_SIZE].tobytes(), "little")
+    if -(-total // MAX_BLOCK_SIZE) > (buf.size - HEADER_SIZE) // (
+            BLOCK_HEADER_SIZE + 1):
+        raise ValueError("hzr: truncated stream")
+    return total
+
+
+def hzr_decode(data) -> bytes:
+    """hzr_decode of one stream, block after block."""
+    buf = _u8(data)
+    total = _stream_size(buf)
+    out = np.empty(max(total, 1), np.uint8)
+    if _lib().rpt_hzr_decode(_p(buf), buf.size, _p(out), total, None):
+        raise ValueError("hzr: corrupt or truncated stream")
+    return out[:total].tobytes()
+
+
+def hzr_decode_blocks(data) -> bytes:
+    """hzr_decode of one stream, its blocks decoded in threads."""
+    buf = _u8(data)
+    total = _stream_size(buf)
+    out = np.empty(max(total, 1), np.uint8)
+    if _lib().rpt_hzr_decode_blocks_mt(_p(buf), buf.size, _p(out), total, 0):
+        raise ValueError("hzr: corrupt or truncated stream")
+    return out[:total].tobytes()
+
+
+def decode_planes_blocks(src, nplanes: int, plane_len: int
+                         ) -> Tuple[np.ndarray, int]:
+    """A container's plane section — nplanes times [u32 length][hzr
+    stream of plane_len bytes] — decoded with every plane's blocks in
+    threads. Returns ((nplanes, plane_len) uint8, bytes consumed)."""
+    buf = _u8(src)
+    planes = np.empty((nplanes, plane_len), np.uint8)
+    consumed = ctypes.c_size_t(0)
+    if _lib().rpt_decode_planes_blocks_mt(
+            _p(buf), buf.size, nplanes, plane_len, _p(planes),
+            ctypes.addressof(consumed), 0):
+        raise ValueError("hzr: corrupt or truncated plane streams")
+    return planes, consumed.value
+
+
+def verify(data) -> int:
+    """hzr_verify: every block's stored CRC32C checked. Returns the
+    decoded size; raises ValueError on a mismatch or a bad stream."""
+    buf = _u8(data)
+    size = ctypes.c_size_t(0)
+    if _lib().rpt_hzr_verify(_p(buf), buf.size, ctypes.addressof(size)):
+        raise ValueError("hzr: CRC32C mismatch or bad stream")
+    return size.value
+
+
+def lut_nib_batch(payloads) -> Tuple[List[tuple], np.ndarray]:
+    """The device decoder's LUTs of HUFF block payloads, each tree
+    recovered from the payload bits, in threads.
+
+    Returns (luts, dbits): luts[i] = (l1 (256,) int32, levels, chunks)
+    in build_lut_nib's layout (levels[k] the (nslots_k * 16,) int32
+    slots of nibble level k, chunks[k] = ceil(nslots_k * 16 / 128));
+    dbits[i] the tree description's bits. The work goes in batches of
+    NIB_CHUNK blocks, so the slot scratch stays bounded. Raises
+    ValueError on a bad tree or a code longer than 24 bits."""
+    lib = _lib()
+    nb = len(payloads)
+    luts: List[tuple] = []
+    dbits = np.zeros(nb, np.int32)
+    for lo in range(0, nb, NIB_CHUNK):
+        part = [_u8(p) for p in payloads[lo:lo + NIB_CHUNK]]
+        m = len(part)
+        lens = np.array([p.size for p in part], np.int64)
+        offs = np.cumsum(lens) - lens
+        buf = np.concatenate(part) if m else np.zeros(0, np.uint8)
+        l1 = np.zeros((m, 256), np.int32)
+        lv = np.zeros((m, NIB_LEVELS, NIB_CAP_SLOTS, 16), np.int32)
+        nslots = np.zeros((m, NIB_LEVELS), np.int32)
+        ok = np.zeros(m, np.int32)
+        lib.rpt_declutnib_batch(_p(buf), _p(offs), _p(lens), m, _p(l1),
+                                _p(lv), _p(nslots), _p(dbits[lo:]), _p(ok),
+                                NIB_CAP_SLOTS, 0)
+        if ok.any():
+            raise ValueError("hzr: bad tree or a code longer than 24 bits")
+        for i in range(m):
+            levels = [lv[i, k, :nslots[i, k]].reshape(-1).copy()
+                      for k in range(NIB_LEVELS)]
+            luts.append((l1[i].copy(), levels,
+                         [-(-lev.size // 128) for lev in levels]))
+    return luts, dbits

@@ -14,8 +14,9 @@ compress, device passes with host work between them:
       payload words (and of the raw plane bytes of COPY blocks).
   host: tree descriptions OR-merged, headers, CRC32C, concatenation.
 
-decompress decodes each plane's hzr stream on the host (the port's
-pyref copy) or, with device_decode, all planes' HUFF blocks in one
+decompress decodes every plane's hzr stream on the host, all blocks of
+all planes in one call of the port's host runtime (rspt_tpu_torch/
+native), or, with device_decode, all planes' HUFF blocks in one
 device decode (hzr/gpu_decoder.py: hzr_decode + place_literals), then
 merges planes and undoes the packer's preprocessing as torch ops (and
 fwht) on the packer's device. decompress_many puts every payload's
@@ -34,8 +35,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..hzr import gpu_decoder, pyref
+from ..hzr import gpu_decoder
 from ..hzr import torch_coder as tc
+from ..native import bindings as native
 from ..ops import cuda_kernels as ck
 from ..ops import torch_ops as tops
 
@@ -107,7 +109,7 @@ class _GpuPackerBase:
         self.cfg = PackerConfig(bytes_per_sample, nr_channels, nr_samples)
         self.device = resolve_device(device)
         # entropy-decode on the device (hzr_decode + place_literals)
-        # instead of the host's pyref copy
+        # instead of the host runtime
         self.device_decode = device_decode
         self.header_size = 0
         # what the last device decode did (gpu_decoder.decode_device)
@@ -161,18 +163,25 @@ class _GpuPackerBase:
         self.stage_seconds.update(info["times"])
         return out.reshape(len(streams), n), h
 
-    def _decode_planes(self, streams) -> torch.Tensor:
-        """(nr_planes, plane_len) uint8 planes on the device, decoded on
-        the device (device_decode) or on the host."""
+    def _decode_planes(self, comp) -> Tuple[bytes, torch.Tensor, int]:
+        """The container's header, its (nr_planes, plane_len) uint8
+        planes on the device and the bytes it spans, decoded on the
+        device (device_decode) or on the host: every plane's blocks in
+        one call of the host runtime (tpu.py:711-720)."""
         if self.device_decode:
-            return self._decode_device(streams)[0]
-        n = self.cfg.plane_len
+            header, streams, pos = self._streams(comp, self.nr_planes,
+                                                 self.header_size)
+            return header, self._decode_device(streams)[0], pos
         t0 = time.perf_counter()
-        planes = self._to_dev(np.stack([
-            np.frombuffer(pyref.decode(s, n), np.uint8, count=n)
-            for s in streams]))
+        buf = np.frombuffer(memoryview(comp).cast("B"), np.uint8)
+        if buf[0] != self.METHOD:
+            raise ValueError("unsupported compression method")
+        start = 1 + self.header_size
+        planes, used = native.decode_planes_blocks(
+            buf[start:], self.nr_planes, self.cfg.plane_len)
+        planes = self._to_dev(planes)
         self.stage_seconds["decode"] = time.perf_counter() - t0
-        return planes
+        return buf[1:start].tobytes(), planes, start + used
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
         raise NotImplementedError
@@ -186,9 +195,7 @@ class _GpuPackerBase:
     def decompress(self, comp) -> Tuple[bytes, int]:
         """Returns (native bytes, bytes of comp consumed)."""
         self.stage_seconds = {}
-        header, streams, pos = self._streams(comp, self.nr_planes,
-                                             self.header_size)
-        planes = self._decode_planes(streams)
+        header, planes, pos = self._decode_planes(comp)
         t1 = time.perf_counter()
         out = self._postprocess(planes, header)
         self.stage_seconds["postprocess"] = time.perf_counter() - t1

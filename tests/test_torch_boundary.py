@@ -8,12 +8,15 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from rspt_tpu_torch import packers as gpack  # noqa: E402
 from rspt_tpu_torch.hzr import gpu_decoder, torch_coder  # noqa: E402
+from rspt_tpu_torch.native import _build as native_build  # noqa: E402
+from rspt_tpu_torch.native import bindings as native  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,6 +32,8 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "torch_coder, walk\n"
         "from rspt_tpu_torch.ops import _build, cuda_kernels, torch_ops\n"
         "from rspt_tpu_torch.formats import crc32c, hzr_constants\n"
+        "from rspt_tpu_torch.native import _build as native_build, "
+        "bindings\n"
         "assert torch_coder.encode(b'ab' * 99, device='cpu')[:4] == "
         "(198).to_bytes(4, 'little')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -103,3 +108,67 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_runtime_loaded_is_the_ports():
+    """A process that compresses and decompresses through the port (host
+    and device decode, on the CPU) has the port's runtime library mapped
+    and not the reference's."""
+    code = (
+        "import numpy as np\n"
+        "from rspt_tpu_torch import packers\n"
+        "nat = np.arange(3000, dtype='<i4').tobytes()\n"
+        "p = packers.new_xdelta_hzr(4, 3, 1000, 3, device='cpu')\n"
+        "c = p.compress(nat)\n"
+        "assert p.decompress(c)[0] == nat\n"
+        "d = packers.new_xdelta_hzr(4, 3, 1000, 3, device='cpu', "
+        "device_decode=True)\n"
+        "assert d.decompress(c)[0] == nat\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'librspt_torch_native.so' in maps\n"
+        "assert 'librspt_native.so' not in maps\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("compiler", ["missing", "failing"])
+def test_runtime_build_failure_raises(tmp_path, monkeypatch, compiler):
+    """A build in a fresh directory with a compiler that is not there, or
+    that fails, raises RuntimeError: from build() and from the first
+    load."""
+    cxx = {"missing": str(tmp_path / "no-such-g++"),
+           "failing": shutil.which("false") or "/bin/false"}[compiler]
+    with pytest.raises(RuntimeError):
+        native_build.build(tmp_path / "direct", cxx)
+    monkeypatch.setattr(native_build, "BUILD_ROOT", tmp_path / "root")
+    monkeypatch.setattr(native_build, "CXX", cxx)
+    native_build.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError):
+            native_build.load_library()
+    finally:
+        native_build.load_library.cache_clear()
+    assert not list((tmp_path / "root").glob("*/*.so"))
+
+
+@pytest.mark.parametrize("path", ["compress", "decompress", "device_decode",
+                                  "encode"])
+def test_no_python_fallback(monkeypatch, path):
+    """When the runtime cannot be had, the main path raises: no entry
+    point falls back to the Python versions."""
+    nat = np.arange(3000, dtype="<i4").tobytes()
+    p = gpack.new_xdelta_hzr(4, 3, 1000, 3, device="cpu",
+                             device_decode=path == "device_decode")
+    comp = p.compress(nat) if path != "compress" else None
+
+    def unavailable():
+        raise RuntimeError("runtime unavailable")
+
+    monkeypatch.setattr(native, "_lib", unavailable)
+    with pytest.raises(RuntimeError, match="runtime unavailable"):
+        if path == "compress":
+            p.compress(nat)
+        elif path == "encode":
+            torch_coder.encode(nat, device="cpu")
+        else:
+            p.decompress(comp)
