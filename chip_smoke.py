@@ -19,7 +19,11 @@ windows routes of the flat pack on the main pass 1.
 
 Phases: 1 build (the kernels with nvcc and the host runtime,
 rspt_tpu_torch/native, with g++, at once); 2 encode kernels vs plain on
-every chain (pack_flat_lanes too; group_windows, place_windows_aligned and windows_place_flat, with both
+every chain, xdelta_swizzle also on the main signal's native bytes at
+bps 1-4, on the edges of its tiles, bands, loads and flag
+(tests/test_torch_cuda.py's xdelta_edge_batch) and in 100 calls
+alternating passing and failing inputs (its flag state resets)
+(pack_flat_lanes too; group_windows, place_windows_aligned and windows_place_flat, with both
 windows routes' payload bytes equal to pack_flat's), compact_tokens on
 the edges of its tile split and look-back (tests/test_torch_cuda.py's
 compact_edge_batch), tokenize_planes on the edges of its tiles
@@ -29,7 +33,8 @@ the edges of their tiles and look-back (pack_flat_edge_batch: blocks of
 token spanning the word two tiles share, segment boundaries crossed by a
 tile's first token and by a block's last, nwords one word short, tokc
 cut inside a block, overlapping blocks, 1,080-1,152 tiles); 3 compress /
-host-decode decompress; 5 decode kernels (hzr_decode, place_literals)
+host-decode decompress, and a pass 1 at bps 2 and 3 (one xdelta_swizzle
+on the native bytes, no elementwise kernel or fill beside it); 5 decode kernels (hzr_decode, place_literals)
 vs plain at the main-path shape and on edge inputs (rank_edge_payloads: a block across every CTA of
 a tile's cluster, padding rows between blocks; trusted and not),
 place_literals also on the word-store edges of place_edge_batch; 6
@@ -54,10 +59,13 @@ build_tables on the main pass 1's histograms, decode_planes_blocks on
 the main, Hadamard and hzr containers, lut_nib_batch on the main
 decode's 14 HUFF blocks), each equal, with both times; 4, last,
 times each kernel's call (profiler device time of every device operation
-of the wrapper's call: kernels, memsets, copies) beside its bound, its
+of the wrapper's call: kernels, memsets, copies; xdelta_swizzle on the
+'<i4' words and on 16-bit native bytes, each one device operation a
+call) beside its bound, its
 plain version and a library yardstick (tokenize_planes in turns with
 bincount, compact_tokens with masked_select, place_literals with
-index_put_; fwht, pack_blocks and pack_blocks_tokw as medians of 5
+index_put_; both xdelta_swizzle rows, fwht, pack_blocks and
+pack_blocks_tokw as medians of 5
 rounds beside their rounds), hzr_decode's and fwht's clusters,
 tokenize_planes', pack_flat's and pack_blocks' working blocks, and the
 host stages and wall times of every path (the Hadamard path, encode and
@@ -147,10 +155,7 @@ def cuda_ms(fn, reps=REPS, warm=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS, kernel=None):
-    """Device time per call from torch.profiler's CUDA activity: the
-    median of the kernel named `kernel`, else the sum of every device
-    activity of the call. None if the profiler saw no device activity."""
+def _device_events(fn, reps):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -158,13 +163,36 @@ def device_ms(fn, reps=REPS, kernel=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and (kernel is None or kernel in e.name)]
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def device_ms(fn, reps=REPS, kernel=None):
+    """Device time per call from torch.profiler's CUDA activity: the
+    median of the kernel named `kernel`, else the sum of every device
+    activity of the call. None if the profiler saw no device activity."""
+    evs = [e for e in _device_events(fn, reps)
+           if kernel is None or kernel in e.name]
     if not evs:
         return None
     us = [e.time_range.elapsed_us() for e in evs]
     return (statistics.median(us) if kernel else sum(us) / reps) / 1e3
+
+
+def device_op_names(fn, reps=5):
+    """The distinct names of the device operations (kernels, memsets,
+    copies) of reps calls, in the order they first ran. The profiler may
+    drop an event, never add one."""
+    return list(dict.fromkeys(e.name for e in _device_events(fn, reps)))
+
+
+def device_ops(fn, reps=30):
+    """The device operations of reps calls from the profiler's CUDA
+    activity: (their distinct names, operations a call). The profiler may
+    drop an event, never add one."""
+    evs = _device_events(fn, reps)
+    return sorted({e.name for e in evs}), len(evs) / reps
 
 
 def wall_times(fn, reps=3):
@@ -672,6 +700,39 @@ def main() -> int:
                 sh = 32 - 8 * planes
                 flags[f"bps{bps}/{sname}/p{planes}"] = (
                     int(got[1]), bool((((enc << sh) >> sh) == enc).all()))
+    # xdelta_swizzle: the native bytes of the main signal at bps 1-4,
+    # every plane count; the edge batch; 100 calls on one flag state
+    for bps in (1, 2, 3, 4):
+        u8 = torch.from_numpy(np.frombuffer(to_native(
+            sig >> (32 - 8 * bps), bps), np.uint8).copy()).to(dev)
+        for planes in range(1, 5):
+            equal(f"u8 bps{bps}/p{planes}/xdelta_swizzle",
+                  ck.xdelta_swizzle(u8, ns, ch, planes, bps),
+                  ck.xdelta_swizzle_plain(u8, ns, ch, planes, bps, True))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    xd_tile = ck._lib().rspt_xdelta_tile(ns, ch)
+    if (ck._lib().rspt_xdelta_band() != edges.XDELTA_BAND
+            or xd_tile != edges.xdelta_tile(ns, ch, sms)):
+        raise AssertionError("xdelta_swizzle's tile or band differs from "
+                             "the edge batch's")
+    xd_flags = {}
+    for case in edges.XDELTA_EDGE_CASES:
+        for k, (xe, ens, ech, epl, ebps, esw, off) in enumerate(
+                edges.xdelta_edge_batch(np.random.default_rng(120), case,
+                                        sms)):
+            shape = (ens, ech) if esw else (ens * ech, 1)
+            if ck._lib().rspt_xdelta_tile(*shape) != edges.xdelta_tile(
+                    *shape, sms):
+                raise AssertionError(f"xdelta_swizzle {case}[{k}]: tile")
+            t = edges.device_view(xe, off, dev)
+            got = ck.xdelta_swizzle(t, ens, ech, epl, ebps, esw)
+            equal(f"xdelta_swizzle {case}[{k}]", got,
+                  ck.xdelta_swizzle_plain(t, ens, ech, epl, ebps, esw))
+            xd_flags.setdefault(case, []).append(int(got[1]))
+    if any(xd_flags[c] != [0] * len(xd_flags[c])
+           for c in ("fail_first", "fail_last")):
+        raise AssertionError(f"xdelta_swizzle failing cases: {xd_flags}")
+    alt = edges.xdelta_alternating(dev)
     torch.cuda.synchronize()
     if 0 not in chain_groups.values():
         raise AssertionError("no chain without a HUFF block (0 groups)")
@@ -680,6 +741,12 @@ def main() -> int:
                   "bps3/ramp/p1": (1, False), "bps3/ramp/p2": (1, False)}
     if flags != want_flags:
         raise AssertionError(f"xdelta flags at bps < 4: {flags}")
+    log(f"phase 2: xdelta_swizzle bit-exact on the main signal's native "
+        f"bytes at bps 1-4 (planes 1-4; tiles of {xd_tile} samples, "
+        f"{-(-ns // xd_tile)} CTAs on {sms} SMs), on xdelta_edge_batch "
+        f"(bands of {edges.XDELTA_BAND}; flags {xd_flags}) and in "
+        f"{len(alt)} calls "
+        f"alternating passing and failing inputs (flags {''.join(map(str, alt[:8]))}...)")
     log("phase 2: all kernels bit-exact against their plain versions "
         "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
         "tokenize_planes on its tile edges at planes 1-4, "
@@ -730,15 +797,43 @@ def main() -> int:
         raise AssertionError("growth: card and CPU differ")
     if pg.decompress(cg)[0] != native or pg.nr_planes < 2:
         raise AssertionError(f"growth: planes {pg.nr_planes} / round trip")
+    pass1_ops, small_packers = {}, {}
     for bps in (2, 3):
         small = to_native(sig >> (32 - 8 * bps), bps)
         a = packers.new_xdelta_hzr(bps, ch, ns, 2)
         b = packers.new_xdelta_hzr(bps, ch, ns, 2, device="cpu")
+        for k in ck.KERNELS:
+            k.launches = 0
         ca = a.compress(small)
+        torch.cuda.synchronize()
+        if bps == 2:
+            u8_launches = ck.xdelta_swizzle.launches
         if ca != b.compress(small) or a.decompress(ca)[0] != small:
             raise AssertionError(f"bps {bps}: card/CPU or round trip")
+        small_packers[bps] = (a, small)
+        # one pass 1 on the native bytes: its launches, and the device
+        # operations of 5 (no elementwise kernel of native_to_i32, no
+        # fill)
+        raw = a._to_dev(np.frombuffer(small, np.uint8).copy())
+        for k in ck.KERNELS:
+            k.launches = 0
+        a._pass1(raw)
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in ck.KERNELS if k.launches}
+        ops = device_op_names(lambda: a._pass1(raw))
+        pass1_ops[bps] = (got, ops)
+        allowed = ("xdelta_swizzle_kernel", "tokenize_summary_kernel",
+                   "tokenize_planes_kernel", "CatArrayBatchedCopy",
+                   "Memcpy DtoH")
+        if (got != {"xdelta_swizzle": 1, "tokenize_planes": 1}
+                or not any("xdelta_swizzle_kernel" in o for o in ops)
+                or not all(any(a in o for a in allowed) for o in ops)):
+            raise AssertionError(f"bps {bps} pass 1: {got}, {ops}")
     log(f"phase 3: growth 1 -> {pg.nr_planes} planes equal to CPU; bps 2 "
         f"and 3 containers equal to CPU, exact round trips")
+    for bps, (got, ops) in pass1_ops.items():
+        log(f"phase 3: bps {bps} pass 1 on the native bytes: launches {got}; "
+            f"device operations of 5 calls, as first seen: {ops}")
 
     # phase 5: the decode kernels vs their plain versions on the card
     _, main_streams, _ = p._streams(comp, p.nr_planes, 0)
@@ -1192,6 +1287,8 @@ def main() -> int:
         "hzr": (c_hzr, 4, 0, plane_len)}, hist_m, plane_len)
 
     # phase 4: timings at main-path shapes
+    u8_2 = torch.from_numpy(np.frombuffer(to_native(sig >> 16, 2), np.uint8)
+                            .copy()).to(dev)
     x = main_x
     e = x["enc"]
     tokw, hist = x["tokw"], x["hist"]
@@ -1217,6 +1314,15 @@ def main() -> int:
             plain=lambda: ck.xdelta_swizzle_plain(words, ns, ch, 3, 4, True),
             library=None,
             bytes=2 * 4 * n + 4, ops=8 * n),
+        # the native bytes at bps 2, one plane: the flag on
+        "xdelta_swizzle_u8": dict(
+            replaces="rspt_tpu/ops/pallas_kernels.py:1615",
+            source="rspt_tpu_torch/ops/csrc/xdelta.cu",
+            kernel="xdelta_swizzle_kernel",
+            fn=lambda: ck.xdelta_swizzle(u8_2, ns, ch, 1, 2),
+            plain=lambda: ck.xdelta_swizzle_plain(u8_2, ns, ch, 1, 2, True),
+            library=None,
+            bytes=2 * n + 4 * n + 4, ops=10 * n),
         "tokenize_planes": dict(
             replaces="rspt_tpu/ops/pallas_kernels.py:1813",
             source="rspt_tpu_torch/ops/csrc/tokenize.cu",
@@ -1262,7 +1368,8 @@ def main() -> int:
     lit_pos, lit_val = e_pos[lit], (em[lit] & 0xFF).to(torch.uint8)
     n_placed = int(lit.sum())
     lib_out = torch.zeros(dtotal, dtype=torch.uint8, device=dev)
-    launches = {**launches, "hzr_decode": dd_launches["hzr_decode"],
+    launches = {**launches, "xdelta_swizzle_u8": u8_launches,
+                "hzr_decode": dd_launches["hzr_decode"],
                 "place_literals": dd_launches["place_literals"],
                 "pack_flat_lanes": hint_launches["pack_flat_lanes"],
                 "fwht": had_launches["fwht"]}
@@ -1439,9 +1546,18 @@ def main() -> int:
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    # the three kernels redesigned last: device times of the whole call,
+    # K1's device operations a call: its kernel and nothing else
+    k1_ops = {name: device_ops(rows[name]["fn"])
+              for name in ("xdelta_swizzle", "xdelta_swizzle_u8")}
+    log(f"phase 4: device operations of 30 calls (names, a call) {k1_ops}")
+    if any(len(kinds) != 1 or "xdelta_swizzle_kernel" not in kinds[0]
+           or per > 1 for kinds, per in k1_ops.values()):
+        raise AssertionError(f"xdelta_swizzle: {k1_ops}: not one kernel "
+                             "a call")
+    # the kernels redesigned last: device times of the whole call,
     # medians of 5 rounds, beside their rounds
-    for name in ("fwht", "pack_blocks", "pack_blocks_tokw"):
+    for name in ("xdelta_swizzle", "xdelta_swizzle_u8", "fwht",
+                 "pack_blocks", "pack_blocks_tokw"):
         r = rows[name]
         ts = [device_ms(r["fn"]) or cuda_ms(r["fn"]) for _ in range(5)]
         row = next(k for k in kernels if k["name"] == name)
@@ -1473,6 +1589,10 @@ def main() -> int:
     enc_stages = dict(p.stage_seconds)
     dec_s = wall_s(lambda: p.decompress(comp), reps=2)
     dec_stages = dict(p.stage_seconds)
+    for bps, (pk, small) in small_packers.items():
+        sb_s = wall_s(lambda: pk.compress(small))
+        log(f"phase 4: bps {bps} compress {sb_s:.4f} s (median of 3), "
+            f"stages of the last {pk.stage_seconds}")
     log(f"phase 4: host stages, first compress {comp_stages}")
     log(f"phase 4: host stages, compress (last of 3) {enc_stages}")
     log(f"phase 4: host stages, decompress (last of 2) {dec_stages}")

@@ -1,14 +1,17 @@
-"""Design A/B of seven of the port's CUDA kernels on one card.
+"""Design A/B of eight of the port's CUDA kernels on one card.
 
     python3 kernel_ab.py [--rounds 3] [--only hzr_decode.cu,tokenize.cu]
                          [--baseline DIR]
 
-Builds variants of ops/csrc/hzr_decode.cu, tokenize.cu, compact.cu,
-place_literals.cu, pack_flat.cu, fwht.cu and pack_blocks.cu, each the
-committed source with some of its constants (or a line) replaced, into
-one shared library apiece (nvcc, sm_90a, all at once), and times each
-variant at the main path's shapes (the chip_smoke inputs: BASELINE
-config 2's device decode batch for hzr_decode, its xdelta signal for
+Builds variants of ops/csrc/xdelta.cu, hzr_decode.cu, tokenize.cu,
+compact.cu, place_literals.cu, pack_flat.cu, fwht.cu and pack_blocks.cu,
+each the committed source with some of its constants (or a line)
+replaced, into one shared library apiece (nvcc, sm_90a, all at once),
+and times each variant at the main path's shapes (the chip_smoke inputs:
+BASELINE config 2's signal for xdelta_swizzle, as its '<i4' words with 3
+planes and as 16-bit native bytes with 1 plane (the flag on; a source
+without the byte form runs native_to_i32 first, as the packer did before),
+its device decode batch for hzr_decode, its xdelta signal for
 tokenize_planes, its pass 1 for compact_tokens and, compacted, for both
 modes of pack_flat, its device decode's emissions for place_literals,
 config 3's centred rows for fwht, the main payload as one stream for
@@ -172,6 +175,9 @@ _GLOBAL_ATOMICS = {
 PACK = {
     "tile2048_t256": ({}, False),
     "tile4096_t512": ({"kThreads = 256;": "kThreads = 512;"}, False),
+    "tile2048_t512": ({"kTileWords = 4096;": "kTileWords = 2048;",
+                       "kThreads = 256;": "kThreads = 512;"}, False),
+    "tile4096_t1024": ({"kThreads = 256;": "kThreads = 1024;"}, False),
     "tile8192_t1024": ({"kThreads = 256;": "kThreads = 1024;",
                         "kMinCtas = 2;": "kMinCtas = 1;"}, False),
     "two_launches": (_TWO_LAUNCHES, False),
@@ -247,7 +253,41 @@ BLOCKS = {
         "    const long long prefix = rspt::look_back(a.status, g, t, s.total);":
         "    const long long prefix = 0;"}, True),
 }
-TABLES = {"hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
+# xdelta_swizzle: tiles of kTileWords samples (S = 128, 256, 512 at the
+# main path's 12 channels), with 16-byte loads or one word (byte) a load
+# xdelta_swizzle: tiles sized to fill 1 or 2 CTAs an SM (S = 272 or 144
+# samples at the main path's 12 channels), 6 (the default), 2, 4 or 12
+# channels a thread (544, 864, 816 or 288 threads; at 2, S drops to 144),
+# with 16-byte loads or one sample a load
+XDELTA = {
+    "waves1_chunk6": ({}, False),
+    "waves2_chunk6": ({"kMinWaves = 1;": "kMinWaves = 2;"}, False),
+    "waves1_chunk6_scalar": ({"kVector = true;": "kVector = false;"}, False),
+    "waves2_chunk6_scalar": ({"kMinWaves = 1;": "kMinWaves = 2;",
+                              "kVector = true;": "kVector = false;"}, False),
+    "waves1_chunk2": ({"kChunk = 6;": "kChunk = 2;"}, False),
+    "waves1_chunk4": ({"kChunk = 6;": "kChunk = 4;"}, False),
+    "waves1_chunk12": ({"kChunk = 6;": "kChunk = 12;"}, False),
+    # no flag and no ticket: what the flag's atomic costs
+    "diag_no_ticket": ({"  a.check = nr_planes < bps;": "  a.check = 0;"},
+                       True),
+    # the launch alone: every CTA returns at once
+    "diag_empty": ({"  const int tid = threadIdx.x;":
+                    "  if (a.ns > 0) return;\n  const int tid = threadIdx.x;"},
+                   True),
+    # stage A alone (the tile's loads, the halo)
+    "diag_a_only": ({"  __syncthreads();\n\n  // stage B":
+                     "  __syncthreads();\n  if (a.ns > 0) return;\n\n"
+                     "  // stage B"}, True),
+    "diag_no_halo": ({"    for (int u = tid; u < 2 * cb; u += nthreads) {":
+                      "    for (int u = tid; u < 2 * cb && a.ns < 0; "
+                      "u += nthreads) {"}, True),
+    # no output stores
+    "diag_no_stores": ({"      if (cg + q < cb) out[q * a.ns]":
+                        "      if (cg + q < cb && x[q] == 7u) out[q * a.ns]"},
+                       True),
+}
+TABLES = {"xdelta.cu": XDELTA, "hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "compact.cu": COMPACT, "place_literals.cu": PLACE,
           "pack_flat.cu": PACK, "fwht.cu": FWHT, "pack_blocks.cu": BLOCKS}
 
@@ -294,7 +334,9 @@ def build_variants(kernels, out_dir: Path, baseline=None):
 
 def _bind(cu, lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    sigs = {"compact.cu": {"rspt_compact_tiles": [I],
+    sigs = {"xdelta.cu": {"rspt_xdelta_tile": [I, I],
+                          "rspt_xdelta_swizzle": [P] * 4 + [I] * 6 + [P]},
+            "compact.cu": {"rspt_compact_tiles": [I],
                            "rspt_compact_tokens": [P] * 4 + [I] * 4 + [P]},
             "place_literals.cu": {
                 "rspt_place_literals": [P] * 6 + [I] * 3 + [P]},
@@ -311,6 +353,9 @@ def _bind(cu, lib):
                 "rspt_pack_blocks_state": [I, I],
                 "rspt_pack_blocks": [P] * 9 + [I] * 3 + [P],
                 "rspt_pack_blocks_tokw": [P] * 6 + [I] * 3 + [P]}}[cu]
+    if cu == "xdelta.cu" and not hasattr(lib, "rspt_xdelta_tile"):
+        # a source with one thread a word and ok set by the caller
+        sigs = {"rspt_xdelta_swizzle": [P, P, P] + [I] * 6 + [P]}
     if cu == "tokenize.cu" and not hasattr(lib, "rspt_tokenize_tiles"):
         # a source without the summary pass: no scratch argument
         sigs = {"rspt_tokenize_planes": [P] * 4 + [I] * 3 + [P]}
@@ -347,6 +392,7 @@ def main() -> int:
     from rspt_tpu_torch.hzr import gpu_decoder as gd
     from rspt_tpu_torch.hzr import torch_coder as tc
     from rspt_tpu_torch.ops import cuda_kernels as ck
+    from rspt_tpu_torch.ops import torch_ops as tops
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -355,8 +401,10 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     stream = torch.cuda.current_stream().cuda_stream
     ch, ns = 12, 34199
-    _, native = cs.make_ecg(ch, ns)
+    sig, native = cs.make_ecg(ch, ns)
     words = torch.from_numpy(np.frombuffer(native, "<i4").copy()).to(dev)
+    u8_2 = torch.from_numpy(np.frombuffer(cs.to_native(sig >> 16, 2),
+                                          np.uint8).copy()).to(dev)
     x = cs.kernel_inputs(ck, tc, words, ns, ch, 3)
     enc = x["enc"]
     tokw, bases, T = x["tokw"], x["bases"], x["plan"].T
@@ -383,6 +431,28 @@ def main() -> int:
     lit_pos, lit_val = e_pos[lit], (em[lit] & 0xFF).to(torch.uint8)
     lib_out = torch.zeros(total, dtype=torch.uint8, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
+
+    def xdelta(lib, x, planes, bps):
+        """xdelta_swizzle through lib as its wrapper calls it; a source
+        without tickets as the packer called it: ok set to 1 first
+        and, for the native bytes, native_to_i32 before the kernel."""
+        enc = torch.empty(ns * ch, **i32)
+        u8 = x.dtype == torch.uint8
+        if hasattr(lib, "rspt_xdelta_tile"):
+            ok = torch.empty(1, **i32)
+            err = lib.rspt_xdelta_swizzle(
+                x.data_ptr(), enc.data_ptr(), ok.data_ptr(),
+                ck._xdelta_ticket(dev).data_ptr(), ns, ch, int(u8),
+                int(ck._aligned16(x)), planes, bps, stream)
+        else:
+            if u8:
+                x = tops.native_to_i32(x, ns, ch, bps).reshape(-1)
+            ok = torch.ones(1, **i32)
+            err = lib.rspt_xdelta_swizzle(
+                x.data_ptr(), enc.data_ptr(), ok.data_ptr(), ns * ch, ns,
+                ch, int(not u8), planes, bps, stream)
+        assert err == 0, err
+        return enc, ok
 
     def compact(lib):
         nstate = 1 + tokw.shape[0] * lib.rspt_compact_tiles(tokw.shape[1])
@@ -497,6 +567,11 @@ def main() -> int:
 
     only = args.only.split(",")
     kinds = {   # source: [(name, call, plain result, compare form)]
+        "xdelta.cu": [
+            ("xdelta_swizzle", lambda lib: xdelta(lib, words, 3, 4),
+             ck.xdelta_swizzle_plain(words, ns, ch, 3, 4, True), None),
+            ("xdelta_swizzle_u8", lambda lib: xdelta(lib, u8_2, 1, 2),
+             ck.xdelta_swizzle_plain(u8_2, ns, ch, 1, 2, True), None)],
         "hzr_decode.cu": [("hzr_decode", decode,
                            decode_view(ck.hzr_decode_plain(*dargs)),
                            decode_view)],
@@ -530,7 +605,9 @@ def main() -> int:
             _bind(cu, lib)
             for kind, fn, want, view in kinds[cu]:
                 run = (lambda fn=fn, lib=lib: fn(lib))
-                kernel_of[f"{kind}/{name}"] = kind + "_kernel"
+                kernel_of[f"{kind}/{name}"] = (
+                    "xdelta_swizzle_kernel" if kind.startswith("xdelta")
+                    else kind + "_kernel")
                 if name == "baseline" or not TABLES[cu][name][1]:
                     got = run()
                     cs.equal(f"{kind}/{name}", view(got) if view else got,

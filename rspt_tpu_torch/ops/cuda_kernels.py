@@ -11,7 +11,8 @@ version on the same inputs.
 
 Each replaces (rspt_tpu/ops/pallas_kernels.py):
   xdelta_swizzle   K1 xdelta_preprocess_pallas, with the native_to_i32
-                   transpose and the verify-and-grow flag
+                   transpose and byte assembly and the verify-and-grow
+                   flag
   tokenize_planes  K2 tokenize_planes_pallas, with hist_from_tokw
   compact_tokens   K3 compact_tokens_pallas, and X2
                    tools/exp_compact.py:compact_bf, K3 by another route
@@ -67,7 +68,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
-        "rspt_xdelta_swizzle": [P, P, P, I, I, I, I, I, I, P],
+        "rspt_xdelta_tile": [I, I],
+        "rspt_xdelta_band": [],
+        "rspt_xdelta_swizzle": [P] * 4 + [I] * 6 + [P],
         "rspt_tokenize_tiles": [],
         "rspt_tokenize_planes": [P] * 5 + [I] * 3 + [P],
         "rspt_compact_tiles": [I],
@@ -158,10 +161,31 @@ def xdelta_swizzle_plain(x: torch.Tensor, nr_samples: int, nr_channels: int,
                          nr_planes: int, bytes_per_sample: int, swizzle: bool
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     n = nr_samples * nr_channels
-    v = x[:n].reshape(nr_samples, nr_channels).T.reshape(-1) if swizzle \
-        else x[:n]
+    if x.dtype == torch.uint8:
+        v = tops.native_to_i32(x, nr_samples, nr_channels,
+                               bytes_per_sample).reshape(-1)
+    elif swizzle:
+        v = x[:n].reshape(nr_samples, nr_channels).T.reshape(-1)
+    else:
+        v = x[:n]
     enc = tops.xor_encode(tops.offset32(tops.delta_encode(v), -128))
     return enc, _fits_planes(enc, nr_planes, bytes_per_sample)
+
+
+# the kernel's ticket counter for each (device, stream): zeroed once when
+# made, left at 0 by every call (csrc/xdelta.cu)
+_xdelta_tickets = {}
+
+
+def _xdelta_ticket(device: torch.device) -> torch.Tensor:
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    t = _xdelta_tickets.get(key)
+    if t is None:
+        with torch.cuda.device(device):
+            t = torch.zeros(1, dtype=torch.int64, device=device)
+        _xdelta_tickets[key] = t
+    return t
 
 
 def xdelta_swizzle(x: torch.Tensor, nr_samples: int, nr_channels: int,
@@ -171,14 +195,20 @@ def xdelta_swizzle(x: torch.Tensor, nr_samples: int, nr_channels: int,
     channel-major, and the verify-and-grow flag: 1 if nr_planes byte
     planes keep every bytes_per_sample-byte sample (_fits_planes).
 
-    x: int32, the interleaved '<i4' sample words (swizzle=True, bps 4)
-    or the channel-major int32 signal (swizzle=False, after the u8
-    native_to_i32 path for bps < 4). Returns (enc (n,) int32,
-    ok (1,) int32)."""
+    x: the interleaved native bytes [s0c0][s0c1]... as uint8 at
+    bytes_per_sample 1-4 (sign-extended from bit 8·bps − 1, as
+    native_to_i32); or int32: the interleaved '<i4' sample words
+    (swizzle=True) or the channel-major signal (swizzle=False). On the
+    card one kernel and no other device operation. Returns (enc (n,)
+    int32, ok (1,) int32)."""
     n = nr_samples * nr_channels
-    _check(x, "x", torch.int32)
-    if x.dim() != 1 or x.numel() < n or n <= 0 or n >= 2**31:
-        raise ValueError(f"x: need 1-D with >= {n} > 0 words")
+    u8 = x.dtype == torch.uint8
+    _check(x, "x", torch.uint8 if u8 else torch.int32)
+    if u8 and not swizzle:
+        raise ValueError("x: native bytes are interleaved (swizzle)")
+    need = n * bytes_per_sample if u8 else n
+    if x.dim() != 1 or x.numel() < need or n <= 0 or n >= 2**31:
+        raise ValueError(f"x: need 1-D with >= {need} > 0 elements")
     if not 1 <= nr_planes <= 4:
         raise ValueError("nr_planes must be 1..4")
     if not 1 <= bytes_per_sample <= 4:
@@ -186,11 +216,13 @@ def xdelta_swizzle(x: torch.Tensor, nr_samples: int, nr_channels: int,
     if not _on_cuda(x):
         return xdelta_swizzle_plain(x, nr_samples, nr_channels, nr_planes,
                                     bytes_per_sample, swizzle)
+    ns, ch = (nr_samples, nr_channels) if swizzle else (n, 1)
     enc = torch.empty(n, dtype=torch.int32, device=x.device)
-    ok = torch.ones(1, dtype=torch.int32, device=x.device)
+    ok = torch.empty(1, dtype=torch.int32, device=x.device)
     _launch("xdelta_swizzle", _lib().rspt_xdelta_swizzle, x.data_ptr(),
-            enc.data_ptr(), ok.data_ptr(), n, nr_samples, nr_channels,
-            int(swizzle), nr_planes, bytes_per_sample, device=x.device)
+            enc.data_ptr(), ok.data_ptr(), _xdelta_ticket(x.device).data_ptr(),
+            ns, ch, int(u8), int(_aligned16(x)), nr_planes, bytes_per_sample,
+            device=x.device)
     xdelta_swizzle.launches += 1
     return enc, ok
 

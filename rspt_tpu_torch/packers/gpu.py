@@ -3,8 +3,9 @@
 TpuHadamardPacker (:1065-1116); byte-identical containers.
 
 compress, device passes with host work between them:
-  pass 1: the packer's preprocessing on the device (xdelta_swizzle and
-      its verify-and-grow flag; native_to_i32 for hzr; means, centring,
+  pass 1: the packer's preprocessing on the device (one xdelta_swizzle
+      launch on the '<i4' words or the native bytes at any bps, with its
+      verify-and-grow flag; native_to_i32 for hzr; means, centring,
       fwht and the power-of-two quantization for Hadamard), then
       tokenize_planes (RLE token words, plane bytes, histograms); one
       device→host copy of the histograms (and the flag, or the row sums).
@@ -273,17 +274,11 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         self.nr_planes = int(nr_bytes_to_encode)
 
     def _pass1(self, raw: torch.Tensor):
+        """One xdelta_swizzle launch on the '<i4' words (bps 4) or the
+        native bytes (any bps), then the tokenizer."""
         c = self.cfg
-        if raw.dtype == torch.int32:
-            enc, ok = ck.xdelta_swizzle(raw, c.nr_samples, c.nr_channels,
-                                        self.nr_planes, c.bytes_per_sample,
-                                        swizzle=True)
-        else:
-            sig = tops.native_to_i32(raw, c.nr_samples, c.nr_channels,
-                                     c.bytes_per_sample).reshape(-1)
-            enc, ok = ck.xdelta_swizzle(sig, c.nr_samples, c.nr_channels,
-                                        self.nr_planes, c.bytes_per_sample,
-                                        swizzle=False)
+        enc, ok = ck.xdelta_swizzle(raw, c.nr_samples, c.nr_channels,
+                                    self.nr_planes, c.bytes_per_sample)
         tokw, bwords, hist = ck.tokenize_planes(enc, self.nr_planes)
         small = torch.cat([hist.reshape(-1), ok]).cpu().numpy()
         return small, tokw, bwords

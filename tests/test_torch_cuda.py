@@ -998,6 +998,189 @@ def test_xdelta_growth_small_bps_on_card(dev, bps, vals, planes, size):
     assert p.decompress(comp)[0] == native
 
 
+XDELTA_TILE_WORDS = 4096  # xdelta_swizzle's most samples x channels a CTA
+XDELTA_BAND = 32          # xdelta_swizzle's most channels a CTA
+XDELTA_CHUNK = 6          # xdelta_swizzle's channels a thread
+H100_SMS = 132
+XDELTA_EDGE_CASES = ("tiles", "short", "ch1", "band_split", "misaligned",
+                     "native", "fail_first", "fail_last")
+
+
+def xdelta_tile(ns, ch, sms=H100_SMS):
+    """Samples of one xdelta_swizzle tile of ns x ch on a card of sms SMs:
+    a multiple of 16, at most XDELTA_TILE_WORDS / band and 1,024 / the
+    channel groups of XDELTA_CHUNK (a thread each), as few as fill whole
+    waves of one CTA an SM."""
+    band = min(ch, XDELTA_BAND)
+    bands = -(-ch // band)
+    groups = -(-band // XDELTA_CHUNK)
+    s_max = min(XDELTA_TILE_WORDS // band, 1024 // groups) // 16 * 16
+    ctas = -(-ns // s_max) * bands
+    tiles = max(1, -(-ctas // sms)) * sms // bands
+    per = -(-ns // tiles)
+    return -(-per // 16) * 16
+
+
+def native_bytes(sig, bps):
+    """(samples, channels) int64 → interleaved little-endian bps-byte
+    samples, flat uint8."""
+    v = sig.reshape(-1).astype(np.int64)
+    return np.stack([(v >> (8 * k)) & 255 for k in range(bps)],
+                    -1).astype(np.uint8).reshape(-1)
+
+
+def _extreme_signal(rng, ns, ch, bps):
+    """(ns, ch) int64 samples of bps bytes: random, with the extremes
+    -2^(8·bps-1) and 2^(8·bps-1) - 1 at the first sample and at each
+    channel boundary (the last sample of a channel, then the first of the
+    next: the chain's wrap across channels)."""
+    lo, hi = -(1 << (8 * bps - 1)), (1 << (8 * bps - 1)) - 1
+    sig = rng.integers(lo, hi + 1, (ns, ch), dtype=np.int64)
+    sig[0, 0] = lo
+    sig[-1, :] = hi
+    sig[0, 1:] = lo
+    if ns > 1:
+        sig[1, 0] = hi
+    return sig
+
+
+def _spike(ns, ch, s, c, planes):
+    """A zero signal (xdelta -128, 0, 0, ...: fits one plane) with one
+    sample at (s, c) whose xdelta values need more than `planes` bytes."""
+    sig = np.zeros((ns, ch), np.int64)
+    sig[s, c] = (1 << (8 * planes + 1)) + 3
+    return sig
+
+
+def xdelta_edge_batch(rng, case, sms=H100_SMS):
+    """xdelta_swizzle's inputs on the edges of its tiles, bands, loads and
+    flag, as (x, ns, ch, planes, bps, swizzle, off) with x a numpy array:
+    int32 interleaved words (swizzle) or a channel-major signal (not), or
+    uint8 native bytes; off the elements by which the card's view of x
+    starts past a 16-byte-aligned address (off > 0: the scalar loads).
+    Tiles of S = xdelta_tile(ns, ch, sms) samples: "tiles": at 12
+    channels a last tile of S - 1 samples, all tiles full, a last tile of
+    1 sample (S = 16, 132 CTAs), and two waves of tiles; "short": 1, 2
+    and 3 samples at 1 and 12 channels; "ch1": one channel, and a flat
+    signal; "band_split": 40 channels (a band of 32 and one of 8);
+    "misaligned": word and byte views 4, 1 and 8 bytes off alignment;
+    "native": the bytes at bps 1-4 with their extremes; "fail_first" /
+    "fail_last": one value that does not fit the planes, in the first CTA
+    / the last CTA (of the last band)."""
+    out = []
+
+    def add(sig, planes, bps, u8=True, off=0):
+        ns, ch = sig.shape
+        x = (native_bytes(sig, bps) if u8
+             else sig.reshape(-1).astype(np.uint32).view(np.int32))
+        out.append((x, ns, ch, planes, bps, True, off))
+
+    if case == "tiles":
+        s16 = 16 * sms
+        for ns in (s16 - 1, s16, s16 - 15, 50001):
+            add(_extreme_signal(rng, ns, 12, 4), 3, 4, u8=False)
+        for ns in (s16 - 1, s16 - 15):
+            add(_extreme_signal(rng, ns, 12, 2), 1, 2)
+    elif case == "short":
+        for ns in (1, 2, 3):
+            for ch in (1, 12):
+                add(_extreme_signal(rng, ns, ch, 4), 2, 4, u8=False)
+                add(_extreme_signal(rng, ns, ch, 3), 2, 3)
+    elif case == "ch1":
+        add(_extreme_signal(rng, 4097, 1, 4), 3, 4, u8=False)
+        add(_extreme_signal(rng, 4097, 1, 1), 1, 1)
+        flat = np.cumsum(rng.integers(-300, 300, 70001)).astype(np.int32)
+        out.append((flat, flat.size, 1, 1, 3, False, 0))
+        out.append((flat, 1, flat.size, 2, 4, False, 0))
+    elif case == "band_split":
+        ns = 16 * sms // 2 + 1
+        add(_extreme_signal(rng, ns, 40, 4), 3, 4, u8=False)
+        add(_extreme_signal(rng, ns, 40, 3), 2, 3)
+        add(_extreme_signal(rng, 2, 40, 2), 1, 2)
+        add(np.zeros((ns, 40), np.int64), 1, 4, u8=False)   # flag 1
+    elif case == "misaligned":
+        sig = _extreme_signal(rng, 3001, 12, 4)
+        add(sig, 3, 4, u8=False, off=1)
+        add(sig, 3, 4, off=1)
+        add(_extreme_signal(rng, 3001, 12, 3), 2, 3, off=1)
+        add(_extreme_signal(rng, 3001, 12, 2), 1, 2, off=8)
+    elif case == "native":
+        for bps in (1, 2, 3, 4):
+            sig = _extreme_signal(rng, 3001, 12, bps)
+            for planes in range(1, 5):
+                add(sig, planes, bps)
+    else:
+        ns = 5003
+        at = (5, 0) if case == "fail_first" else (ns - 1, 11)
+        add(_spike(ns, 12, *at, 1), 1, 4, u8=False)
+        add(_spike(ns, 12, *at, 1), 1, 2)
+        add(_spike(ns, 12, *at, 2), 2, 3)
+        if case == "fail_last":
+            n40 = 2003
+            add(_spike(n40, 40, n40 - 1, 39, 1), 1, 4, u8=False)
+    return out
+
+
+def device_view(x, off, dev):
+    """x on the card as a view starting off elements past a 16-byte
+    aligned address."""
+    buf = torch.zeros(x.size + off, dtype=torch.from_numpy(x[:0]).dtype,
+                      device=dev)
+    buf[off:].copy_(torch.from_numpy(np.ascontiguousarray(x)))
+    v = buf[off:]
+    assert v.data_ptr() % 16 == (off * x.itemsize) % 16
+    return v
+
+
+@pytest.mark.parametrize("case", XDELTA_EDGE_CASES)
+def test_xdelta_edges_match_plain(dev, case):
+    """xdelta_swizzle vs its plain version on its tile, band, load and
+    flag edges, values and flag bit for bit; the tile and band sizes
+    equal the kernel's; a failing case's flag is 0."""
+    lib = ck._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert lib.rspt_xdelta_band() == XDELTA_BAND
+    batch = xdelta_edge_batch(np.random.default_rng(120), case, sms)
+    for _, ns, ch, _, _, swizzle, _ in batch:
+        shape = (ns, ch) if swizzle else (ns * ch, 1)
+        assert lib.rspt_xdelta_tile(*shape) == xdelta_tile(*shape, sms)
+    for x, ns, ch, planes, bps, swizzle, off in batch:
+        t = device_view(x, off, dev)
+        got = ck.xdelta_swizzle(t, ns, ch, planes, bps, swizzle)
+        want = ck.xdelta_swizzle_plain(t, ns, ch, planes, bps, swizzle)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if case.startswith("fail"):
+            assert int(got[1]) == 0
+
+
+def xdelta_alternating(dev, calls=100):
+    """calls xdelta_swizzle launches in a row on one stream, alternating a
+    passing input and one failing in the first or the last CTA: each flag
+    and each output equal to the plain version's (every call leaves the
+    kernel's flag state ready for the next). Returns the flags."""
+    ns, ch = 5003, 12
+    ins = [torch.from_numpy(native_bytes(sig, 4).view(np.int32)).to(dev)
+           for sig in (np.zeros((ns, ch), np.int64),
+                       _spike(ns, ch, 5, 0, 1),
+                       _spike(ns, ch, ns - 1, ch - 1, 1))]
+    wants = [ck.xdelta_swizzle_plain(x, ns, ch, 1, 4, True) for x in ins]
+    flags = []
+    for k in range(calls):
+        i = 0 if k % 2 == 0 else 1 + (k // 2) % 2
+        got = ck.xdelta_swizzle(ins[i], ns, ch, 1, 4)
+        assert torch.equal(got[0], wants[i][0]), k
+        assert torch.equal(got[1], wants[i][1]), k
+        flags.append(int(got[1]))
+    assert flags == [1 - k % 2 for k in range(calls)]
+    return flags
+
+
+def test_xdelta_flag_state_resets(dev):
+    """100 calls alternating passing and failing inputs: every flag right,
+    so the flag state is ready for the next call after each one."""
+    xdelta_alternating(dev)
+
+
 def _windows_batch(rng, dev):
     """A 3-plane batch with a block of 8 groups (a dense skewed plane 0
     with one long zero run), a short one-group block, FILL blocks and a

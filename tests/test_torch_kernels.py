@@ -22,6 +22,8 @@ from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from test_torch_cuda import TOKENIZE_EDGE_CASES, tokenize_edge_batch  # noqa: E402,E501
+from test_torch_cuda import (XDELTA_EDGE_CASES, _extreme_signal,  # noqa: E402,E501
+                             native_bytes, xdelta_edge_batch)
 from test_torch_cuda import (PACK_FLAT_EDGE_CASES, PACK_FLAT_JAX_CASES,  # noqa: E402,E501
                              check_pack_flat_edges_covered,
                              pack_flat_edge_batch, pack_flat_edges_covered)
@@ -67,6 +69,64 @@ def test_xdelta_swizzle_vs_pallas(rng, planes):
     enc2, ok2 = ck.xdelta_swizzle(_t(np.asarray(flat)), ns, ch, planes, 4,
                                   swizzle=False)
     assert torch.equal(enc2, enc) and torch.equal(ok2, ok)
+
+
+def _xdelta_jax(x, ns, ch, bps, swizzle):
+    """The reference's pass 1: jax_ops.native_to_i32 (of the native bytes
+    or the '<i4' words) then xdelta_preprocess_pallas in interpret mode."""
+    if swizzle:
+        flat = jops.native_to_i32(jnp.asarray(x), ns, ch,
+                                  bps if x.dtype == np.uint8 else 4)
+    else:
+        flat = jnp.asarray(x[:ns * ch])
+    return np.asarray(pk.xdelta_preprocess_pallas(flat.reshape(-1),
+                                                  interpret=True))
+
+
+@pytest.mark.parametrize("bps", [1, 2, 3])
+def test_xdelta_native_bytes_vs_pallas(rng, bps):
+    """K1 on the native bytes (the uint8 form) against native_to_i32 then
+    xdelta_preprocess_pallas, and its flag against _fits_planes of the
+    reference's values, at every plane count up to bps: the extremes
+    -2^(8·bps-1) and 2^(8·bps-1) - 1 at the channel boundaries (the chain
+    wraps across them), 1-3 samples at 1 and 12 channels, and a tail
+    tile; tolerance 0."""
+    shapes = [(ns, ch) for ns in (1, 2, 3) for ch in (1, 12)]
+    for ns, ch in shapes + [(3001, 12)]:   # tiles of 32, the last of 25
+        x = native_bytes(_extreme_signal(rng, ns, ch, bps), bps)
+        want = _xdelta_jax(x, ns, ch, bps, True)
+        for planes in range(1, bps + 1):
+            enc, ok = ck.xdelta_swizzle(_t(x), ns, ch, planes, bps)
+            np.testing.assert_array_equal(enc.numpy(), want)
+            assert torch.equal(ok, ck._fits_planes(_t(want), planes, bps))
+
+
+@pytest.mark.parametrize("case", XDELTA_EDGE_CASES)
+def test_xdelta_edges_vs_pallas(case):
+    """K1's plain version on tests/test_torch_cuda.py's xdelta_edge_batch
+    (the inputs the card holds the kernel to) against the reference's
+    pass 1, values and flag; tolerance 0."""
+    for x, ns, ch, planes, bps, swizzle, _ in xdelta_edge_batch(
+            np.random.default_rng(120), case):
+        want = _xdelta_jax(x, ns, ch, bps, swizzle)
+        enc, ok = ck.xdelta_swizzle(_t(x), ns, ch, planes, bps, swizzle)
+        np.testing.assert_array_equal(enc.numpy(), want)
+        assert torch.equal(ok, ck._fits_planes(_t(want), planes, bps))
+        if case.startswith("fail"):
+            assert int(ok[0]) == 0
+
+
+def test_xdelta_native_bytes_validated():
+    """The uint8 form is interleaved and needs n * bps bytes; other dtypes
+    raise."""
+    x = torch.zeros(24, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        ck.xdelta_swizzle(x, 4, 3, 1, 2, swizzle=False)
+    with pytest.raises(ValueError):
+        ck.xdelta_swizzle(x, 4, 3, 1, 3)
+    with pytest.raises(TypeError):
+        ck.xdelta_swizzle(x.to(torch.int16), 4, 3, 1, 2)
+    assert ck.xdelta_swizzle(x, 4, 3, 1, 2)[0].shape == (12,)
 
 
 @pytest.mark.parametrize("planes,plane_len", [(3, B + 4321), (2, 1000)])

@@ -182,6 +182,49 @@ def test_small_bps_random_growth(rng, bps):
     assert pg.nr_planes == bps
 
 
+@pytest.mark.parametrize("bps", [1, 2, 3])
+def test_small_bps_pass1_is_one_call(rng, tpack, monkeypatch, bps):
+    """At bps < 4 each pass 1 hands the native bytes to one xdelta_swizzle
+    call (no native_to_i32 before it): a smooth walk at bps planes gives
+    the host packer's container in one call, and the JAX packer's at bps
+    2-3 (at bps 1 the JAX packer grows wherever a value does not fit one
+    signed byte: F1); a rough walk from 1 plane grows as the host packer
+    does, one call a plane count."""
+    from rspt_tpu_torch.packers import gpu
+    calls = []
+    real = gpu.ck.xdelta_swizzle
+
+    def spy(x, *args, **kw):
+        calls.append(x.dtype)
+        return real(x, *args, **kw)
+
+    monkeypatch.setattr(gpu.ck, "xdelta_swizzle", spy)
+    ch, n = 3, 3001
+    lim = 1 << (8 * bps - 1)
+    walk = np.cumsum(rng.normal(0, 0.002 * lim + 0.3, (ch, n)), axis=1)
+    smooth = np.clip(walk, -lim, lim - 1).astype(np.int64)
+    native = _native_small(smooth.T.reshape(-1), bps)
+    if bps > 1:
+        _check_all(tpack, native, bps, ch, n, bps)
+    else:
+        pg = gpack.new_xdelta_hzr(bps, ch, n, bps, device="cpu")
+        comp = pg.compress(native)
+        assert comp == hpack.new_xdelta_hzr(bps, ch, n, bps).compress(native)
+        assert pg.decompress(comp)[0] == native
+    assert calls == [torch.uint8]
+    if bps == 1:
+        return
+    calls.clear()
+    rough = np.clip(np.cumsum(rng.normal(0, 0.01 * lim, (ch, n)), axis=1),
+                    -lim, lim - 1).astype(np.int64)
+    native = _native_small(rough.T.reshape(-1), bps)
+    pg = gpack.new_xdelta_hzr(bps, ch, n, 1, device="cpu")
+    comp = pg.compress(native)
+    assert comp == hpack.new_xdelta_hzr(bps, ch, n, 1).compress(native)
+    assert pg.nr_planes == bps and pg.decompress(comp)[0] == native
+    assert calls == [torch.uint8] * bps
+
+
 @pytest.mark.parametrize("device_decode", [False, True])
 def test_decompress_many_empty(device_decode):
     """decompress_many of no containers: [] alone, ([], None) with
