@@ -14,8 +14,10 @@ way, each with the launch counts set to 0 just before it: the Hadamard
 packer at BASELINE config 3 (the same signal cut to 2^14 samples), the
 hzr packer at the main shape and on config 1's 8,192-sample sine,
 compress_with_hints at the main shape, the hzr stream encoder
-torch_coder.encode on the main payload's bytes as one stream, and the
-windows routes of the flat pack on the main pass 1.
+torch_coder.encode on the main payload's bytes as one stream, the
+windows routes of the flat pack on the main pass 1, and the DCT packer
+at BASELINE config 4 (the same signal cut to 4,096 samples, at 4 and 3
+bytes a sample).
 
 Phases: 1 build (the kernels with nvcc and the host runtime,
 rspt_tpu_torch/native, with g++, at once); 2 encode kernels vs plain on
@@ -57,7 +59,14 @@ host runtime against its plain Python versions at the main path's
 shapes (CRC32C over the main container and each of its blocks,
 build_tables on the main pass 1's histograms, decode_planes_blocks on
 the main, Hadamard and hzr containers, lut_nib_batch on the main
-decode's 14 HUFF blocks), each equal, with both times; 4, last,
+decode's 14 HUFF blocks), each equal, with both times; 14 the DCT path:
+dct_forward and dct_inverse vs plain on tests/test_torch_cuda.py's
+dct_edge_batch (n of 1-4,096, 1-17 channels, the inverse's overflow
+inputs giving x86's INT32_MIN), then compress, host decompress,
+decompress(device_decode=True) and decompress_many of 3, each equal to
+the CPU's, one dct_forward a compress and one dct_inverse a decompress
+(the profiler sees both kernels; the plain versions are never called),
+with CR and PRDN; 4, last,
 times each kernel's call (profiler device time of every device operation
 of the wrapper's call: kernels, memsets, copies; xdelta_swizzle on the
 '<i4' words and on 16-bit native bytes, each one device operation a
@@ -66,10 +75,13 @@ plain version and a library yardstick (tokenize_planes in turns with
 bincount, compact_tokens with masked_select, place_literals with
 index_put_; both xdelta_swizzle rows, fwht, pack_blocks and
 pack_blocks_tokw as medians of 5
-rounds beside their rounds), hzr_decode's and fwht's clusters,
+rounds beside their rounds; dct_forward and dct_inverse in turns with
+an f64 torch.matmul over the same operands), hzr_decode's and fwht's
+clusters,
 tokenize_planes', pack_flat's and pack_blocks' working blocks, and the
 host stages and wall times of every path (the Hadamard path, encode and
-entropy_streams_blocks with their spread). The last two lines are a
+entropy_streams_blocks with their spread; the DCT walls and its
+table construction). The last two lines are a
 JSON object of the kernels and the result line.
 Exits nonzero, with no result line, when there is no CUDA card or any
 check fails. Imports nothing of JAX or of the JAX package.
@@ -90,6 +102,11 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 INT_OPS_PER_S = 67e12          # H100 SXM non-tensor fp32 rate, for int ops
+F64_ADDS_PER_S = 34e12 / 2     # H100 SXM non-tensor fp64: 34 TFLOP/s of FMA
+# f32 -> f64 conversions: 16 a clock an SM on compute capability 9.0 (CUDA
+# C++ Programming Guide, arithmetic instruction throughput), 132 SMs at
+# the 1.98 GHz boost clock
+F2F_PER_S = 16 * 132 * 1.98e9
 REPS = 30
 
 
@@ -155,17 +172,29 @@ def cuda_ms(fn, reps=REPS, warm=3):
     return statistics.median(times)
 
 
-def _device_events(fn, reps):
+def _device_events(fn, reps, tries=4):
+    """The device activity of reps calls of fn, in order. The profiler
+    may lose events (a whole trace of them, or a few), never add one: the
+    calls are traced until two traces in a row hold as many device events
+    (at most tries traces), and the fullest trace is kept."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    best, last = [], None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if len(evs) > len(best):
+            best = evs
+        if evs and len(evs) == last:
+            break
+        last = len(evs)
+    return best
 
 
 def device_ms(fn, reps=REPS, kernel=None):
@@ -182,8 +211,7 @@ def device_ms(fn, reps=REPS, kernel=None):
 
 def device_op_names(fn, reps=5):
     """The distinct names of the device operations (kernels, memsets,
-    copies) of reps calls, in the order they first ran. The profiler may
-    drop an event, never add one."""
+    copies) of reps calls, in the order they first ran."""
     return list(dict.fromkeys(e.name for e in _device_events(fn, reps)))
 
 
@@ -542,6 +570,255 @@ def symbols_decoded(emis, counts, steps):
     st = steps.reshape(nt, 1, 1)
     nxt = torch.where(s + 1 < st, torch.cat([o[:, 1:], fin], 1), fin)
     return int(((nxt != o) & (s < st)).sum())
+
+
+def measure_row(name, r, launches):
+    """The kernels JSON line of the kernel row r (see main's rows), with
+    its log line: the device time of the wrapper's call from the
+    profiler (every device operation of it: kernels, memsets, copies; the
+    named kernel alone for the log; CUDA events around one call, host
+    launch cost included, where it sees no device activity), its plain
+    version's and library call's, and its bound: the larger of its bytes
+    over the memory rate and its operations' time (r["ops_ms"], or
+    r["ops"] integer operations over INT_OPS_PER_S)."""
+    call_ms = cuda_ms(r["fn"])
+    ms = device_ms(r["fn"]) or call_ms
+    kern_ms = device_ms(r["fn"], kernel=r.get("kernel", name + "_kernel"))
+    preps = r.get("plain_reps", 10)
+    plain_ms = (device_ms(r["plain"], reps=preps)
+                or cuda_ms(r["plain"], preps))
+    lib_ms = None
+    if r["library"]:
+        lib_ms = device_ms(r["library"]) or cuda_ms(r["library"])
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = r.get("ops_ms", r.get("ops", 0) / INT_OPS_PER_S * 1e3)
+    row = dict(
+        name=name, route="cuda", source=r["source"],
+        replaces=r["replaces"], launches=launches[name], max_abs_err=0,
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=lib_ms)
+    log(f"phase 4: {name}: {ms:.6f} ms of device time a call (the "
+        f"kernel alone {kern_ms}), "
+        f"{call_ms:.4f} ms a call with launch (bound "
+        f"{max(t_bytes, t_ops):.4f} ms by {row['bound_by']}, "
+        f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    return row
+
+
+def measure_in_turns(name, r, row):
+    """The kernel and its library yardstick in turns (device times of
+    the whole call, medians of 5 rounds) into row's ms and library_ms."""
+    ts = {"kernel": [], "library": []}
+    for _ in range(5):
+        ts["kernel"].append(device_ms(r["fn"]) or cuda_ms(r["fn"]))
+        ts["library"].append(device_ms(r["library"])
+                             or cuda_ms(r["library"]))
+    med = {k: statistics.median(v) for k, v in ts.items()}
+    row.update(ms=med["kernel"], library_ms=med["library"])
+    log(f"phase 4: in turns (medians of 5): {name} {med['kernel']:.6f} "
+        f"ms, library {med['library']:.6f} ms "
+        f"({med['library'] / med['kernel']:.2f}x), bound "
+        f"{row['bound_ms']:.6f} ms ({med['kernel'] / row['bound_ms']:.1f}"
+        f"x); rounds { {k: [round(t, 6) for t in v] for k, v in ts.items()} }")
+
+
+def from_native(buf: bytes, bps: int, ch: int, n: int) -> np.ndarray:
+    """Interleaved little-endian bps-byte samples → channel-major int32."""
+    b = np.frombuffer(buf, np.uint8).reshape(n, ch, bps).astype(np.uint32)
+    v = sum(b[..., k] << np.uint32(8 * k) for k in range(bps))
+    top = np.uint32(1 << (8 * bps - 1))
+    v = ((v ^ top) - top) if bps < 4 else v     # sign-extend
+    return np.ascontiguousarray(v.astype(np.uint32).view(np.int32).T)
+
+
+class CountCalls:
+    """Within a with block, module attributes replaced by wrappers that
+    count their calls (``calls``)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.calls = dict.fromkeys(names, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, f in self.saved.items():
+            def counted(*a, _n=n, _f=f, **kw):
+                self.calls[_n] += 1
+                return _f(*a, **kw)
+            setattr(self.module, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.module, n, f)
+
+
+def check_dct_path(packers, ck, edges, sig, native, ch, dev, n4=4096):
+    """Phase 14: the DCT path at BASELINE config 4, the main signal cut
+    to its first n4 samples (as bench.py:263-265 cuts the real ECG), at
+    bps 4 and, shifted down into 24 bits, bps 3. dct_forward and
+    dct_inverse bit-exact against their plain versions on the card
+    tests' dct_edge_batch; then, with every launch count at 0, compress,
+    host decompress, decompress(device_decode=True) and decompress_many
+    of 3 through the entry points, each equal to the device="cpu"
+    packer's, one dct_forward a compress and one dct_inverse a
+    decompress, the plain versions never called. Returns what phase 4
+    times."""
+    from rspt_tpu_torch.utils import metrics
+    rng14 = np.random.default_rng(14)
+    for case in edges.DCT_EDGE_CASES:
+        x14 = edges.dct_edge_batch(rng14, case)
+        r14 = edges.check_dct_case(x14, dev)
+        if (case in edges.DCT_OVERFLOW
+                and bool((r14 == -2 ** 31).any()) != edges.DCT_OVERFLOW[case]):
+            raise AssertionError(f"dct_inverse {case}: INT32_MIN not as x86")
+    torch.cuda.synchronize()
+    log(f"phase 14: dct_forward and dct_inverse bit-exact against their "
+        f"plain versions at {list(edges.DCT_EDGE_CASES)}; INT32_MIN as x86 "
+        f"gives it on {[c for c, v in edges.DCT_OVERFLOW.items() if v]}; "
+        f"{ck._lib().rspt_dct_ctas(ch, n4)} CTAs of 128 threads (4 "
+        f"channels x 32 outputs) at {ch} x {n4}")
+    sig4 = np.ascontiguousarray(sig[:, :n4])
+    out = {}
+    for bps in (4, 3):
+        nat = native[:n4 * ch * 4] if bps == 4 else to_native(sig4 >> 8, 3)
+        pd = packers.new_dct(bps, ch, n4)
+        pdd = packers.new_dct(bps, ch, n4, device_decode=True)
+        for k in ck.KERNELS:
+            k.launches = 0
+        with CountCalls(ck, ("dct_forward_plain",
+                             "dct_inverse_plain")) as plain:
+            comp = pd.compress(nat)
+            torch.cuda.synchronize()
+            fwd_c = ck.dct_forward.launches
+            rec = pd.decompress(comp)[0]
+            inv_d = ck.dct_inverse.launches
+            rec_dd = pdd.decompress(comp)[0]
+            rec_many = pdd.decompress_many([comp] * 3)
+            torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in ck.KERNELS}
+        log(f"phase 14: DCT bps {bps} path launches {launches}; plain "
+            f"versions called {plain.calls}")
+        if (fwd_c, inv_d, launches["dct_forward"],
+                launches["dct_inverse"]) != (1, 1, 1, 5):
+            raise AssertionError("dct: not one dct_forward a compress and "
+                                 f"one dct_inverse a decompress ({launches})")
+        missing = [k for k in ("tokenize_planes", "compact_tokens",
+                               "pack_flat", "hzr_decode", "place_literals")
+                   if not launches[k]]
+        if missing or any(plain.calls.values()):
+            raise AssertionError(f"dct: missing {missing}, plain "
+                                 f"{plain.calls}")
+        dct_names = ("dct_forward_kernel", "dct_inverse_kernel")
+        names = device_op_names(lambda: pd.decompress(pd.compress(nat)),
+                                reps=1)
+        ran = [k for k in dct_names if any(k in o for o in names)]
+        log(f"phase 14: the profiler's device operations of a compress and "
+            f"a decompress: {len(names)} kinds, the DCT kernels among them "
+            f"{[o for o in names if 'dct_' in o]}")
+        if len(ran) != 2:
+            raise AssertionError(f"dct: the profiler saw only {ran}")
+        cpu = packers.new_dct(bps, ch, n4, device="cpu")
+        if comp != cpu.compress(nat):
+            raise AssertionError(f"dct bps {bps}: card and CPU containers "
+                                 "differ")
+        want = cpu.decompress(comp)[0]
+        if not rec == rec_dd == want or rec_many != [want] * 3:
+            raise AssertionError(f"dct bps {bps}: decompress differs from "
+                                 "the CPU's")
+        orig = from_native(nat, bps, ch, n4)
+        dec = from_native(rec, bps, ch, n4)
+        cr = metrics.compression_ratio(len(nat), len(comp))
+        prd = metrics.prdn(orig, dec)
+        if not (np.isfinite(prd) and prd > 0 and cr > 1):
+            raise AssertionError(f"dct bps {bps}: CR {cr}, PRDN {prd}")
+        log(f"phase 14: DCT bps {bps}: {len(nat)} B -> {len(comp)} B (CR "
+            f"{cr:.4f}), PRDN {prd:.6f}%, container equal to the CPU's, "
+            f"decompress on the host, with device_decode and "
+            f"decompress_many of 3 equal to the CPU's; "
+            f"{pdd.decode_info['device_blocks']} device blocks; tables "
+            f"built and uploaded in {pd.table_seconds:.3f} s")
+        out[bps] = dict(packer=pd, packer_dd=pdd, native=nat, comp=comp,
+                        launches=launches)
+    return out
+
+
+def time_dct(ck, tops, dct_path, ch, dev):
+    """Phase 4's DCT part: D1 and D2 at config 4 (12 x 4,096) beside
+    their bound, plain versions and an f64 torch.matmul over the same
+    operands (not exact: another summation order), in turns; the DCT
+    walls (medians of 3 [min, max], with the stages of the last call) and
+    the packer's table construction. Returns the two kernels JSON lines."""
+    # the DCT pair at config 4 (12 x 4,096): the centred signal its
+    # compress gives dct_forward and the coefficients its decompress
+    # gives dct_inverse; the bound is the table read once, or the f64
+    # adds, or the f32 -> f64 conversions of the ch * n * n products
+    pd4 = dct_path[4]["packer"]
+    cen4 = pd4._centred(dct_path[4]["native"])[0]
+    coef4 = ck.dct_forward(cen4, pd4._cos, pd4._fwd_scale)
+    ch4, n4 = cen4.shape
+    terms4 = ch4 * n4 * n4
+    ops_ms4 = max(terms4 / F64_ADDS_PER_S, terms4 / F2F_PER_S) * 1e3
+    # the library yardstick, f64 torch.matmul over the same operands (not
+    # exact: another summation order)
+    cen4_64, cos4_64 = cen4.double(), pd4._cos.double()
+    q4_64 = (pd4._cs * coef4.float()).double()
+    cos4t_64 = pd4._cos_t.double()
+    launches = {k: dct_path[4]["launches"][k]
+                for k in ("dct_forward", "dct_inverse")}
+    rows = {}
+    rows["dct_forward"] = dict(
+        replaces="rspt_tpu/native/rspt_native.cpp:1274",
+        source="rspt_tpu_torch/ops/csrc/dct.cu",
+        fn=lambda: ck.dct_forward(cen4, pd4._cos, pd4._fwd_scale),
+        plain=lambda: ck.dct_forward_plain(cen4, pd4._cos, pd4._fwd_scale),
+        plain_reps=2,
+        library=lambda: torch.matmul(cen4_64, cos4_64),
+        # table, signal and factors read once, coefficients written once
+        bytes=4 * n4 * n4 + 2 * 4 * ch4 * n4 + 8 * n4, ops_ms=ops_ms4)
+    rows["dct_inverse"] = dict(
+        replaces="rspt_tpu/native/rspt_native.cpp:1290",
+        source="rspt_tpu_torch/ops/csrc/dct.cu",
+        fn=lambda: ck.dct_inverse(coef4, pd4._cos_t, pd4._cs,
+                                  pd4._inv_scale),
+        plain=lambda: ck.dct_inverse_plain(coef4, pd4._cos_t, pd4._cs,
+                                           pd4._inv_scale),
+        plain_reps=2,
+        library=lambda: torch.matmul(q4_64, cos4t_64),
+        bytes=4 * n4 * n4 + 2 * 4 * ch4 * n4 + 4 * n4, ops_ms=ops_ms4)
+    log(f"phase 4: dct pair at {ch4} x {n4}: {terms4} products, f64 adds "
+        f"{terms4 / F64_ADDS_PER_S * 1e3:.6f} ms, f32 -> f64 conversions "
+        f"{terms4 / F2F_PER_S * 1e3:.6f} ms, table "
+        f"{4 * n4 * n4 / HBM_BYTES_PER_S * 1e3:.6f} ms; "
+        f"{ck._lib().rspt_dct_ctas(ch4, n4)} CTAs")
+    # the DCT path at config 4: walls, medians of 3 [min, max], with the
+    # stages of the last call; the packer's table construction
+    for bps, d in dct_path.items():
+        dc = wall_times(lambda: d["packer"].compress(d["native"]))
+        dc_st = dict(d["packer"].stage_seconds)
+        dd = wall_times(lambda: d["packer"].decompress(d["comp"]))
+        dd_st = dict(d["packer"].stage_seconds)
+        ddd = wall_times(lambda: d["packer_dd"].decompress(d["comp"]))
+        ddd_st = dict(d["packer_dd"].stage_seconds)
+        log(f"phase 4: DCT bps {bps} compress {spread(dc)} s {dc_st}; "
+            f"decompress {spread(dd)} s {dd_st}; device-decode decompress "
+            f"{spread(ddd)} s {ddd_st}")
+    from rspt_tpu_torch.packers import GpuDctPacker
+    tab_s = [GpuDctPacker(4, ch, 4096, device=dev).table_seconds
+             for _ in range(3)]
+    t_host = time.perf_counter()
+    tops.dct_cos_table(4096)
+    t_host = time.perf_counter() - t_host
+    log(f"phase 4: DCT tables (two 64 MiB float32 tables built on the host "
+        f"and uploaded, cs and the factors) {spread(tab_s)} s a packer; the "
+        f"host's cosine table alone {t_host:.4f} s")
+    kernels = []
+    for name in ("dct_forward", "dct_inverse"):
+        kernels.append(measure_row(name, rows[name], launches))
+        measure_in_turns(name, rows[name], kernels[-1])
+    return kernels
 
 
 def main() -> int:
@@ -1517,35 +1794,7 @@ def main() -> int:
         f"{-(-plan.T // pf_tile) + nb} CTAs of {pf_tile} tokens, {pf_work} "
         f"working over {n_huff} HUFF blocks (at most "
         f"{-(-int(plan.ntok.max()) // pf_tile)} tiles a block)")
-    kernels = []
-    for name, r in rows.items():
-        # device time of the wrapper's call from the profiler: every
-        # device operation of it (kernels, memsets, copies), and the named
-        # kernel alone for the log; CUDA events around one call (host
-        # launch cost included) where it sees no device activity
-        call_ms = cuda_ms(r["fn"])
-        ms = device_ms(r["fn"]) or call_ms
-        kern_ms = device_ms(r["fn"], kernel=r.get("kernel", name + "_kernel"))
-        preps = r.get("plain_reps", 10)
-        plain_ms = (device_ms(r["plain"], reps=preps)
-                    or cuda_ms(r["plain"], preps))
-        lib_ms = None
-        if r["library"]:
-            lib_ms = device_ms(r["library"]) or cuda_ms(r["library"])
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / INT_OPS_PER_S * 1e3
-        kernels.append(dict(
-            name=name, route="cuda", source=r["source"],
-            replaces=r["replaces"], launches=launches[name], max_abs_err=0,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib_ms))
-        log(f"phase 4: {name}: {ms:.6f} ms of device time a call (the "
-            f"kernel alone {kern_ms}), "
-            f"{call_ms:.4f} ms a call with launch (bound "
-            f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
-            f"{r['bytes']} B), plain {plain_ms:.4f} ms, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    kernels = [measure_row(name, r, launches) for name, r in rows.items()]
     # K1's device operations a call: its kernel and nothing else
     k1_ops = {name: device_ops(rows[name]["fn"])
               for name in ("xdelta_swizzle", "xdelta_swizzle_u8")}
@@ -1569,20 +1818,8 @@ def main() -> int:
     # the kernels against their library yardsticks, in turns (device
     # times of the whole call, medians of 5 rounds)
     for name in ("tokenize_planes", "compact_tokens", "place_literals"):
-        r = rows[name]
-        ts = {"kernel": [], "library": []}
-        for _ in range(5):
-            ts["kernel"].append(device_ms(r["fn"]) or cuda_ms(r["fn"]))
-            ts["library"].append(device_ms(r["library"])
-                                 or cuda_ms(r["library"]))
-        med = {k: statistics.median(v) for k, v in ts.items()}
-        row = next(k for k in kernels if k["name"] == name)
-        row.update(ms=med["kernel"], library_ms=med["library"])
-        log(f"phase 4: in turns (medians of 5): {name} {med['kernel']:.6f} "
-            f"ms, library {med['library']:.6f} ms "
-            f"({med['library'] / med['kernel']:.2f}x), bound "
-            f"{row['bound_ms']:.6f} ms ({med['kernel'] / row['bound_ms']:.1f}"
-            f"x); rounds { {k: [round(t, 6) for t in v] for k, v in ts.items()} }")
+        measure_in_turns(name, rows[name],
+                         next(k for k in kernels if k["name"] == name))
     # host stages and end to end
     crc_s = wall_s(lambda: crc32c(np.frombuffer(comp, np.uint8)), reps=3)
     enc_s = wall_s(lambda: p.compress(native))
@@ -1605,10 +1842,11 @@ def main() -> int:
         f"(cross-checked against the unhinted one) {hd_first_s:.4f} s, "
         f"stages {hd_first_stages}")
     fw20 = torch.from_numpy(fw_cases["1x1048576"]).to(dev)
+    fw20_ms = device_ms(lambda: ck.fwht(fw20), reps=10)
     log(f"phase 4: fwht at 1 x 2^20 (a global pass, then a cluster "
-        f"launch): {device_ms(lambda: ck.fwht(fw20), reps=10):.4f} ms of "
-        f"device time a call, {cuda_ms(lambda: ck.fwht(fw20), reps=10):.4f} "
-        f"ms a call")
+        f"launch): {'not measured' if fw20_ms is None else f'{fw20_ms:.4f}'}"
+        f" ms of device time a call, "
+        f"{cuda_ms(lambda: ck.fwht(fw20), reps=10):.4f} ms a call")
     # the new paths' wall times, medians of 3 [min, max]
     had_c = wall_times(lambda: ph.compress(nat3))
     had_c_st = dict(ph.stage_seconds)
@@ -1659,6 +1897,10 @@ def main() -> int:
     log(f"phase 4: main pass-1 streams: entropy_streams_blocks "
         f"{spread(eb_t)} s {st_b} against entropy_streams {spread(ef_t)} s "
         f"{st_f} (medians of 3 [min, max] in turns, stages of the last)")
+    # phase 14 and its timings last, so that the DCT packers' 64 MiB
+    # tables (host and device) are built after the earlier paths' walls
+    dct_path = check_dct_path(packers, ck, edges, sig, native, ch, dev)
+    kernels += time_dct(ck, tops, dct_path, ch, dev)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Design A/B of eight of the port's CUDA kernels on one card.
+"""Design A/B of nine of the port's CUDA kernels on one card.
 
     python3 kernel_ab.py [--rounds 3] [--only hzr_decode.cu,tokenize.cu]
                          [--baseline DIR]
 
 Builds variants of ops/csrc/xdelta.cu, hzr_decode.cu, tokenize.cu,
-compact.cu, place_literals.cu, pack_flat.cu, fwht.cu and pack_blocks.cu,
+compact.cu, place_literals.cu, pack_flat.cu, fwht.cu, pack_blocks.cu and
+dct.cu,
 each the committed source with some of its constants (or a line)
 replaced, into one shared library apiece (nvcc, sm_90a, all at once),
 and times each variant at the main path's shapes (the chip_smoke inputs:
@@ -15,8 +16,10 @@ its device decode batch for hzr_decode, its xdelta signal for
 tokenize_planes, its pass 1 for compact_tokens and, compacted, for both
 modes of pack_flat, its device decode's emissions for place_literals,
 config 3's centred rows for fwht, the main payload as one stream for
-pack_blocks and the main pass 1 for pack_blocks_tokw) beside the
-library call that computes the same function where there is one, in
+pack_blocks, the main pass 1 for pack_blocks_tokw and BASELINE config
+4's centred rows and their coefficients for dct_forward and
+dct_inverse) beside the library call that computes the same function
+where there is one (for the DCT pair an f64 torch.matmul, not exact), in
 turns, by torch.profiler device time of the whole call (every kernel
 and memset of it; mean of 30 calls a round, medians over the rounds
 printed).
@@ -287,9 +290,32 @@ XDELTA = {
                         "      if (cg + q < cb && x[q] == 7u) out[q * a.ns]"},
                        True),
 }
+# dct_forward / dct_inverse at BASELINE config 4 (12 x 4,096): chunks
+# of 128 x (the default) or 64, 8 warps (channels) a CTA, and the f32 ->
+# f64 widening by integer bit operations in place of F2F (exact here: no
+# product is subnormal, and a zero keeps its sign)
+DCT = {
+    "x128": ({}, False),
+    "x64": ({"kX = 128;": "kX = 64;"}, False),
+    "w8_x128": ({"kWarps = 4;": "kWarps = 8;"}, False),
+    "x128_bits": ({"  return (double)p;\n":
+                   "  const uint32_t u = __float_as_uint(p);\n"
+                   "  const uint32_t m = u & 0x7fffffffu;\n"
+                   "  const uint32_t hi = m ? ((m >> 3) + 0x38000000u) | "
+                   "(u & 0x80000000u) : u;\n"
+                   "  return __hiloint2double((int)hi, (int)(u << 29));\n"},
+                  False),
+    # no widening: the products' conversions dropped, the f64 adds kept
+    "diag_no_widen": ({"  return (double)p;": "  return 1.0;"}, True),
+    # no copies after the first chunk: every chunk sums the first's words
+    "diag_no_copies": ({"    if (more) fetch((ck + 1) * kX, b ^ 1);":
+                        "    if (more && n < 0) fetch((ck + 1) * kX, b ^ 1);"},
+                       True),
+}
 TABLES = {"xdelta.cu": XDELTA, "hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "compact.cu": COMPACT, "place_literals.cu": PLACE,
-          "pack_flat.cu": PACK, "fwht.cu": FWHT, "pack_blocks.cu": BLOCKS}
+          "pack_flat.cu": PACK, "fwht.cu": FWHT, "pack_blocks.cu": BLOCKS,
+          "dct.cu": DCT}
 
 
 def variant_source(src: str, repl: dict) -> str:
@@ -352,7 +378,11 @@ def _bind(cu, lib):
             "pack_blocks.cu": {
                 "rspt_pack_blocks_state": [I, I],
                 "rspt_pack_blocks": [P] * 9 + [I] * 3 + [P],
-                "rspt_pack_blocks_tokw": [P] * 6 + [I] * 3 + [P]}}[cu]
+                "rspt_pack_blocks_tokw": [P] * 6 + [I] * 3 + [P]},
+            "dct.cu": {
+                "rspt_dct_forward": [P] * 4 + [I] * 2 + [P],
+                "rspt_dct_inverse": [P] * 4 + [ctypes.c_double] + [I] * 2
+                + [P]}}[cu]
     if cu == "xdelta.cu" and not hasattr(lib, "rspt_xdelta_tile"):
         # a source with one thread a word and ok set by the caller
         sigs = {"rspt_xdelta_swizzle": [P, P, P] + [I] * 6 + [P]}
@@ -562,6 +592,29 @@ def main() -> int:
         assert err == 0, err
         return words, total
 
+    # the DCT pair at config 4: the centred signal of the main signal's
+    # first 4,096 samples and its coefficients
+    pd4 = packers.new_dct(4, ch, 4096)
+    cen4 = pd4._centred(native[:4096 * ch * 4])[0]
+    coef4 = ck.dct_forward(cen4, pd4._cos, pd4._fwd_scale)
+    cen4_64, cos4_64 = cen4.double(), pd4._cos.double()
+    q4_64, cos4t_64 = (pd4._cs * coef4.float()).double(), pd4._cos_t.double()
+
+    def dct(lib, inverse):
+        """dct_forward or dct_inverse through lib, as the wrappers call
+        them."""
+        out = torch.empty_like(cen4)
+        if inverse:
+            err = lib.rspt_dct_inverse(
+                coef4.data_ptr(), out.data_ptr(), pd4._cos_t.data_ptr(),
+                pd4._cs.data_ptr(), pd4._inv_scale, ch, 4096, stream)
+        else:
+            err = lib.rspt_dct_forward(
+                cen4.data_ptr(), out.data_ptr(), pd4._cos.data_ptr(),
+                pd4._fwd_scale.data_ptr(), ch, 4096, stream)
+        assert err == 0, err
+        return out
+
     def decode_view(out):   # what placement reads, and the lane results
         return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])
 
@@ -594,7 +647,13 @@ def main() -> int:
             ("pack_blocks", lambda lib: blocks(lib, False),
              ck.pack_blocks_plain(*k13a_args), None),
             ("pack_blocks_tokw", lambda lib: blocks(lib, True),
-             ck.pack_blocks_tokw_plain(*k13b_args), None)]}
+             ck.pack_blocks_tokw_plain(*k13b_args), None)],
+        "dct.cu": [
+            ("dct_forward", lambda lib: dct(lib, False),
+             ck.dct_forward_plain(cen4, pd4._cos, pd4._fwd_scale), None),
+            ("dct_inverse", lambda lib: dct(lib, True),
+             ck.dct_inverse_plain(coef4, pd4._cos_t, pd4._cs,
+                                  pd4._inv_scale), None)]}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build_variants({cu: TABLES[cu] for cu in only}, Path(tmp),
@@ -622,6 +681,11 @@ def main() -> int:
         if "place_literals.cu" in only:
             runs["place_literals/library index_put_"] = (
                 lambda: lib_out.index_put_((lit_pos,), lit_val))
+        if "dct.cu" in only:   # not exact: another summation order
+            runs["dct_forward/library f64 matmul"] = (
+                lambda: torch.matmul(cen4_64, cos4_64))
+            runs["dct_inverse/library f64 matmul"] = (
+                lambda: torch.matmul(q4_64, cos4t_64))
         torch.cuda.synchronize()
         times = {name: [] for name in runs}
         for _ in range(args.rounds):

@@ -41,6 +41,10 @@ and (rspt_tpu/hzr/pallas_decoder.py):
                    K8a chunk_windows2_pallas, K8b super_place_pallas, K9a
                    chunk_windows1_pallas, K9b merge_place_pallas and the
                    scatter ladder
+and, with no pallas_call (a TPU has no f64; the JAX package runs them on
+the host, rspt_tpu/native/rspt_native.cpp):
+  dct_forward      D1 rn_dct_forward (:1274), the exact DCT-II
+  dct_inverse      D2 rn_dct_inverse (:1290), its inverse
 """
 
 from __future__ import annotations
@@ -86,6 +90,9 @@ def _lib() -> ctypes.CDLL:
         "rspt_fwht": [P, P, I, I, P],
         "rspt_fwht_launches": [I],
         "rspt_fwht_cluster": [I],
+        "rspt_dct_ctas": [I, I],
+        "rspt_dct_forward": [P] * 4 + [I] * 2 + [P],
+        "rspt_dct_inverse": [P] * 4 + [ctypes.c_double] + [I] * 2 + [P],
         "rspt_hzr_decode_cluster": [],
         "rspt_hzr_decode": [P] * 17 + [I] * 7 + [P],
         "rspt_place_literals": [P] * 6 + [I] * 3 + [P],
@@ -686,6 +693,104 @@ fwht.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernels D1, D2 — dct_forward, dct_inverse
+# ---------------------------------------------------------------------------
+
+def _x86_i32(s: torch.Tensor) -> torch.Tensor:
+    """x86's (int32_t) of f64 values (cvttsd2si), as the reference's C++
+    converts: trunc inside the int32 range, INT32_MIN outside it, for
+    positive overflow and NaN too (CUDA's conversion, and torch's on the
+    card, saturate instead)."""
+    ok = (s > -2147483649.0) & (s < 2147483648.0)
+    return torch.where(ok, s, -2147483648.0).trunc().to(torch.int32)
+
+
+def _dct_sums_plain(v: torch.Tensor, tab: torch.Tensor,
+                    block: int = 64) -> torch.Tensor:
+    """(rows, n) f64: for each row and i, the sum over x in order of
+    (double)(v[row, x] * tab[x, i]), the products in float32 (a block of
+    x at a time) and every partial sum rounded to f64."""
+    acc = torch.zeros(v.shape, dtype=torch.float64, device=v.device)
+    for x0 in range(0, v.shape[1], block):
+        terms = (v[:, x0:x0 + block, None] * tab[x0:x0 + block]).double()
+        for j in range(terms.shape[1]):
+            acc += terms[:, j]
+    return acc
+
+
+def dct_forward_plain(sig: torch.Tensor, cos: torch.Tensor,
+                      fwd_scale: torch.Tensor) -> torch.Tensor:
+    return _x86_i32(_dct_sums_plain(sig.float(), cos) * fwd_scale)
+
+
+def dct_inverse_plain(coef: torch.Tensor, cos_t: torch.Tensor,
+                      cs: torch.Tensor, inv_scale: float) -> torch.Tensor:
+    return _x86_i32(_dct_sums_plain(cs * coef.float(), cos_t) * inv_scale)
+
+
+def _check_dct_args(a, name, tab, tab_name, vec, vec_name, vec_dtype):
+    _check(a, name, torch.int32)
+    if a.dim() != 2:
+        raise ValueError(f"{name}: need (channels, n)")
+    ch, n = a.shape
+    if ch > 4 * 65535:
+        raise ValueError(f"{name}: at most {4 * 65535} channels")
+    _check(tab, tab_name, torch.float32, (n, n))
+    _check(vec, vec_name, vec_dtype, (n,))
+    return _on_cuda(a, tab, vec)
+
+
+def dct_forward(sig: torch.Tensor, cos: torch.Tensor,
+                fwd_scale: torch.Tensor) -> torch.Tensor:
+    """The exact DCT-II with folded quantization of each row of sig
+    ((ch, n) int32): out[c, i] = (int32_t)(fwd_scale[i] * the sum over x,
+    serially in f64, of (double)((float)sig[c, x] * cos[x, i]))
+    (rn_dct_forward, signal_packer_dct.cpp:76-87). cos: (n, n) float32,
+    torch_ops.dct_cos_table; fwd_scale: (n,) f64,
+    torch_ops.dct_forward_scale. One launch; a new tensor."""
+    if not _check_dct_args(sig, "sig", cos, "cos", fwd_scale, "fwd_scale",
+                           torch.float64):
+        return dct_forward_plain(sig, cos, fwd_scale)
+    out = torch.empty_like(sig)
+    if out.numel() == 0:
+        return out
+    ch, n = sig.shape
+    _launch("dct_forward", _lib().rspt_dct_forward, sig.data_ptr(),
+            out.data_ptr(), cos.data_ptr(), fwd_scale.data_ptr(), ch, n,
+            device=sig.device)
+    dct_forward.launches += 1
+    return out
+
+
+dct_forward.launches = 0
+
+
+def dct_inverse(coef: torch.Tensor, cos_t: torch.Tensor, cs: torch.Tensor,
+                inv_scale: float) -> torch.Tensor:
+    """The exact inverse of each row of coef ((ch, n) int32): out[c, i] =
+    (int32_t)(inv_scale * the sum over x, serially in f64, of
+    (double)((cs[x] * (float)coef[c, x]) * cos_t[x, i]))
+    (rn_dct_inverse, signal_packer_dct.cpp:89-100). cos_t: the transposed
+    table (cos_t[x, i] = COS[i, x]), (n, n) float32; cs: (n,) float32;
+    inv_scale: torch_ops.dct_inverse_scale. One launch; a new tensor."""
+    if not _check_dct_args(coef, "coef", cos_t, "cos_t", cs, "cs",
+                           torch.float32):
+        return dct_inverse_plain(coef, cos_t, cs, inv_scale)
+    out = torch.empty_like(coef)
+    if out.numel() == 0:
+        return out
+    ch, n = coef.shape
+    _launch("dct_inverse", _lib().rspt_dct_inverse, coef.data_ptr(),
+            out.data_ptr(), cos_t.data_ptr(), cs.data_ptr(), float(inv_scale),
+            ch, n, device=coef.device)
+    dct_inverse.launches += 1
+    return out
+
+
+dct_inverse.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Kernel 5 — hzr_decode (K6)
 # ---------------------------------------------------------------------------
 
@@ -1239,6 +1344,6 @@ windows_place_flat.launches = 0
 
 
 KERNELS = (xdelta_swizzle, tokenize_planes, compact_tokens, pack_flat,
-           pack_flat_lanes, pack_blocks, pack_blocks_tokw, fwht, hzr_decode,
-           place_literals, group_windows, place_windows_aligned,
-           windows_place_flat)
+           pack_flat_lanes, pack_blocks, pack_blocks_tokw, fwht, dct_forward,
+           dct_inverse, hzr_decode, place_literals, group_windows,
+           place_windows_aligned, windows_place_flat)

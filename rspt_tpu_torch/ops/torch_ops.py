@@ -205,3 +205,35 @@ def fwht_normalize2_int(a: torch.Tensor, ratio: float = 1.0) -> torch.Tensor:
     if int(ratio) != ratio:
         raise ValueError("ratio must be a power of two")
     return _trunc_div_pow2(a, int(ratio))
+
+
+def dct_cos_table(n: int) -> np.ndarray:
+    """float32 cosine table COS[i][j] = cos(j * (2i + 1) * pi / (2n)),
+    from np.cos in f64 on the host as the reference builds it
+    (signal_packer_dct.cpp:60-74; the port's copy of
+    numpy_ops.dct_cos_table). The forward DCT reads COS[x][i], the
+    inverse COS[i][x]: a device cos is not correctly rounded."""
+    i = np.arange(n, dtype=np.float64)[:, None]
+    j = np.arange(n, dtype=np.float64)[None, :]
+    return np.cos(((2 * i) * j + j) * (np.pi / (2.0 * n))).astype(np.float32)
+
+
+def dct_cs(n: int) -> np.ndarray:
+    """float32 DCT normalisation: 1/sqrt(2) for the DC term, else 1."""
+    cs = np.ones(n, dtype=np.float32)
+    cs[0] = np.float32(1.0 / np.sqrt(2.0))
+    return cs
+
+
+def dct_forward_scale(cs: np.ndarray, quality: float) -> np.ndarray:
+    """The forward's per-output factor `cs[i] * ratio1 / quality`, f64,
+    evaluated left to right as the C expression is (ratio1 =
+    sqrt(2.0 / n)); folding ratio1 / quality into one constant would
+    round differently."""
+    ratio1 = np.sqrt(2.0 / cs.size)
+    return (cs.astype(np.float64) * ratio1) / np.float64(quality)
+
+
+def dct_inverse_scale(n: int, quality: float) -> float:
+    """The inverse's factor `ratio1 * quality`, one f64."""
+    return float(np.sqrt(2.0 / n) * np.float64(quality))

@@ -2,14 +2,16 @@
 tpu.py:1121-1134). Each packer runs on ``device`` (default: the CUDA
 card; raises if there is none; ``device="cpu"`` runs the kernels' plain
 PyTorch versions); device_decode entropy-decodes on the device instead
-of the host. The DCT packer is not ported yet (ROADMAP.md).
+of the host. The DCT packer takes no ``device_transform`` flag: on the
+card its exact transform is the device transform.
 """
 
-from .gpu import (GpuHadamardPacker, GpuHzrPacker, GpuXdeltaHzrPacker,
-                  PackerConfig)
+from .gpu import (GpuDctPacker, GpuHadamardPacker, GpuHzrPacker,
+                  GpuXdeltaHzrPacker, PackerConfig)
 
-__all__ = ["GpuHadamardPacker", "GpuHzrPacker", "GpuXdeltaHzrPacker",
-           "PackerConfig", "new_hadamard", "new_hzr", "new_xdelta_hzr"]
+__all__ = ["GpuDctPacker", "GpuHadamardPacker", "GpuHzrPacker",
+           "GpuXdeltaHzrPacker", "PackerConfig", "new_dct", "new_hadamard",
+           "new_hzr", "new_xdelta_hzr"]
 
 
 def new_hzr(bytes_per_sample: int, nr_channels: int, nr_samples: int,
@@ -27,6 +29,14 @@ def new_xdelta_hzr(bytes_per_sample: int, nr_channels: int, nr_samples: int,
     return GpuXdeltaHzrPacker(bytes_per_sample, nr_channels, nr_samples,
                               nr_bytes_to_encode, device=device,
                               device_decode=device_decode)
+
+
+def new_dct(bytes_per_sample: int, nr_channels: int, nr_samples: int,
+            device=None, device_decode: bool = False) -> GpuDctPacker:
+    """Lossy DCT packer (method byte 1, 2 planes, quality 128) with the
+    reference's exact transform; any nr_samples >= 1."""
+    return GpuDctPacker(bytes_per_sample, nr_channels, nr_samples,
+                        device=device, device_decode=device_decode)
 
 
 def new_hadamard(bytes_per_sample: int, nr_channels: int, nr_samples: int,

@@ -1,14 +1,16 @@
 """GPU packers — the port of rspt_tpu/packers/tpu.py's TpuHzrPacker
-(:726-749), TpuXdeltaHzrPacker (:752-809, :887-903) and
-TpuHadamardPacker (:1065-1116); byte-identical containers.
+(:726-749), TpuXdeltaHzrPacker (:752-809, :887-903), TpuDctPacker
+(:971-1043) and TpuHadamardPacker (:1065-1116); byte-identical
+containers.
 
 compress, device passes with host work between them:
   pass 1: the packer's preprocessing on the device (one xdelta_swizzle
       launch on the '<i4' words or the native bytes at any bps, with its
-      verify-and-grow flag; native_to_i32 for hzr; means, centring,
-      fwht and the power-of-two quantization for Hadamard), then
-      tokenize_planes (RLE token words, plane bytes, histograms); one
-      device→host copy of the histograms (and the flag, or the row sums).
+      verify-and-grow flag; native_to_i32 for hzr; means, centring, then
+      fwht and the power-of-two quantization for Hadamard, or dct_forward
+      and the flat delta/offset/xor for DCT), then tokenize_planes (RLE
+      token words, plane bytes, histograms); one device→host copy of the
+      histograms (and the flag, or the row sums).
   host: per-block Huffman tables and the exact stream layout.
   pass 2: compact_tokens → pack_flat (pack_flat_lanes with hints),
       straight into the final payload layout; one device→host copy of the
@@ -20,8 +22,8 @@ all planes in one call of the port's host runtime (rspt_tpu_torch/
 native), or, with device_decode, all planes' HUFF blocks in one
 device decode (hzr/gpu_decoder.py: hzr_decode + place_literals), then
 merges planes and undoes the packer's preprocessing as torch ops (and
-fwht) on the packer's device. decompress_many puts every payload's
-planes into one device decode.
+fwht, or dct_inverse) on the packer's device. decompress_many puts every
+payload's planes into one device decode.
 
 ``stage_seconds`` holds the wall time of each stage of the last call.
 """
@@ -95,6 +97,11 @@ def _means_from_header(header: bytes, nr_channels: int) -> np.ndarray:
     v = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
     v = np.where(v >= 1 << 23, v - (1 << 24), v)
     return v.astype(np.int32)
+
+
+def _xdelta_decode(merged: torch.Tensor) -> torch.Tensor:
+    """The flat xdelta inverse: xor decode, offset +128, delta decode."""
+    return tops.delta_decode(tops.offset32(tops.xor_decode(merged), 128))
 
 
 class _GpuPackerBase:
@@ -186,6 +193,26 @@ class _GpuPackerBase:
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
         raise NotImplementedError
+
+    def _centred(self, src) -> Tuple[torch.Tensor, np.ndarray]:
+        """The transform packers' start: the (channels, samples) int32
+        signal minus the reference's per-channel means (int32 wrap), and
+        the means. The mean: an int64 row sum on the device, its unsigned
+        64-bit division on the host."""
+        c = self.cfg
+        raw = self._to_dev(_as_words(src, c.bytes_per_sample))
+        sig = tops.native_to_i32(raw, c.nr_samples, c.nr_channels,
+                                 c.bytes_per_sample).contiguous()
+        means = tops.average32_host(tops.row_sums64(sig).cpu().numpy(),
+                                    c.nr_samples)
+        return tops._wrap32(sig.to(torch.int64) - self._to_dev(
+            means.astype(np.int64))[:, None]), means
+
+    def _uncentred(self, rec: torch.Tensor, header: bytes) -> bytes:
+        """rec plus the header's means (int32 wrap), as native bytes."""
+        means = _means_from_header(header, self.cfg.nr_channels)
+        return self._native(tops._wrap32(rec.to(torch.int64) + self._to_dev(
+            means.astype(np.int64))[:, None]))
 
     def _native(self, sig: torch.Tensor) -> bytes:
         """(channels, samples) int32 → native sample bytes on the host."""
@@ -312,9 +339,7 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
         """Plane merge and the xdelta inverse on the device."""
-        merged = tops.plane_merge(planes)
-        return self._native(tops.delta_decode(
-            tops.offset32(tops.xor_decode(merged), 128)))
+        return self._native(_xdelta_decode(tops.plane_merge(planes)))
 
 
 class GpuHadamardPacker(_GpuPackerBase):
@@ -337,15 +362,7 @@ class GpuHadamardPacker(_GpuPackerBase):
         c = self.cfg
         self.stage_seconds = {}
         t0 = time.perf_counter()
-        raw = self._to_dev(_as_words(src, c.bytes_per_sample))
-        sig = tops.native_to_i32(raw, c.nr_samples, c.nr_channels,
-                                 c.bytes_per_sample).contiguous()
-        # the reference's mean: an int64 row sum on the device, its
-        # unsigned 64-bit division on the host
-        means = tops.average32_host(tops.row_sums64(sig).cpu().numpy(),
-                                    c.nr_samples)
-        centred = tops._wrap32(sig.to(torch.int64)
-                               - self._to_dev(means.astype(np.int64))[:, None])
+        centred, means = self._centred(src)
         had = tops.fwht_normalize_pow2(ck.fwht(centred), c.nr_samples,
                                        self.QUALITY)
         hist_np, tokw, bwords = self._tokenize(had.reshape(-1))
@@ -355,7 +372,58 @@ class GpuHadamardPacker(_GpuPackerBase):
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
         c = self.cfg
         had = tops.plane_merge(planes).reshape(c.nr_channels, c.nr_samples)
-        rec = tops.fwht_normalize2_int(ck.fwht(had), self.QUALITY)
-        means = _means_from_header(header, c.nr_channels).astype(np.int64)
-        return self._native(tops._wrap32(rec.to(torch.int64)
-                                         + self._to_dev(means)[:, None]))
+        return self._uncentred(
+            tops.fwht_normalize2_int(ck.fwht(had), self.QUALITY), header)
+
+
+class GpuDctPacker(_GpuPackerBase):
+    """Lossy DCT packer (signal_packer_dct.cpp:36-156): method byte 1, 2
+    planes, quality 128, a 24-bit per-channel means header; any
+    nr_samples >= 1. The transform is the reference's exact one (each
+    output a serial f64 sum in its order): dct_forward and dct_inverse,
+    one launch each on the card. The packer builds its cosine tables on
+    the host once (float32 from np.cos in f64, as the reference builds
+    them; 64 MiB each at 4,096 samples) and uploads them once:
+    ``table_seconds``. The tail is xdelta's over the flat (channels *
+    samples) coefficients, across channel borders (tpu.py:308-310)."""
+
+    METHOD = 1
+    NR_PLANES = 2
+    QUALITY = 128.0
+
+    def __init__(self, bytes_per_sample, nr_channels, nr_samples, **kw):
+        if nr_samples < 1:
+            raise ValueError("DCT packer: nr_samples must be >= 1")
+        super().__init__(bytes_per_sample, nr_channels, nr_samples, **kw)
+        self.nr_planes = self.NR_PLANES
+        self.header_size = 3 * nr_channels
+        t0 = time.perf_counter()
+        cos = tops.dct_cos_table(nr_samples)
+        cs = tops.dct_cs(nr_samples)
+        self._cos = self._to_dev(cos)
+        self._cos_t = self._to_dev(cos.T)      # COS[i][x] at [x][i]
+        self._cs = self._to_dev(cs)
+        self._fwd_scale = self._to_dev(tops.dct_forward_scale(
+            cs, self.QUALITY))
+        self._inv_scale = tops.dct_inverse_scale(nr_samples, self.QUALITY)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.table_seconds = time.perf_counter() - t0
+
+    def compress(self, src) -> bytes:
+        self.stage_seconds = {}
+        t0 = time.perf_counter()
+        centred, means = self._centred(src)
+        dct = ck.dct_forward(centred, self._cos, self._fwd_scale)
+        flat = tops.xor_encode(tops.offset32(
+            tops.delta_encode(dct.reshape(-1)), -128))
+        hist_np, tokw, bwords = self._tokenize(flat)
+        self.stage_seconds["pass1"] = time.perf_counter() - t0
+        return self._encode(tokw, bwords, hist_np, _means_header(means))[0]
+
+    def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
+        c = self.cfg
+        coef = _xdelta_decode(tops.plane_merge(planes))
+        return self._uncentred(ck.dct_inverse(
+            coef.reshape(c.nr_channels, c.nr_samples), self._cos_t,
+            self._cs, self._inv_scale), header)

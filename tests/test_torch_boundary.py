@@ -22,8 +22,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_loads_neither_jax_nor_rspt_tpu():
-    """The port's modules import no jax and nothing of rspt_tpu, nor does
-    a stream encode through them (pack_blocks' plain version)."""
+    """The port's modules import no jax and nothing of rspt_tpu, nor do a
+    stream encode (pack_blocks' plain version) and a DCT compress through
+    them."""
     code = (
         "import sys\n"
         "import rspt_tpu_torch\n"
@@ -34,6 +35,9 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "from rspt_tpu_torch.formats import crc32c, hzr_constants\n"
         "from rspt_tpu_torch.native import _build as native_build, "
         "bindings\n"
+        "from rspt_tpu_torch.utils import metrics\n"
+        "from rspt_tpu_torch.packers import GpuDctPacker, new_dct\n"
+        "assert len(new_dct(4, 2, 3, device='cpu').compress(bytes(24))) > 7\n"
         "assert torch_coder.encode(b'ab' * 99, device='cpu')[:4] == "
         "(198).to_bytes(4, 'little')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -45,13 +49,13 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
 
 def test_sources_import_neither_jax_nor_rspt_tpu():
     """No module of the port, not chip_smoke.py, not the card tests'
-    module it takes its edge inputs from and not kernel_ab.py names jax
-    or rspt_tpu in an import statement (a lazy import inside a function
-    included)."""
+    module it takes its edge inputs from and not kernel_ab.py or
+    wall_ab.py names jax or rspt_tpu in an import statement (a lazy
+    import inside a function included)."""
     bad_import = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|rspt_tpu)(?![\w])", re.M)
     files = [os.path.join(REPO, n) for n in (
-        "chip_smoke.py", "kernel_ab.py",
+        "chip_smoke.py", "kernel_ab.py", "wall_ab.py",
         os.path.join("tests", "test_torch_cuda.py"))]
     for root, _, names in os.walk(os.path.join(REPO, "rspt_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -70,7 +74,7 @@ def test_default_device_raises_without_card(monkeypatch):
         gpack.new_xdelta_hzr(4, 2, 100, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpack.new_xdelta_hzr(4, 2, 100, 3, device_decode=True)
-    for make in (gpack.new_hzr, gpack.new_hadamard):
+    for make in (gpack.new_hzr, gpack.new_hadamard, gpack.new_dct):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(4, 2, 128)
         assert make(4, 2, 128, device="cpu").device.type == "cpu"

@@ -15,6 +15,7 @@ from rspt_tpu_torch import packers as gpack  # noqa: E402
 from rspt_tpu_torch.hzr import gpu_decoder as gd  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from rspt_tpu_torch.ops import torch_ops as tops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1284,3 +1285,108 @@ def test_windows_place_flat_many_groups(rng, dev):
                           words.cpu().numpy().view(np.uint8)[:n])
     for _ in range(5):
         assert torch.equal(ck.windows_place_flat(*args), want)
+
+
+# dct_forward / dct_inverse: a CTA takes 32 outputs i of 4 channels and
+# walks x in chunks of 128. The cases: n of 1-3, n not a multiple of the
+# tile or the chunk (33, 65, 1,000), config 4's 4,096, 1-17 channels
+# (17: a last CTA row with 1 channel of 4), full-range int32 words, and
+# the inverse's overflow inputs, which must give x86's
+# INT32_MIN: every coefficient 2^31 - 1, a DC of 2^28 (2^27 stays in
+# range), and the ramp 30000 (k + 1) whose flat xdelta tail fits 2 planes.
+DCT_EDGE_CASES = ("n1", "n2", "n3_ch1", "n33_ch5", "n65_ch17",
+                  "n1000_ch12", "n4096_ch12", "n4096_ch1", "all_max",
+                  "dc_2p28", "dc_2p27", "ramp")
+DCT_OVERFLOW = {"all_max": True, "dc_2p28": True, "dc_2p27": False,
+                "ramp": True}
+
+
+def dct_edge_batch(rng, case):
+    """The (channels, n) int32 rows of a case, fed to both transforms."""
+    full = lambda ch, n: rng.integers(-2 ** 31, 2 ** 31 - 1, (ch, n),
+                                      dtype=np.int64).astype(np.int32)
+    if case == "n1":
+        return full(3, 1)
+    if case == "n2":
+        return full(2, 2)
+    if case == "n3_ch1":
+        return full(1, 3)
+    if case == "n33_ch5":
+        return rng.integers(-2 ** 23, 2 ** 23, (5, 33)).astype(np.int32)
+    if case == "n65_ch17":
+        return full(17, 65)
+    if case == "n1000_ch12":
+        return np.cumsum(rng.normal(0, 3000, (12, 1000)), axis=1).astype(
+            np.int32)
+    if case == "n4096_ch12":
+        return full(12, 4096)
+    if case == "n4096_ch1":
+        return np.cumsum(rng.normal(0, 900, (1, 4096)), axis=1).astype(
+            np.int32)
+    if case == "all_max":
+        return np.full((1, 64), 2 ** 31 - 1, np.int32)
+    if case in ("dc_2p28", "dc_2p27"):
+        x = np.zeros((1, 64), np.int32)
+        x[0, 0] = 1 << int(case[-2:])
+        return x
+    assert case == "ramp"
+    return (30000 * (np.arange(4096) + 1)).astype(np.int32)[None]
+
+
+def dct_tables(n, dev):
+    """(cos, cos_t, cs, fwd_scale, inv_scale) of n samples on dev."""
+    cos, cs = tops.dct_cos_table(n), tops.dct_cs(n)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (up(cos), up(cos.T), up(cs),
+            up(tops.dct_forward_scale(cs, 128.0)),
+            tops.dct_inverse_scale(n, 128.0))
+
+
+def check_dct_case(x, dev):
+    """Both kernels vs their plain versions on x, bit-exact, one launch
+    each; returns the inverse's output."""
+    cos, cos_t, cs, fwd, inv = dct_tables(x.shape[1], dev)
+    t = torch.from_numpy(x).to(dev)
+    before = (ck.dct_forward.launches, ck.dct_inverse.launches)
+    f = ck.dct_forward(t, cos, fwd)
+    assert torch.equal(f, ck.dct_forward_plain(t, cos, fwd))
+    r = ck.dct_inverse(t, cos_t, cs, inv)
+    assert torch.equal(r, ck.dct_inverse_plain(t, cos_t, cs, inv))
+    assert (ck.dct_forward.launches - before[0],
+            ck.dct_inverse.launches - before[1]) == (1, 1)
+    return r
+
+
+@pytest.mark.parametrize("case", DCT_EDGE_CASES)
+def test_dct_edges_match_plain(rng, dev, case):
+    """dct_forward and dct_inverse vs their plain versions on the card,
+    tolerance 0; the overflow inputs give INT32_MIN where x86 does."""
+    r = check_dct_case(dct_edge_batch(rng, case), dev)
+    if case in DCT_OVERFLOW:
+        assert bool((r == -2 ** 31).any()) == DCT_OVERFLOW[case]
+
+
+@pytest.mark.parametrize("bps", [3, 4])
+def test_dct_packer_card_equals_cpu(rng, dev, bps):
+    """new_dct on the card: the CPU's container, and the CPU's
+    reconstruction on both decode paths and through decompress_many; one
+    dct_forward a compress, one dct_inverse a decompress."""
+    ch, ns = 12, 4096
+    sig = np.cumsum(rng.normal(0, 700.0, (ch, ns)), axis=1).astype(np.int32)
+    if bps == 3:
+        sig = sig >> 8
+    native = np.stack([(np.ascontiguousarray(sig.T).astype(np.uint32)
+                        >> np.uint32(8 * k)) & np.uint32(255)
+                       for k in range(bps)], -1).astype(np.uint8).tobytes()
+    before = ck.dct_forward.launches
+    comp = gpack.new_dct(bps, ch, ns, device=dev).compress(native)
+    assert ck.dct_forward.launches - before == 1
+    cpu = gpack.new_dct(bps, ch, ns, device="cpu")
+    assert comp == cpu.compress(native)
+    want = cpu.decompress(comp)[0]
+    before = ck.dct_inverse.launches
+    for dd in (False, True):
+        p = gpack.new_dct(bps, ch, ns, device=dev, device_decode=dd)
+        assert p.decompress(comp)[0] == want
+        assert p.decompress_many([comp, comp]) == [want, want]
+    assert ck.dct_inverse.launches - before == 6
