@@ -17,7 +17,9 @@ compress_with_hints at the main shape, the hzr stream encoder
 torch_coder.encode on the main payload's bytes as one stream, the
 windows routes of the flat pack on the main pass 1, and the DCT packer
 at BASELINE config 4 (the same signal cut to 4,096 samples, at 4 and 3
-bytes a sample).
+bytes a sample), and the streaming path at BASELINE config 5 (the whole
+signal pushed into a StreamingCodec with 4,096-sample blocks and the
+band-pass pre-filter: 8 frames in one compress_many).
 
 Phases: 1 build (the kernels with nvcc and the host runtime,
 rspt_tpu_torch/native, with g++, at once); 2 encode kernels vs plain on
@@ -66,7 +68,15 @@ inputs giving x86's INT32_MIN), then compress, host decompress,
 decompress(device_decode=True) and decompress_many of 3, each equal to
 the CPU's, one dct_forward a compress and one dct_inverse a decompress
 (the profiler sees both kernels; the plain versions are never called),
-with CR and PRDN; 4, last,
+with CR and PRDN; 15 the streaming path: xdelta_swizzle_batch and the
+2-D tokenize_planes vs plain on tests/test_torch_cuda.py's batch cases
+and at config 5's 8 x 12 x 4,096 (bps 4 and 3), then one push of the
+main signal into a StreamingCodec: 8 frames through one
+xdelta_swizzle_batch, one tokenize_planes and two waves of
+compact_tokens and pack_flat, no plain version called, the frames equal
+to the CPU codec's, host and device decoders giving back the filtered
+signal; its timings (CUDA events; compress_many against 8 compress
+calls; cold and steady pushes; a decoder push a frame) come last; 4, last,
 times each kernel's call (profiler device time of every device operation
 of the wrapper's call: kernels, memsets, copies; xdelta_swizzle on the
 '<i4' words and on 16-bit native bytes, each one device operation a
@@ -110,7 +120,13 @@ F2F_PER_S = 16 * 132 * 1.98e9
 REPS = 30
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's line with the seconds since the start."""
+    if a and str(a[0]).startswith("phase"):
+        a = (f"[{time.perf_counter() - _T0:.1f} s]",) + a
     print(*a, flush=True)
 
 
@@ -209,10 +225,16 @@ def device_ms(fn, reps=REPS, kernel=None):
     return (statistics.median(us) if kernel else sum(us) / reps) / 1e3
 
 
-def device_op_names(fn, reps=5):
+def device_op_names(fn, reps=5, traces=2):
     """The distinct names of the device operations (kernels, memsets,
-    copies) of reps calls, in the order they first ran."""
-    return list(dict.fromkeys(e.name for e in _device_events(fn, reps)))
+    copies) of reps calls, in the order they first ran, over `traces`
+    measurements: the profiler may drop an event, never add one, so
+    every name seen ran, and one that a trace lost turns up in another."""
+    names = {}
+    for _ in range(traces):
+        for e in _device_events(fn, reps):
+            names.setdefault(e.name, None)
+    return list(names)
 
 
 def device_ops(fn, reps=30):
@@ -577,16 +599,18 @@ def measure_row(name, r, launches):
     its log line: the device time of the wrapper's call from the
     profiler (every device operation of it: kernels, memsets, copies; the
     named kernel alone for the log; CUDA events around one call, host
-    launch cost included, where it sees no device activity), its plain
-    version's and library call's, and its bound: the larger of its bytes
+    launch cost included, where it sees no device activity) and its
+    library call's, its plain version's call from CUDA events, and its
+    bound: the larger of its bytes
     over the memory rate and its operations' time (r["ops_ms"], or
     r["ops"] integer operations over INT_OPS_PER_S)."""
     call_ms = cuda_ms(r["fn"])
     ms = device_ms(r["fn"]) or call_ms
     kern_ms = device_ms(r["fn"], kernel=r.get("kernel", name + "_kernel"))
-    preps = r.get("plain_reps", 10)
-    plain_ms = (device_ms(r["plain"], reps=preps)
-                or cuda_ms(r["plain"], preps))
+    # the plain versions (hundreds to thousands of small kernels a call):
+    # CUDA events around each call, median, not the profiler, whose
+    # traces of them took minutes
+    plain_ms = cuda_ms(r["plain"], r.get("plain_reps", 10), warm=1)
     lib_ms = None
     if r["library"]:
         lib_ms = device_ms(r["library"]) or cuda_ms(r["library"])
@@ -712,8 +736,9 @@ def check_dct_path(packers, ck, edges, sig, native, ch, dev, n4=4096):
             raise AssertionError(f"dct: missing {missing}, plain "
                                  f"{plain.calls}")
         dct_names = ("dct_forward_kernel", "dct_inverse_kernel")
+        # 3 calls: a trace may lose the first kernels of its first call
         names = device_op_names(lambda: pd.decompress(pd.compress(nat)),
-                                reps=1)
+                                reps=3)
         ran = [k for k in dct_names if any(k in o for o in names)]
         log(f"phase 14: the profiler's device operations of a compress and "
             f"a decompress: {len(names)} kinds, the DCT kernels among them "
@@ -819,6 +844,253 @@ def time_dct(ck, tops, dct_path, ch, dev):
         kernels.append(measure_row(name, rows[name], launches))
         measure_in_turns(name, rows[name], kernels[-1])
     return kernels
+
+
+def events_ms(fn, n=40, rounds=5):
+    """Device time of one call of fn from CUDA events around n calls that
+    run back to back: a sleep kernel holds the card while the host queues
+    them, so no launch gap of the host's is counted. The median of rounds
+    rounds, and the rounds."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)        # ~10 ms at 1.98 GHz
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times), times
+
+
+STREAM_NS = 4096     # samples a block at BASELINE config 5 (bench.py:206)
+STREAM_FS = 1000.0
+
+
+def stream_config(bps, ch):
+    """BASELINE config 5 (bench.py:201-213): blocks of 4,096 samples,
+    3 planes, the order-2 Butterworth band-pass 0.4-200 Hz at 1 kHz."""
+    from rspt_tpu_torch.filters import design
+    from rspt_tpu_torch.pipeline import StreamConfig
+    b, a = design.create_filter_iir(design.FilterKind.BUTTERWORTH,
+                                    design.FilterType.BAND_PASS, 2,
+                                    STREAM_FS, 0.4, 200.0)
+    return StreamConfig(bps, ch, STREAM_NS, sampling_rate=STREAM_FS,
+                        nr_bytes_to_encode=3, filter_coeffs=(a, b))
+
+
+def check_stream_path(ck, edges, sig, native, ch, dev):
+    """Phase 15: the streaming path at BASELINE config 5. K1's batched
+    form (xdelta_swizzle_batch) and K2's 2-D form (tokenize_planes) bit-
+    exact against their plain versions on tests/test_torch_cuda.py's
+    batch cases and at config 5's shape (8 x 12 x 4,096 at bps 4 and 3);
+    then, with every launch count at 0, one push of the main signal's
+    1,641,552 B into a fresh StreamingCodec on the card: 8 frames, one
+    compress_many of one level, so one xdelta_swizzle_batch, one
+    tokenize_planes, and one compact_tokens and one pack_flat for each of
+    the 2 waves; no plain version called; the frames equal the
+    device="cpu" codec's; the host and the device decoder give back the
+    filtered signal. Returns what phase 4 times."""
+    from rspt_tpu_torch import pipeline
+    from rspt_tpu_torch.filters import streaming
+    from rspt_tpu_torch.hzr import torch_coder as tc
+    for case in edges.XDELTA_BATCH_CASES:
+        edges.check_xdelta_batch_case(dev, *case)
+    for case in edges.TOKENIZE_BATCH_CASES:
+        edges.check_tokenize_batch_case(dev, *case)
+    nblk = 8
+    per = STREAM_NS * ch
+    inputs = {}
+    for bps in (4, 3):
+        nat = native if bps == 4 else to_native(sig, 3)
+        flat = np.frombuffer(nat, np.uint8)[:nblk * per * bps]
+        x = torch.from_numpy((flat.view("<i4") if bps == 4 else flat).copy())
+        x = x.reshape(nblk, -1).to(dev)
+        enc, ok = ck.xdelta_swizzle_batch(x, STREAM_NS, ch, 3, bps)
+        equal(f"xdelta_swizzle_batch bps {bps}", (enc, ok),
+              ck.xdelta_swizzle_batch_plain(x, STREAM_NS, ch, 3, bps))
+        equal(f"tokenize_planes 2-D bps {bps}", ck.tokenize_planes(enc, 3),
+              ck.tokenize_planes_plain(enc, 3))
+        inputs[bps] = (x, enc)
+    torch.cuda.synchronize()
+    log(f"phase 15: xdelta_swizzle_batch and the 2-D tokenize_planes bit-"
+        f"exact against their plain versions on {edges.XDELTA_BATCH_CASES} "
+        f"/ {edges.TOKENIZE_BATCH_CASES} and at config 5's {nblk} x {ch} x "
+        f"{STREAM_NS} (bps 4 and 3); K1 tiles of "
+        f"{ck._lib().rspt_xdelta_tile_batch(STREAM_NS, ch, nblk)} samples, "
+        f"{nblk * -(-STREAM_NS // ck._lib().rspt_xdelta_tile_batch(STREAM_NS, ch, nblk))} CTAs")
+
+    cfg = stream_config(4, ch)
+    codec = pipeline.StreamingCodec(cfg)
+    seen = {}
+    real_many = codec.packer.compress_many
+
+    def many(blocks):
+        seen["blocks"] = [bytes(b) for b in blocks]
+        return real_many(blocks)
+
+    codec.packer.compress_many = many
+    plains = [n for n in dir(ck) if n.endswith("_plain")]
+    for k in ck.KERNELS:
+        k.launches = 0
+    with CountCalls(ck, plains) as plain, \
+            CountCalls(streaming.IirFilter, ("filter", "filter_opt")) as loops, \
+            CountCalls(tc, ("host_tables_plain",)) as tables:
+        t0 = time.perf_counter()
+        frames = codec.push(native)
+        cold_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ck.KERNELS}
+    called = {**plain.calls, **loops.calls, **tables.calls}
+    log(f"phase 15: config 5 push launches "
+        f"{ {k: v for k, v in launches.items() if v} }; plain versions "
+        f"called { {k: v for k, v in called.items() if v} }")
+    want = {"xdelta_swizzle_batch": 1, "tokenize_planes": 1,
+            "compact_tokens": 2, "pack_flat": 2}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"stream: launches {launches}, want {want}")
+    if any(called.values()):
+        raise AssertionError(f"stream: plain versions called {called}")
+    codec.packer.compress_many = real_many
+    rest = len(native) - nblk * per * 4
+    if (len(frames) != nblk or codec.packer.nr_planes != 3
+            or len(codec._ring) != rest):
+        raise AssertionError(f"stream: {len(frames)} frames, planes "
+                             f"{codec.packer.nr_planes}, ring "
+                             f"{len(codec._ring)}")
+    cpu = pipeline.StreamingCodec(cfg, device="cpu")
+    frames_cpu = cpu.push(native)
+    if frames != frames_cpu:
+        raise AssertionError("stream: card and CPU frames differ")
+    # the filtered signal, channel by channel through the runtime's IIR
+    want_sig = np.empty((ch, nblk * STREAM_NS), np.int32)
+    for j in range(ch):
+        f = streaming.IirFilter(*cfg.filter_coeffs)
+        f.init_history_values(float(sig[j, 0]), int(STREAM_FS))
+        want_sig[j] = f.process(sig[j, :nblk * STREAM_NS].astype(
+            np.float64)).astype(np.int32)
+    decs = {dd: pipeline.StreamingDecoder(cfg, device_decode=dd)
+            for dd in (False, True)}
+    for dd, dec in decs.items():
+        out = b"".join(dec.push(f) for f in frames)
+        got = from_native(out, 4, ch, nblk * STREAM_NS)
+        if not np.array_equal(got, want_sig):
+            raise AssertionError(f"stream: decode (device_decode={dd}) is "
+                                 "not the filtered signal")
+    sizes = [len(f) for f in frames]
+    log(f"phase 15: one push of {len(native)} B (cold {cold_s:.4f} s, "
+        f"stages {codec.stage_seconds}): {nblk} frames of {per * 4} B at "
+        f"{min(sizes)}-{max(sizes)} B, {codec.packer.nr_planes} planes, "
+        f"{len(codec._ring)} B left in the ring; frames equal the CPU "
+        f"codec's; host and device decoders give back the filtered signal")
+    return dict(inputs=inputs, launches=launches, blocks=seen["blocks"],
+                frames=frames, cfg=cfg, decoders=decs)
+
+
+def time_stream(ck, stream, native, ch, dev):
+    """Phase 4's streaming part: K1's batched form and K2's 2-D form at
+    config 5's shape, device times from CUDA events (back-to-back calls)
+    beside 8 single-payload calls of each, in turns, their bounds and
+    plain versions; then the walls, medians of 5 [min, max] with the
+    rounds: compress_many of the 8 config-5 payloads against 8 sequential
+    compress calls in turns, the codec's cold and steady pushes of the
+    whole signal, and a decoder push a frame (host and device decode).
+    Returns the two kernels JSON lines."""
+    from rspt_tpu_torch import packers, pipeline
+    nblk = 8
+    per = STREAM_NS * ch
+    rows = []
+    for bps in (4, 3):
+        x, enc = stream["inputs"][bps]
+        k1 = lambda: ck.xdelta_swizzle_batch(x, STREAM_NS, ch, 3, bps)
+        k1s = lambda: [ck.xdelta_swizzle(x[b], STREAM_NS, ch, 3, bps)
+                       for b in range(nblk)]
+        k2 = lambda: ck.tokenize_planes(enc, 3)
+        k2s = lambda: [ck.tokenize_planes(enc[b], 3) for b in range(nblk)]
+        t = {k: [] for k in ("k1", "k1s", "k2", "k2s")}
+        for _ in range(5):
+            for k, f in (("k1", k1), ("k1s", k1s), ("k2", k2), ("k2s", k2s)):
+                t[k].append(events_ms(f, n=40 if k in ("k1", "k2") else 5,
+                                      rounds=1)[0])
+        med = {k: statistics.median(v) for k, v in t.items()}
+        in_b = nblk * per * bps
+        k1_bytes = in_b + 4 * nblk * per + 4 * nblk
+        nb = 3 * nblk
+        k2_bytes = 4 * nblk * per + nb * 4 * (65536 + 16384 + 261)
+        log(f"phase 4: config 5 bps {bps} in turns (CUDA events, medians of "
+            f"5): xdelta_swizzle_batch {med['k1']:.6f} ms against 8 "
+            f"xdelta_swizzle calls {med['k1s']:.6f} ms (bound "
+            f"{k1_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms, {k1_bytes} B); "
+            f"tokenize_planes 2-D {med['k2']:.6f} ms against 8 1-D calls "
+            f"{med['k2s']:.6f} ms (bound {k2_bytes / HBM_BYTES_PER_S * 1e3:.6f} "
+            f"ms, {k2_bytes} B); rounds "
+            f"{ {k: [round(v, 6) for v in vs] for k, vs in t.items()} }")
+        if bps != 4:
+            continue
+        for name, ms, nbytes, plain, src, rep, launches in (
+                ("xdelta_swizzle_batch", med["k1"], k1_bytes,
+                 lambda: ck.xdelta_swizzle_batch_plain(x, STREAM_NS, ch, 3,
+                                                       4),
+                 "xdelta.cu", "rspt_tpu/ops/pallas_kernels.py:1615",
+                 stream["launches"]["xdelta_swizzle_batch"]),
+                ("tokenize_planes_batch", med["k2"], k2_bytes,
+                 lambda: ck.tokenize_planes_plain(enc, 3), "tokenize.cu",
+                 "rspt_tpu/ops/pallas_kernels.py:1813",
+                 stream["launches"]["tokenize_planes"])):
+            plain_ms = cuda_ms(plain, reps=3, warm=1)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append(dict(
+                name=name, route="cuda",
+                source=f"rspt_tpu_torch/ops/csrc/{src}", replaces=rep,
+                launches=launches, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=t_bytes, bound_by="bytes", library_ms=None))
+    # walls: compress_many against 8 sequential compress calls, in turns
+    blocks = stream["blocks"]
+    pm = packers.new_xdelta_hzr(4, ch, STREAM_NS, 3)
+    ps = packers.new_xdelta_hzr(4, ch, STREAM_NS, 3)
+    pm.compress_many(blocks)
+    [ps.compress(b) for b in blocks]
+    many_t, seq_t = [], []
+    for _ in range(5):
+        many_t += wall_times(lambda: pm.compress_many(blocks), 1)
+        seq_t += wall_times(lambda: [ps.compress(b) for b in blocks], 1)
+    many_st, seq_st = dict(pm.stage_seconds), dict(ps.stage_seconds)
+    log(f"phase 4: config 5 compress_many of {nblk} payloads {spread(many_t)}"
+        f" s (stages of the last {many_st}) against {nblk} compress calls "
+        f"{spread(seq_t)} s (stages of the last call {seq_st}), in turns; "
+        f"rounds {[round(v, 6) for v in many_t]} / "
+        f"{[round(v, 6) for v in seq_t]}")
+    # the codec: 5 cold pushes (fresh codecs), then 5 steady pushes
+    cold, cold_st = [], []
+    for _ in range(5):
+        c = pipeline.StreamingCodec(stream["cfg"])
+        cold += wall_times(lambda: c.push(native), 1)
+        cold_st.append(dict(c.stage_seconds))
+    steady, steady_st, nframes = [], [], []
+    for _ in range(5):
+        out = []
+        steady += wall_times(lambda: out.extend(c.push(native)), 1)
+        steady_st.append(dict(c.stage_seconds))
+        nframes.append(len(out))
+    mb = len(native) / 1e6
+    log(f"phase 4: config 5 push of {len(native)} B: cold {spread(cold)} s "
+        f"({mb / statistics.median(cold):.1f} MB/s), steady {spread(steady)}"
+        f" s ({mb / statistics.median(steady):.1f} MB/s; frames a push "
+        f"{nframes}); rounds {[round(v, 6) for v in cold]} / "
+        f"{[round(v, 6) for v in steady]}; stages cold {cold_st}; steady "
+        f"{steady_st}")
+    for dd, dec in stream["decoders"].items():
+        per_frame = []
+        for _ in range(5):
+            per_frame.append(statistics.median(wall_times(
+                lambda f=f: dec.push(f), 1)[0] for f in stream["frames"]))
+        log(f"phase 4: StreamingDecoder.push a frame (device_decode={dd}) "
+            f"{spread(per_frame)} s (median over the {nblk} frames, 5 "
+            f"rounds); stages of the last {dec.packer.stage_seconds}")
+    return rows
 
 
 def main() -> int:
@@ -1901,6 +2173,9 @@ def main() -> int:
     # tables (host and device) are built after the earlier paths' walls
     dct_path = check_dct_path(packers, ck, edges, sig, native, ch, dev)
     kernels += time_dct(ck, tops, dct_path, ch, dev)
+    # phase 15 and its timings: the streaming path at BASELINE config 5
+    stream = check_stream_path(ck, edges, sig, native, ch, dev)
+    kernels += time_stream(ck, stream, native, ch, dev)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -13,10 +13,14 @@ plain PyTorch versions instead)::
     comp = p.compress(native_bytes)
     out, consumed = p.decompress(comp)
 
+The streaming path (BASELINE config 5) is ``rspt_tpu_torch.pipeline``:
+``StreamingCodec(StreamConfig(...)).push(native_bytes)`` gives frames.
+
 Streams and containers are byte-identical to ``rspt_tpu``'s.
 """
 
 from . import packers  # noqa: F401
 
 __version__ = "0.1.0"
-__all__ = ["packers", "formats", "hzr", "ops"]
+__all__ = ["packers", "formats", "hzr", "ops", "native", "filters", "io",
+           "pipeline"]

@@ -66,6 +66,7 @@ B = MAX_BLOCK_SIZE  # 65536
 MAX_DESC_BITS = (2 * NUM_SYMBOLS - 1) + SYMBOL_SIZE * NUM_SYMBOLS
 DESC_STRIDE = (MAX_DESC_BITS + 7) // 8
 GROUP_TOK_FLAT = 8192  # tokens per group; block token bases align to it
+WAVE = 4               # payloads a wave of the pipelined entropy stage
 
 _EBITS_VEC = np.zeros(NUM_SYMBOLS, np.int64)
 _EBITS_VEC[256:261] = (0, 2, 4, 8, 14)
@@ -431,54 +432,174 @@ def block_layout(plane_len: int, nr_planes: int):
     return nb_per, lengths
 
 
-def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
-                    times: dict, want_hints: bool = False):
-    """One hzr stream per plane from tokenize_planes' outputs: host
-    tables, the flat pack on tokw's device, one device→host copy of the
-    payload words (and of COPY blocks' raw plane bytes), headers. Adds
-    the wall time of its stages to ``times``.
+def _add_time(times: dict, key: str, dt: float) -> None:
+    times[key] = times.get(key, 0.0) + dt
 
-    Returns (streams, hints): with want_hints, the pack also writes the
-    decoder's segment entries (hzr/sidecar.py) and hints are the
-    DecodeHints of a decode of these streams in order (None when no
-    block is HUFF); else None."""
-    nb_per, lengths = block_layout(plane_len, nr_planes)
+
+class HostStaging:
+    """Pinned host buffers that the payload words' device→host copies
+    land in, kept across calls by their owner (a packer): buffer ``slot``
+    grows as a call needs and is reused by the next call or wave that
+    takes the same slot, after the earlier one's words were copied out
+    of it."""
+
+    def __init__(self):
+        self._bufs = {}
+
+    def take(self, slot, n: int, dtype=torch.int32) -> torch.Tensor:
+        """A pinned (n,) host tensor of dtype: a view of buffer slot."""
+        buf = self._bufs.get((slot, dtype))
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(max(n, 1), dtype=dtype, pin_memory=True)
+            self._bufs[(slot, dtype)] = buf
+        return buf[:n]
+
+
+@dataclass
+class _Staged:
+    """A block batch between the dispatch and the finish of its streams:
+    the host plan, and the payload words (then the raw plane words of its
+    COPY blocks) on their way to the host. The copy runs on the current
+    stream, so the caching allocator's stream order keeps the device
+    words valid until it is done."""
+    plan: FlatPlan
+    hplan: Optional[sidecar.HintPlan]
+    lengths: np.ndarray
+    nb_per: int
+    nr_streams: int
+    hist_np: np.ndarray
+    copy_rows: np.ndarray
+    host: torch.Tensor       # host int32 words, valid after `event`
+    event: Optional[torch.cuda.Event]
+    entries: Optional[torch.Tensor]
+
+
+def _dispatch_streams(tokw, bwords, hist_np, lengths, nb_per: int,
+                      times: dict, want_hints: bool = False,
+                      host: Optional[HostStaging] = None,
+                      slot: int = 0) -> _Staged:
+    """The first half of entropy_streams: the host tables and layout, the
+    uploads, the flat pack on tokw's device, and the device→host copy of
+    the payload words (and of COPY blocks' raw plane words) started: on
+    the card into host's pinned buffer `slot` (non_blocking) with an
+    event recorded after it; on the CPU the words themselves."""
     t0 = time.perf_counter()
     plan = flat_plan(hist_np, lengths)
     hplan = (sidecar.plan_hints(lengths, plan.comp_len, plan.desc_bits,
                                 plan.comp_len > 0) if want_hints else None)
     t1 = time.perf_counter()
-    times["tables"] = t1 - t0
+    _add_time(times, "tables", t1 - t0)
+    dev = tokw.device
 
     def d(a):
-        return _to_device(a, tokw.device)
+        return _to_device(a, dev)
 
     lanes = None if hplan is None else (d(hplan.meta), d(hplan.init))
     res = pack_tokens_flat(tokw, d(plan.bases), plan.T, d(plan.ntok),
                            d(plan.bit0), d(plan.lut), plan.nwords, lanes)
     words, entries = res if lanes is not None else (res, None)
     copy_rows = np.flatnonzero(plan.is_copy)
+    if copy_rows.size:
+        words = torch.cat([words, bwords[d(copy_rows)].reshape(-1)])
+    event = None
+    if dev.type == "cuda":
+        buf = host.take(slot, words.numel())
+        buf.copy_(words, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    else:
+        buf = words
+    _add_time(times, "pack", time.perf_counter() - t1)
+    return _Staged(plan=plan, hplan=hplan, lengths=lengths, nb_per=nb_per,
+                   nr_streams=len(lengths) // nb_per, hist_np=hist_np,
+                   copy_rows=copy_rows, host=buf, event=event,
+                   entries=entries)
+
+
+def _finish_streams(st: _Staged, times: dict, wait_key: str = "wait"):
+    """The second half of entropy_streams: wait for the staged copy, then
+    the description OR, the COPY rows, the headers and CRCs of each
+    stream, and the hints. Returns (streams, hints or None)."""
+    t0 = time.perf_counter()
+    if st.event is not None:
+        st.event.synchronize()
+    host = st.host.numpy()
+    entries = None if st.entries is None else st.entries.cpu().numpy()
+    t1 = time.perf_counter()
+    _add_time(times, wait_key, t1 - t0)
+    plan, lengths = st.plan, st.lengths
+    nw = plan.nwords
+    tight = host[:nw].view(np.uint8)[:plan.total_payload].copy()
     copy_len = np.where(plan.is_copy, lengths, 0).astype(np.int64)
     copy_np = np.zeros(0, np.uint8)
-    if copy_rows.size:
-        raw = bwords[d(copy_rows)].cpu().numpy().view(np.uint8)
+    if st.copy_rows.size:
+        raw = host[nw:].view(np.uint8).reshape(st.copy_rows.size, -1)
         copy_np = np.concatenate([raw[j, :lengths[b]]
-                                  for j, b in enumerate(copy_rows)])
-    tight = words.cpu().numpy().view(np.uint8)[:plan.total_payload].copy()
-    if entries is not None:
-        entries = entries.cpu().numpy()
-    t2 = time.perf_counter()
-    times["pack"] = t2 - t1
-
+                                  for j, b in enumerate(st.copy_rows)])
     _or_descriptions(tight, plan.comp_len, plan.desc_bytes)
     crcs = np.zeros(len(lengths), np.int64)
-    streams = _plane_streams(lengths, nb_per, nr_planes, tight, plan.comp_len,
-                             copy_np, copy_len, plan.is_fill, hist_np, crcs)
+    streams = _plane_streams(lengths, st.nb_per, st.nr_streams, tight,
+                             plan.comp_len, copy_np, copy_len, plan.is_fill,
+                             st.hist_np, crcs)
     hints = None
-    if hplan is not None:
-        hints = sidecar.finish_hints(hplan, entries, crcs, plan.comp_len)
-    times["assemble"] = time.perf_counter() - t2
+    if st.hplan is not None:
+        hints = sidecar.finish_hints(st.hplan, entries, crcs, plan.comp_len)
+    _add_time(times, "assemble", time.perf_counter() - t1)
     return streams, hints
+
+
+def entropy_streams(tokw, bwords, hist_np, plane_len: int, nr_planes: int,
+                    times: dict, want_hints: bool = False,
+                    host: Optional[HostStaging] = None):
+    """One hzr stream per plane from tokenize_planes' outputs: host
+    tables, the flat pack on tokw's device, one device→host copy of the
+    payload words and of COPY blocks' raw plane bytes (on the card into
+    host's pinned buffers, or new ones), headers. A batch of payloads
+    (tokenize_planes' 2-D form) is nr_planes = batch * planes streams.
+    Adds the wall time of its stages to ``times`` (tables, pack with the
+    wait for the copy, assemble).
+
+    Returns (streams, hints): with want_hints, the pack also writes the
+    decoder's segment entries (hzr/sidecar.py) and hints are the
+    DecodeHints of a decode of these streams in order (None when no
+    block is HUFF); else None."""
+    nb_per, lengths = block_layout(plane_len, nr_planes)
+    st = _dispatch_streams(tokw, bwords, hist_np, lengths, nb_per, times,
+                           want_hints, host or HostStaging())
+    return _finish_streams(st, times, wait_key="pack")
+
+
+def entropy_streams_pipelined(tokw, bwords, hist_np, plane_len: int,
+                              batch: int, planes: int, times: dict,
+                              host: Optional[HostStaging] = None
+                              ) -> List[bytes]:
+    """entropy_streams of a batch of payloads in waves of WAVE payloads,
+    software-pipelined (packers/tpu.py:_entropy_streams_pipelined
+    :518-620): wave i's host tables (the runtime's build_tables, which
+    releases the GIL) run while wave i-1's pack and its device→host copy
+    run on the card; wave i-1 is finished (its streams assembled) after
+    wave i is dispatched. Each wave's streams equal an entropy_streams
+    call over its payloads, so the whole equals one call over the batch.
+    Unlike JAX's, every wave pipelines: the flat pack takes COPY blocks
+    and has no VMEM cap. Rows of tokw, bwords and hist_np are
+    payload-major (tokenize_planes' 2-D form). Adds the wall time of its
+    stages, summed over the waves, to ``times`` (tables, pack, wait,
+    assemble). Returns batch * planes streams, payload-major."""
+    nb_per, lengths = block_layout(plane_len, planes)
+    nbp = planes * nb_per                       # blocks a payload
+    host = host or HostStaging()
+    staged, streams = [], []
+    for k, p0 in enumerate(range(0, batch, WAVE)):
+        p1 = min(p0 + WAVE, batch)
+        r = slice(p0 * nbp, p1 * nbp)
+        staged.append(_dispatch_streams(
+            tokw[r], bwords[r], hist_np[r], np.tile(lengths, p1 - p0),
+            nb_per, times, host=host, slot=k % 2))
+        if len(staged) > 1:
+            streams += _finish_streams(staged.pop(0), times)[0]
+    while staged:
+        streams += _finish_streams(staged.pop(0), times)[0]
+    return streams
 
 
 def _or_descriptions(tight, comp_len, desc_bytes) -> None:

@@ -3,10 +3,12 @@
 Each function computes what its plain Python version computes, byte for
 byte: ``crc32c`` as ``formats.crc32c.crc32c_plain``, ``build_tables``
 as ``hzr.torch_coder.host_tables_plain``, the decoders as
-``hzr.pyref.decode``, ``verify`` as ``hzr.pyref.verify`` and
+``hzr.pyref.decode``, ``verify`` as ``hzr.pyref.verify``,
 ``lut_nib_batch`` as ``hzr.gpu_decoder.build_lut_nib`` of
-``hzr.pyref._recover_tree``. Bad input raises ValueError, as the plain
-versions do. The library is built on the first call (``_build``); a
+``hzr.pyref._recover_tree``, and ``iir_filter_array`` /
+``iir_filter_channels`` as ``filters.streaming.IirFilter``'s
+``filter_opt`` (opt 1) and ``filter`` (opt 0) loops, bit for bit. Bad
+input raises ValueError, as the plain versions do. The library is built on the first call (``_build``); a
 failed build raises.
 """
 
@@ -40,6 +42,9 @@ _SIGNATURES = {
     "rpt_build_tables": (_I, [_P, _I, _P, _P, _P, _SZ, _P, _P, _I]),
     "rpt_declutnib_batch": (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                                  _I]),
+    "rpt_iir_filter_array": (None, [_P, _SZ, _P, _P, _I, _P, _P, _I, _P]),
+    "rpt_iir_filter_channels": (None, [_P, _SZ, _SZ, _P, _P, _I, _P, _P, _I,
+                                       _P, _I]),
 }
 
 
@@ -195,3 +200,54 @@ def lut_nib_batch(payloads) -> Tuple[List[tuple], np.ndarray]:
             luts.append((l1[i].copy(), levels,
                          [-(-lev.size // 128) for lev in levels]))
     return luts, dbits
+
+
+def _iir_coefficients(n, d):
+    """The feedback (n, n[0] = 1) and feedforward (d) vectors as float64,
+    of one length p >= 1."""
+    na = np.ascontiguousarray(n, np.float64).reshape(-1)
+    da = np.ascontiguousarray(d, np.float64).reshape(-1)
+    if na.size < 1 or na.size != da.size:
+        raise ValueError("iir: n and d need one length >= 1")
+    return na, da
+
+
+def iir_filter_array(x, n, d, xz, yz, opt: int):
+    """One channel's serial IIR over x in the reference's accumulation
+    order (opt 1: filter_opt, 0: filter), state rings xz / yz of length p
+    (index 0 the newest). Returns (y float64, (xz', yz') as lists)."""
+    na, da = _iir_coefficients(n, d)
+    p = na.size
+    xa = np.ascontiguousarray(x, np.float64).reshape(-1)
+    xza = np.array(xz, np.float64).reshape(-1)
+    yza = np.array(yz, np.float64).reshape(-1)
+    if xza.size != p or yza.size != p:
+        raise ValueError(f"iir: state of {p} values expected")
+    y = np.empty_like(xa)
+    _lib().rpt_iir_filter_array(_p(xa), xa.size, _p(na), _p(da), p,
+                                _p(xza), _p(yza), int(opt), _p(y))
+    return y, (xza.tolist(), yza.tolist())
+
+
+def iir_filter_channels(x, n, d, xz: np.ndarray, yz: np.ndarray, opt: int,
+                        nthreads: int = 0) -> np.ndarray:
+    """Every channel of x (ch, n) through its own serial IIR in one call,
+    the channels in threads; each channel's bits equal iir_filter_array's.
+    xz / yz: (ch, p) float64 state, updated in place. Returns y (ch, n)
+    float64."""
+    na, da = _iir_coefficients(n, d)
+    p = na.size
+    xa = np.ascontiguousarray(x, np.float64)
+    if xa.ndim != 2:
+        raise ValueError("iir: x must be (channels, samples)")
+    ch, ns = xa.shape
+    for st in (xz, yz):
+        if (not isinstance(st, np.ndarray) or st.dtype != np.float64
+                or st.shape != (ch, p) or not st.flags.c_contiguous):
+            raise ValueError(f"iir: state must be C-contiguous float64 "
+                             f"({ch}, {p})")
+    y = np.empty_like(xa)
+    _lib().rpt_iir_filter_channels(_p(xa), ch, ns, _p(na), _p(da), p,
+                                   _p(xz), _p(yz), int(opt), _p(y),
+                                   int(nthreads))
+    return y

@@ -9,9 +9,12 @@
 //     and tie order, preorder tree description);
 //   * the block-parallel hzr decoder and hzr_verify;
 //   * the nibble-level decode LUTs of the device decoder, recovered
-//     straight from HUFF payload bits.
+//     straight from HUFF payload bits;
+//   * the streaming path's serial f64 IIR filter, one channel or all of
+//     them in threads, in both of the reference's accumulation orders.
 // Tree build, tree recovery and the bit reader are copied unchanged:
-// their order is what keeps every stream byte-identical.
+// their order is what keeps every stream byte-identical; the IIR's
+// operation order (and -ffp-contract=off) keeps its f64 bits equal.
 //
 // Built by rspt_tpu_torch/native/_build.py with g++ at first use.
 
@@ -759,6 +762,92 @@ static int declutnib_one(const uint8_t* payload, size_t plen,
     return walk((int16_t)root, 0, 0) ? 0 : -1;
 }
 
+// ---------------------------------------------------------------------------
+// IIR filter (rspt_native.cpp:1874-1955, iir_filter.cpp:26-107): a
+// direct-form-I recurrence with p coefficients, state rings xz / yz of
+// length p (index 0 the newest), updated in place. opt = 1 is filter_opt's
+// order (every feedforward term left to right, then every feedback
+// subtraction), opt = 0 the generic filter's (the two interleaved a
+// tap). Fixed orders 2..5 keep the state in registers; the operation
+// order is the generic loop's, so the bits are the same.
+// ---------------------------------------------------------------------------
+
+#define RPT_IIR_UNROLL(P)                                                 \
+static void iir_arr_##P(const double* x, size_t n, const double* nc,      \
+                        const double* dc, double* xz, double* yz,         \
+                        int opt, double* y) {                             \
+    double xs[P], ys[P];                                                  \
+    for (int i = 0; i < P; ++i) { xs[i] = xz[i]; ys[i] = yz[i]; }         \
+    if (opt) {                                                            \
+        for (size_t t = 0; t < n; ++t) {                                  \
+            for (int i = P - 1; i > 0; --i) {                             \
+                xs[i] = xs[i - 1];                                        \
+                ys[i] = ys[i - 1];                                        \
+            }                                                             \
+            xs[0] = x[t];                                                 \
+            double acc = dc[0] * xs[0];                                   \
+            for (int i = 1; i < P; ++i) acc = acc + dc[i] * xs[i];        \
+            for (int i = 1; i < P; ++i) acc = acc - nc[i] * ys[i];        \
+            ys[0] = acc;                                                  \
+            y[t] = acc;                                                   \
+        }                                                                 \
+    } else {                                                              \
+        for (size_t t = 0; t < n; ++t) {                                  \
+            for (int i = P - 1; i > 0; --i) {                             \
+                xs[i] = xs[i - 1];                                        \
+                ys[i] = ys[i - 1];                                        \
+            }                                                             \
+            xs[0] = x[t];                                                 \
+            double acc = dc[0] * xs[0];                                   \
+            for (int i = 1; i < P; ++i) {                                 \
+                acc += dc[i] * xs[i];                                     \
+                acc -= nc[i] * ys[i];                                     \
+            }                                                             \
+            ys[0] = acc;                                                  \
+            y[t] = acc;                                                   \
+        }                                                                 \
+    }                                                                     \
+    for (int i = 0; i < P; ++i) { xz[i] = xs[i]; yz[i] = ys[i]; }         \
+}
+
+RPT_IIR_UNROLL(2)
+RPT_IIR_UNROLL(3)
+RPT_IIR_UNROLL(4)
+RPT_IIR_UNROLL(5)
+
+void iir_filter_array(const double* x, size_t n, const double* nc,
+                      const double* dc, int p, double* xz, double* yz,
+                      int opt, double* y) {
+    switch (p) {
+        case 2: iir_arr_2(x, n, nc, dc, xz, yz, opt, y); return;
+        case 3: iir_arr_3(x, n, nc, dc, xz, yz, opt, y); return;
+        case 4: iir_arr_4(x, n, nc, dc, xz, yz, opt, y); return;
+        case 5: iir_arr_5(x, n, nc, dc, xz, yz, opt, y); return;
+        default: break;
+    }
+    for (size_t t = 0; t < n; ++t) {
+        for (int i = p - 1; i > 0; --i) {
+            xz[i] = xz[i - 1];
+            yz[i] = yz[i - 1];
+        }
+        xz[0] = x[t];
+        double acc;
+        if (opt) {
+            acc = dc[0] * xz[0];
+            for (int i = 1; i < p; ++i) acc = acc + dc[i] * xz[i];
+            for (int i = 1; i < p; ++i) acc = acc - nc[i] * yz[i];
+        } else {
+            acc = dc[0] * xz[0];
+            for (int i = 1; i < p; ++i) {
+                acc += dc[i] * xz[i];
+                acc -= nc[i] * yz[i];
+            }
+        }
+        yz[0] = acc;
+        y[t] = acc;
+    }
+}
+
 }  // namespace
 
 // ===========================================================================
@@ -1033,6 +1122,38 @@ int rpt_build_tables(const uint32_t* hists, int nb,
     for (int i = 0; i < nb; ++i)
         if (rcs[i]) return 1;
     return 0;
+}
+
+// One channel's serial IIR over n samples (see iir_filter_array); the
+// state xz / yz (p doubles each) is updated in place.
+void rpt_iir_filter_array(const double* x, size_t n, const double* nc,
+                          const double* dc, int p, double* xz, double* yz,
+                          int opt, double* y) {
+    iir_filter_array(x, n, nc, dc, p, xz, yz, opt, y);
+}
+
+// All ch channels of x (ch, n) in one call, a channel a thread at most
+// (nthreads <= 0: the CPU's threads): each channel's recurrence is
+// rpt_iir_filter_array's, so threads change no bit. xz / yz: (ch, p).
+void rpt_iir_filter_channels(const double* x, size_t ch, size_t n,
+                             const double* nc, const double* dc, int p,
+                             double* xz, double* yz, int opt, double* y,
+                             int nthreads) {
+    if (nthreads <= 0) nthreads = (int)std::thread::hardware_concurrency();
+    auto work = [&](size_t j0, size_t j1) {
+        for (size_t j = j0; j < j1; ++j)
+            iir_filter_array(x + j * n, n, nc, dc, p, xz + j * (size_t)p,
+                             yz + j * (size_t)p, opt, y + j * n);
+    };
+    if (nthreads <= 1 || ch <= 1) {
+        work(0, ch);
+    } else {
+        size_t nt = (size_t)nthreads < ch ? (size_t)nthreads : ch;
+        std::vector<std::thread> ts;
+        for (size_t t = 0; t < nt; ++t)
+            ts.emplace_back(work, ch * t / nt, ch * (t + 1) / nt);
+        for (auto& th : ts) th.join();
+    }
 }
 
 }  // extern "C"

@@ -33,6 +33,12 @@
 // merged before each atomicAdd) and go to the zeroed global rows with one
 // atomicAdd per non-zero bin; the summary pass zeroes them (else a memset
 // does).
+// A batch of payloads of one plane length (the serving path's 2-D form of
+// tokenize_planes_pallas, :1813-1867) is the same two launches with the
+// payload as the grid's z axis: payload b reads its own signal and writes
+// its rows at (b * nr_planes + p) * nb_per + j, payload-major then
+// plane-major, as the TPU kernel's swapaxes (:1862-1866) orders them;
+// its summary rows and histograms are its own.
 // Bound: bytes - the int32 signal read once, the token words, plane
 // bytes and histograms written once.
 #include "common.cuh"
@@ -76,6 +82,15 @@ struct Slab {
 __device__ __forceinline__ Slab slab_of(int j, int plane_len) {
   const int64_t left = (int64_t)plane_len - (int64_t)j * kB;
   return {j, left < kB ? (int)left : kB};
+}
+
+// Payload blockIdx.z's first row, and the offset of its summary rows.
+__device__ __forceinline__ int64_t payload_row(int nr_planes, int nb_per) {
+  return (int64_t)blockIdx.z * nr_planes * nb_per;
+}
+
+__device__ __forceinline__ int64_t payload_sum(int nb_per) {
+  return (int64_t)blockIdx.z * nb_per * kTiles * kPlanes * 2;
 }
 
 // The int32 words of slab positions [i0, i0 + kPer), 0 past the limit.
@@ -122,6 +137,9 @@ tokenize_summary_kernel(const int32_t* __restrict__ enc,
                         int32_t* __restrict__ sum, int32_t* __restrict__ hist,
                         int plane_len, int nr_planes, int nb_per) {
   __shared__ int s_first[kPlanes], s_last[kPlanes];
+  enc += (int64_t)blockIdx.z * plane_len;
+  sum += payload_sum(nb_per);
+  hist += payload_row(nr_planes, nb_per) * kNSym;
   const int tile = blockIdx.x;
   const Slab s = slab_of(blockIdx.y, plane_len);
   const int i0 = tile * kTile + threadIdx.x * kPer;
@@ -201,6 +219,12 @@ tokenize_planes_kernel(const int32_t* __restrict__ enc,
                        int32_t* __restrict__ bwords,
                        int32_t* __restrict__ hist, int plane_len,
                        int nr_planes, int nb_per) {
+  const int64_t row0 = payload_row(nr_planes, nb_per);
+  enc += (int64_t)blockIdx.z * plane_len;
+  sum += payload_sum(nb_per);
+  tokw += row0 * kB;
+  bwords += row0 * (kB / 4);
+  hist += row0 * kNSym;
   __shared__ int h[kPlanes][kNSym];
   __shared__ int s_wl[kWarps][kPlanes], s_wf[kWarps][kPlanes];
   __shared__ int s_out[2][kPlanes];     // last before / first after the tile
@@ -358,29 +382,41 @@ tokenize_planes_kernel(const int32_t* __restrict__ enc,
 }  // namespace
 
 // Tiles (blocks) a 64 KiB slab; the wrapper's summary scratch holds
-// nb_per * tiles * 8 int32.
+// batch * nb_per * tiles * 8 int32.
 extern "C" int rspt_tokenize_tiles() { return kTiles; }
 
-// enc: plane_len int32; sum: the summary scratch; tokw: (nr_planes*nb_per,
-// 65536) int32; bwords: (nr_planes*nb_per, 16384) int32; hist:
-// (nr_planes*nb_per, 261) int32 (zeroed here). Rows are plane-major.
-// Returns the first launch error (cudaGetLastError()).
-extern "C" int rspt_tokenize_planes(const void* enc, void* sum, void* tokw,
-                                    void* bwords, void* hist, int plane_len,
-                                    int nr_planes, int nb_per, void* stream) {
+// enc: batch x plane_len int32; sum: the summary scratch; tokw:
+// (batch*nr_planes*nb_per, 65536) int32; bwords: (batch*nr_planes*nb_per,
+// 16384) int32; hist: (batch*nr_planes*nb_per, 261) int32 (zeroed here).
+// Rows are payload-major, then plane-major. Returns the first launch
+// error (cudaGetLastError()).
+extern "C" int rspt_tokenize_planes_batch(const void* enc, void* sum,
+                                          void* tokw, void* bwords,
+                                          void* hist, int plane_len,
+                                          int nr_planes, int nb_per,
+                                          int batch, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(kTiles, nb_per);
+  const dim3 grid(kTiles, nb_per, batch);
   if (kSummary) {
     tokenize_summary_kernel<<<grid, kThreads, 0, st>>>(
         (const int32_t*)enc, (int32_t*)sum, (int32_t*)hist, plane_len,
         nr_planes, nb_per);
   } else {
-    cudaMemsetAsync(hist, 0, (size_t)4 * nr_planes * nb_per * kNSym, st);
+    cudaMemsetAsync(hist, 0,
+                    (size_t)4 * batch * nr_planes * nb_per * kNSym, st);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   tokenize_planes_kernel<<<grid, kThreads, 0, st>>>(
-      (const int32_t*)enc, (const int32_t*)sum, (int32_t*)tokw,
-      (int32_t*)bwords, (int32_t*)hist, plane_len, nr_planes, nb_per);
+      (const int32_t*)enc, (int32_t*)sum, (int32_t*)tokw, (int32_t*)bwords,
+      (int32_t*)hist, plane_len, nr_planes, nb_per);
   return (int)cudaGetLastError();
+}
+
+// One payload (rspt_tokenize_planes_batch with batch 1): rows plane-major.
+extern "C" int rspt_tokenize_planes(const void* enc, void* sum, void* tokw,
+                                    void* bwords, void* hist, int plane_len,
+                                    int nr_planes, int nb_per, void* stream) {
+  return rspt_tokenize_planes_batch(enc, sum, tokw, bwords, hist, plane_len,
+                                    nr_planes, nb_per, 1, stream);
 }

@@ -60,6 +60,13 @@
 //    two streams use two counters, so they may overlap. A call must not
 //    share its counter with a call that can run at the same time (a CUDA
 //    graph replayed on two streams at once would).
+//  - A batch of payloads of one shape (the serving path, the vmap of
+//    packers/tpu.py:_pass1_xdelta_batch :243-257) is one launch: payload
+//    b takes CTAs b * per .. (b + 1) * per - 1 (per = tiles x bands), so
+//    no tile straddles two payloads and each payload's chain starts at its
+//    own first sample; each payload has its own flag and its own ticket
+//    counter, which its last CTA resets. The tile is sized as for one
+//    payload on sms / batch SMs, so the batch still makes about one wave.
 #include "common.cuh"
 
 namespace {
@@ -75,7 +82,9 @@ struct Args {
   const uint8_t* in;
   int32_t* out;
   int32_t* ok;
-  unsigned long long* ticket;  // 0 between calls (see above)
+  unsigned long long* ticket;  // a counter a payload, 0 between calls
+  int64_t in_stride;   // bytes of one payload's input
+  int per;             // CTAs of one payload: tiles x bands
   int ns, ch;
   int u8;     // the input is native bytes (else int32 words)
   int sb;     // bytes of one sample in the input: bps, or 4
@@ -154,6 +163,13 @@ inline int threads_of(int S, int band) {
 template <bool kWords>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     xdelta_swizzle_kernel(Args a) {
+  // the payload of this CTA, and the CTA within it
+  const int pay = blockIdx.x / a.per;
+  const int bid = blockIdx.x - pay * a.per;
+  a.in += pay * a.in_stride;
+  a.out += (int64_t)pay * a.ns * a.ch;
+  a.ok += pay;
+  a.ticket += pay;
   extern __shared__ int4 smem[];
   // the tile's samples channel-major, rows of R words (a row for each
   // channel of the stage B groups): the two flat predecessors of the
@@ -164,8 +180,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int nthreads = blockDim.x;
   const int S = a.S;
   const int R = S + 3;
-  const int t = a.bands == 1 ? blockIdx.x : blockIdx.x / a.bands;
-  const int c0 = (blockIdx.x - t * a.bands) * a.band;
+  const int t = a.bands == 1 ? bid : bid / a.bands;
+  const int c0 = (bid - t * a.bands) * a.band;
   const int s0 = t * S;
   const int rows = min(S, a.ns - s0);
   const int cb = min(a.band, a.ch - c0);
@@ -301,8 +317,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
   if (tid != 0) return;
   if (!a.check) {
-    if (blockIdx.x == 0) *a.ok = 1;
-  } else if ((unsigned)old == gridDim.x - 1) {
+    if (bid == 0) *a.ok = 1;
+  } else if ((unsigned)old == a.per - 1) {
     *a.ok = (old >> 32) + !fits == 0;
     atomicExch(a.ticket, 0ull);
   }
@@ -310,24 +326,34 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 }  // namespace
 
+// Samples a tile of a batch of ns x ch payloads on the current device
+// (tests size their edges by it): one payload's tile on sms / batch SMs.
+inline int batch_tile(int ns, int ch, int batch) {
+  const int sms = sm_count() / batch;
+  return tile_samples(ns, ch, sms > 0 ? sms : 1);
+}
+
 // Samples a tile of ns x ch on the current device (tests size their
 // edges by it).
-extern "C" int rspt_xdelta_tile(int ns, int ch) {
-  return tile_samples(ns, ch, sm_count());
+extern "C" int rspt_xdelta_tile(int ns, int ch) { return batch_tile(ns, ch, 1); }
+
+// The same for a batch of payloads.
+extern "C" int rspt_xdelta_tile_batch(int ns, int ch, int batch) {
+  return batch_tile(ns, ch, batch);
 }
 
 // Most channels one CTA takes: more are split into bands.
 extern "C" int rspt_xdelta_band() { return kBand; }
 
-// in: the interleaved signal, int32 words (u8 = 0) or native bytes at bps
-// (u8 = 1); out: ns * ch int32, channel-major; ok: one int32; ticket: one
-// uint64 of the caller's stream, 0 between calls (see above); vec: in is
-// 16-byte aligned; bps: bytes per native sample (1..4). Returns
-// cudaGetLastError().
-extern "C" int rspt_xdelta_swizzle(const void* in, void* out, void* ok,
-                                   void* ticket, int ns, int ch, int u8,
-                                   int vec, int nr_planes, int bps,
-                                   void* stream) {
+// in: `batch` interleaved signals back to back, int32 words (u8 = 0) or
+// native bytes at bps (u8 = 1); out: batch x ns * ch int32, each payload
+// channel-major; ok: batch int32; ticket: batch uint64 of the caller's
+// stream, 0 between calls (see above); vec: in is 16-byte aligned; bps:
+// bytes per native sample (1..4). Returns cudaGetLastError().
+extern "C" int rspt_xdelta_swizzle_batch(const void* in, void* out, void* ok,
+                                         void* ticket, int ns, int ch,
+                                         int u8, int vec, int nr_planes,
+                                         int bps, int batch, void* stream) {
   Args a;
   a.in = (const uint8_t*)in;
   a.out = (int32_t*)out;
@@ -337,10 +363,12 @@ extern "C" int rspt_xdelta_swizzle(const void* in, void* out, void* ok,
   a.ch = ch;
   a.u8 = u8;
   a.sb = u8 ? bps : 4;
-  a.vec = vec && kVector;
+  a.in_stride = (int64_t)ns * ch * a.sb;
+  // 16-byte loads need every payload's span aligned
+  a.vec = vec && kVector && (batch == 1 || a.in_stride % 16 == 0);
   a.band = band_of(ch);
   a.bands = (ch + a.band - 1) / a.band;
-  a.S = tile_samples(ns, ch, sm_count());
+  a.S = batch_tile(ns, ch, batch);
   a.inv_band = 1.0f / a.band;
   a.inv_s = 1.0f / a.S;
   a.raw_off = (4 * groups_of(a.band) * kChunk * (a.S + 3) + 15) & ~15;
@@ -348,6 +376,7 @@ extern "C" int rspt_xdelta_swizzle(const void* in, void* out, void* ok,
   a.sh = 32 - 8 * nr_planes;
   a.keep = bps >= 4 ? 0xffffffffu : (1u << (8 * bps)) - 1u;
   const int tiles = (ns + a.S - 1) / a.S;
+  a.per = tiles * a.bands;
   const bool words = a.sb == 4;
   const int smem =
       a.raw_off + (words ? 0 : (a.band * a.S * a.sb + 4 + 15) & ~15);
@@ -358,7 +387,18 @@ extern "C" int rspt_xdelta_swizzle(const void* in, void* out, void* ok,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<tiles * a.bands, threads_of(a.S, a.band), smem,
+  kernel<<<a.per * batch, threads_of(a.S, a.band), smem,
            (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// One payload: in, the interleaved signal; out: ns * ch int32,
+// channel-major; ok: one int32; ticket: one uint64 (see
+// rspt_xdelta_swizzle_batch).
+extern "C" int rspt_xdelta_swizzle(const void* in, void* out, void* ok,
+                                   void* ticket, int ns, int ch, int u8,
+                                   int vec, int nr_planes, int bps,
+                                   void* stream) {
+  return rspt_xdelta_swizzle_batch(in, out, ok, ticket, ns, ch, u8, vec,
+                                   nr_planes, bps, 1, stream);
 }

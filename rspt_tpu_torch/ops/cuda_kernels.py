@@ -13,7 +13,11 @@ Each replaces (rspt_tpu/ops/pallas_kernels.py):
   xdelta_swizzle   K1 xdelta_preprocess_pallas, with the native_to_i32
                    transpose and byte assembly and the verify-and-grow
                    flag
-  tokenize_planes  K2 tokenize_planes_pallas, with hist_from_tokw
+  xdelta_swizzle_batch
+                   K1 over a batch of payloads, the vmap of
+                   packers/tpu.py:_pass1_xdelta_batch
+  tokenize_planes  K2 tokenize_planes_pallas, with hist_from_tokw; a 2-D
+                   (batch, plane_len) input is its batched form
   compact_tokens   K3 compact_tokens_pallas, and X2
                    tools/exp_compact.py:compact_bf, K3 by another route
   pack_flat        K4 token_group_windows_rows_pallas, the cumsum glue
@@ -74,9 +78,12 @@ def _lib() -> ctypes.CDLL:
     sigs = {
         "rspt_xdelta_tile": [I, I],
         "rspt_xdelta_band": [],
+        "rspt_xdelta_tile_batch": [I, I, I],
         "rspt_xdelta_swizzle": [P] * 4 + [I] * 6 + [P],
+        "rspt_xdelta_swizzle_batch": [P] * 4 + [I] * 7 + [P],
         "rspt_tokenize_tiles": [],
         "rspt_tokenize_planes": [P] * 5 + [I] * 3 + [P],
+        "rspt_tokenize_planes_batch": [P] * 5 + [I] * 4 + [P],
         "rspt_compact_tiles": [I],
         "rspt_compact_tokens": [P] * 4 + [I] * 4 + [P],
         "rspt_pack_flat_state": [I, I],
@@ -179,18 +186,19 @@ def xdelta_swizzle_plain(x: torch.Tensor, nr_samples: int, nr_channels: int,
     return enc, _fits_planes(enc, nr_planes, bytes_per_sample)
 
 
-# the kernel's ticket counter for each (device, stream): zeroed once when
-# made, left at 0 by every call (csrc/xdelta.cu)
+# the kernel's ticket counters for each (device, stream), one a payload of
+# a batch: zeroed when made, left at 0 by every call (csrc/xdelta.cu); a
+# larger batch replaces them with more, made on the same stream
 _xdelta_tickets = {}
 
 
-def _xdelta_ticket(device: torch.device) -> torch.Tensor:
+def _xdelta_ticket(device: torch.device, n: int = 1) -> torch.Tensor:
     stream = torch.cuda.current_stream(device)
     key = (device.index, stream.cuda_stream)
     t = _xdelta_tickets.get(key)
-    if t is None:
+    if t is None or t.numel() < n:
         with torch.cuda.device(device):
-            t = torch.zeros(1, dtype=torch.int64, device=device)
+            t = torch.zeros(max(n, 1), dtype=torch.int64, device=device)
         _xdelta_tickets[key] = t
     return t
 
@@ -237,11 +245,65 @@ def xdelta_swizzle(x: torch.Tensor, nr_samples: int, nr_channels: int,
 xdelta_swizzle.launches = 0
 
 
+def xdelta_swizzle_batch_plain(x: torch.Tensor, nr_samples: int,
+                               nr_channels: int, nr_planes: int,
+                               bytes_per_sample: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    outs = [xdelta_swizzle_plain(row, nr_samples, nr_channels, nr_planes,
+                                 bytes_per_sample, True) for row in x]
+    return (torch.stack([e for e, _ in outs]),
+            torch.cat([ok for _, ok in outs]))
+
+
+def xdelta_swizzle_batch(x: torch.Tensor, nr_samples: int, nr_channels: int,
+                         nr_planes: int, bytes_per_sample: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xdelta_swizzle of each row of x, a batch of interleaved payloads of
+    one shape: (batch, ns * ch) int32 '<i4' words, or (batch, ns * ch *
+    bps) uint8 native bytes at bps 1-4. Each payload's chain starts fresh
+    at its own first sample and has its own flag. On the card one kernel
+    and no other device operation. Returns (enc (batch, ns * ch) int32,
+    channel-major a payload, ok (batch,) int32)."""
+    n = nr_samples * nr_channels
+    u8 = x.dtype == torch.uint8
+    _check(x, "x", torch.uint8 if u8 else torch.int32)
+    need = n * bytes_per_sample if u8 else n
+    if x.dim() != 2 or x.shape[1] != need or n <= 0 or n >= 2**31:
+        raise ValueError(f"x: need (batch, {need}) with {need} > 0")
+    if not 1 <= nr_planes <= 4:
+        raise ValueError("nr_planes must be 1..4")
+    if not 1 <= bytes_per_sample <= 4:
+        raise ValueError("bytes_per_sample must be 1..4")
+    if not u8 and bytes_per_sample != 4:
+        raise ValueError("int32 word input needs bytes_per_sample=4")
+    batch = x.shape[0]
+    if not _on_cuda(x):
+        return xdelta_swizzle_batch_plain(x, nr_samples, nr_channels,
+                                          nr_planes, bytes_per_sample)
+    enc = torch.empty((batch, n), dtype=torch.int32, device=x.device)
+    ok = torch.empty(batch, dtype=torch.int32, device=x.device)
+    if batch == 0:
+        return enc, ok
+    _launch("xdelta_swizzle_batch", _lib().rspt_xdelta_swizzle_batch,
+            x.data_ptr(), enc.data_ptr(), ok.data_ptr(),
+            _xdelta_ticket(x.device, batch).data_ptr(), nr_samples,
+            nr_channels, int(u8), int(_aligned16(x)), nr_planes,
+            bytes_per_sample, batch, device=x.device)
+    xdelta_swizzle_batch.launches += 1
+    return enc, ok
+
+
+xdelta_swizzle_batch.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Kernel 2 — tokenize_planes (K2 + hist_from_tokw)
 # ---------------------------------------------------------------------------
 
 def tokenize_planes_plain(enc: torch.Tensor, nr_planes: int):
+    if enc.dim() == 2:
+        outs = [tokenize_planes_plain(row, nr_planes) for row in enc]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
     plane_len = enc.numel()
     dev = enc.device
     nb_per = max(1, -(-plane_len // B))
@@ -271,27 +333,37 @@ def tokenize_planes(enc: torch.Tensor, nr_planes: int):
     int32, nb = nr_planes * ceil(plane_len / 65536), plane-major rows:
     the token words sym | ebits<<9 | extra<<13 | valid<<27, the plane
     bytes 4 per little-endian word, and each block's 261-bin histogram
-    (single zeros count under sym 0)."""
+    (single zeros count under sym 0).
+
+    enc may be (batch, plane_len), a batch of payloads (the serving
+    path): one launch for the whole batch, nb = batch * nr_planes *
+    nb_per rows, payload-major then plane-major (row (b * nr_planes + p)
+    * nb_per + j, tokenize_planes_pallas's order)."""
     _check(enc, "enc", torch.int32)
-    plane_len = enc.numel()
-    if enc.dim() != 1 or plane_len <= 0 or plane_len >= 2**31:
-        raise ValueError("enc: need a non-empty 1-D signal")
+    batch = enc.shape[0] if enc.dim() == 2 else 1
+    plane_len = enc.shape[-1] if enc.dim() else 0
+    if (enc.dim() not in (1, 2) or plane_len <= 0 or plane_len >= 2**31
+            or not 1 <= batch < 65536):
+        raise ValueError("enc: need a non-empty 1-D signal, or (batch, "
+                         "plane_len) with 1 <= batch < 65536")
     if not 1 <= nr_planes <= 4:
         raise ValueError("nr_planes must be 1..4")
     if not _on_cuda(enc):
         return tokenize_planes_plain(enc, nr_planes)
     nb_per = -(-plane_len // B)
-    nb = nr_planes * nb_per
+    nb = batch * nr_planes * nb_per
     kw = dict(dtype=torch.int32, device=enc.device)
     tokw = torch.empty((nb, B), **kw)
     bwords = torch.empty((nb, B // 4), **kw)
     hist = torch.empty((nb, NUM_SYMBOLS), **kw)    # zeroed by the call
     lib = _lib()
     # the summary pass's first and last non-zero of every tile and plane
-    summary = torch.empty(nb_per * lib.rspt_tokenize_tiles() * 8, **kw)
-    _launch("tokenize_planes", lib.rspt_tokenize_planes, enc.data_ptr(),
-            summary.data_ptr(), tokw.data_ptr(), bwords.data_ptr(),
-            hist.data_ptr(), plane_len, nr_planes, nb_per, device=enc.device)
+    summary = torch.empty(batch * nb_per * lib.rspt_tokenize_tiles() * 8,
+                          **kw)
+    _launch("tokenize_planes", lib.rspt_tokenize_planes_batch,
+            enc.data_ptr(), summary.data_ptr(), tokw.data_ptr(),
+            bwords.data_ptr(), hist.data_ptr(), plane_len, nr_planes, nb_per,
+            batch, device=enc.device)
     tokenize_planes.launches += 1
     return tokw, bwords, hist
 
@@ -1343,7 +1415,8 @@ def windows_place_flat(tokc: torch.Tensor, lut3: torch.Tensor,
 windows_place_flat.launches = 0
 
 
-KERNELS = (xdelta_swizzle, tokenize_planes, compact_tokens, pack_flat,
-           pack_flat_lanes, pack_blocks, pack_blocks_tokw, fwht, dct_forward,
-           dct_inverse, hzr_decode, place_literals, group_windows,
-           place_windows_aligned, windows_place_flat)
+KERNELS = (xdelta_swizzle, xdelta_swizzle_batch, tokenize_planes,
+           compact_tokens, pack_flat, pack_flat_lanes, pack_blocks,
+           pack_blocks_tokw, fwht, dct_forward, dct_inverse, hzr_decode,
+           place_literals, group_windows, place_windows_aligned,
+           windows_place_flat)

@@ -1,7 +1,7 @@
 """GPU packers — the port of rspt_tpu/packers/tpu.py's TpuHzrPacker
-(:726-749), TpuXdeltaHzrPacker (:752-809, :887-903), TpuDctPacker
-(:971-1043) and TpuHadamardPacker (:1065-1116); byte-identical
-containers.
+(:726-749), TpuXdeltaHzrPacker (:752-903, compress_many :811-885),
+TpuDctPacker (:971-1043) and TpuHadamardPacker (:1065-1116);
+byte-identical containers.
 
 compress, device passes with host work between them:
   pass 1: the packer's preprocessing on the device (one xdelta_swizzle
@@ -16,6 +16,12 @@ compress, device passes with host work between them:
       straight into the final payload layout; one device→host copy of the
       payload words (and of the raw plane bytes of COPY blocks).
   host: tree descriptions OR-merged, headers, CRC32C, concatenation.
+
+compress_many (the serving path, xdelta_hzr) does the same for a batch
+of payloads of one shape: one upload, then for each plane count it
+probes one xdelta_swizzle_batch and one tokenize_planes launch over the
+whole batch, and the entropy stage in waves of 4 payloads whose host
+tables overlap the card's pack of the wave before.
 
 decompress decodes every plane's hzr stream on the host, all blocks of
 all planes in one call of the port's host runtime (rspt_tpu_torch/
@@ -123,6 +129,8 @@ class _GpuPackerBase:
         # what the last device decode did (gpu_decoder.decode_device)
         self.decode_info: dict = {}
         self.stage_seconds: Dict[str, float] = {}
+        # pinned host buffers of the device<->host copies, kept across calls
+        self._host = tc.HostStaging()
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -139,7 +147,7 @@ class _GpuPackerBase:
         streams, hints = tc.entropy_streams(
             tokw, bwords, hist_np.reshape(-1, tc.NUM_SYMBOLS),
             self.cfg.plane_len, self.nr_planes, self.stage_seconds,
-            want_hints)
+            want_hints, self._host)
         return _container(self.METHOD, header, streams), hints
 
     def _streams(self, comp, nr_planes: int, header_size: int
@@ -325,6 +333,94 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
 
     def compress(self, src) -> bytes:
         return self._compress(src, False)[0]
+
+    def _upload_batch(self, srcs) -> torch.Tensor:
+        """The payloads stacked into one (batch, words or bytes) host
+        array (pinned on the card) and uploaded in one copy."""
+        c = self.cfg
+        rows = [_as_words(s, c.bytes_per_sample) for s in srcs]
+        need = c.native_size // rows[0].itemsize
+        if any(r.size < need for r in rows):
+            raise ValueError(f"compress_many: every payload needs "
+                             f"{c.native_size} bytes")
+        dtype = torch.from_numpy(rows[0][:0]).dtype
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.stack([r[:need] for r in rows]))
+        buf = self._host.take("upload", len(rows) * need, dtype)
+        host = buf.numpy().reshape(len(rows), need)
+        for h, r in zip(host, rows):
+            h[:] = r[:need]
+        return buf.reshape(len(rows), need).to(self.device, non_blocking=True)
+
+    def compress_many(self, srcs) -> List[bytes]:
+        """Compress a batch of same-shape payloads, the serving path
+        (tpu.py:811-885); each container equals what a sequential run of
+        compress() on this packer gives, verify-and-grow included: a
+        payload that grows the plane count grows it for every later
+        payload and never for an earlier one
+        (signal_packer_xdelta_hzr.cpp:59-71), by the reference's rule (F1).
+
+        One upload of the stacked payloads; for each plane count probed
+        (from nr_planes up, until every payload fits) one
+        xdelta_swizzle_batch and one tokenize_planes launch over the
+        whole batch. A level that every payload takes goes through the
+        pipelined entropy stage when the batch is larger than 4 (waves of
+        4), else one entropy_streams call; a level that only some take
+        selects their rows on the device first. compress_many([]) is []
+        and touches no device. ``stage_seconds``: pass1 (upload and
+        probes), then tables, pack, wait and assemble."""
+        c = self.cfg
+        batch = len(srcs)
+        if batch == 0:
+            return []
+        self.stage_seconds = {}
+        t0 = time.perf_counter()
+        raw = self._upload_batch(srcs)
+        levels = {}
+        minfit = np.full(batch, -1, np.int64)
+        p = self.nr_planes
+        while True:
+            enc, ok = ck.xdelta_swizzle_batch(raw, c.nr_samples,
+                                              c.nr_channels, p,
+                                              c.bytes_per_sample)
+            tokw, bwords, hist = ck.tokenize_planes(enc, p)
+            small = torch.cat([hist.reshape(-1), ok]).cpu().numpy()
+            levels[p] = (tokw, bwords,
+                         small[:-batch].reshape(-1, tc.NUM_SYMBOLS))
+            minfit[(minfit < 0) & (small[-batch:] != 0)] = p
+            if (minfit >= 0).all() or p >= 4:
+                minfit[minfit < 0] = p      # 4 planes always fit
+                break
+            p += 1
+        # sequential-call semantics: the plane count only ever grows
+        plane_of = np.maximum.accumulate(minfit)
+        self.nr_planes = int(plane_of[-1])
+        self.stage_seconds["pass1"] = time.perf_counter() - t0
+
+        nb_per, _ = tc.block_layout(c.plane_len, 1)
+        containers: List[bytes] = [b""] * batch
+        for lvl in sorted(set(plane_of.tolist())):
+            idx = np.flatnonzero(plane_of == lvl)
+            tokw, bwords, hist_np = levels[lvl]
+            if idx.size < batch:
+                nbp = lvl * nb_per
+                rows = (idx[:, None] * nbp + np.arange(nbp)).reshape(-1)
+                rows_d = self._to_dev(rows)
+                tokw = tokw.index_select(0, rows_d)
+                bwords = bwords.index_select(0, rows_d)
+                hist_np = hist_np[rows]
+            if idx.size == batch and batch > tc.WAVE:
+                streams = tc.entropy_streams_pipelined(
+                    tokw, bwords, hist_np, c.plane_len, batch, lvl,
+                    self.stage_seconds, self._host)
+            else:
+                streams, _ = tc.entropy_streams(
+                    tokw, bwords, hist_np, c.plane_len, idx.size * lvl,
+                    self.stage_seconds, host=self._host)
+            for j, b in enumerate(idx):
+                containers[b] = _container(self.METHOD, b"",
+                                           streams[j * lvl:(j + 1) * lvl])
+        return containers
 
     def compress_with_hints(self, src):
         """compress() plus the encode-time decode hints (hzr/sidecar.py):

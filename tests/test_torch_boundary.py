@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rspt_tpu_torch import packers as gpack  # noqa: E402
+from rspt_tpu_torch import pipeline as gpipe  # noqa: E402
 from rspt_tpu_torch.hzr import gpu_decoder, torch_coder  # noqa: E402
 from rspt_tpu_torch.native import _build as native_build  # noqa: E402
 from rspt_tpu_torch.native import bindings as native  # noqa: E402
@@ -23,8 +24,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_loads_neither_jax_nor_rspt_tpu():
     """The port's modules import no jax and nothing of rspt_tpu, nor do a
-    stream encode (pack_blocks' plain version) and a DCT compress through
-    them."""
+    stream encode (pack_blocks' plain version), a DCT compress and a
+    filtered streaming push (compress_many) through them."""
     code = (
         "import sys\n"
         "import rspt_tpu_torch\n"
@@ -36,6 +37,13 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "from rspt_tpu_torch.native import _build as native_build, "
         "bindings\n"
         "from rspt_tpu_torch.utils import metrics\n"
+        "from rspt_tpu_torch import filters, io, pipeline\n"
+        "from rspt_tpu_torch.filters import design, streaming\n"
+        "from rspt_tpu_torch.io import ring\n"
+        "cfg = pipeline.StreamConfig(2, 2, 64, filter_coeffs=("
+        "[1.0, -0.5], [0.5, 0.5]))\n"
+        "c = pipeline.StreamingCodec(cfg, device='cpu')\n"
+        "assert len(c.push(bytes(2 * 2 * 64 * 3))) == 3\n"
         "from rspt_tpu_torch.packers import GpuDctPacker, new_dct\n"
         "assert len(new_dct(4, 2, 3, device='cpu').compress(bytes(24))) > 7\n"
         "assert torch_coder.encode(b'ab' * 99, device='cpu')[:4] == "
@@ -79,6 +87,17 @@ def test_default_device_raises_without_card(monkeypatch):
             make(4, 2, 128)
         assert make(4, 2, 128, device="cpu").device.type == "cpu"
     assert gpack.new_xdelta_hzr(4, 2, 100, 3, device="cpu").nr_planes == 3
+
+
+def test_streaming_raises_without_card(monkeypatch):
+    """StreamingCodec and StreamingDecoder with no device and no card
+    raise; with device="cpu" they run on the plain versions."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpipe.StreamConfig(4, 2, 100)
+    for make in (gpipe.StreamingCodec, gpipe.StreamingDecoder):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(cfg)
+        assert make(cfg, device="cpu").packer.device.type == "cpu"
 
 
 def test_decoder_raises_without_card(monkeypatch):
@@ -156,14 +175,18 @@ def test_runtime_build_failure_raises(tmp_path, monkeypatch, compiler):
 
 
 @pytest.mark.parametrize("path", ["compress", "decompress", "device_decode",
-                                  "encode"])
+                                  "encode", "compress_many", "stream"])
 def test_no_python_fallback(monkeypatch, path):
     """When the runtime cannot be had, the main path raises: no entry
-    point falls back to the Python versions."""
+    point falls back to the Python versions (the streaming codec's IIR
+    neither: its push raises before the packer runs)."""
     nat = np.arange(3000, dtype="<i4").tobytes()
     p = gpack.new_xdelta_hzr(4, 3, 1000, 3, device="cpu",
                              device_decode=path == "device_decode")
-    comp = p.compress(nat) if path != "compress" else None
+    comp = p.compress(nat) if path not in ("compress",
+                                           "compress_many") else None
+    codec = gpipe.StreamingCodec(gpipe.StreamConfig(
+        4, 3, 1000, filter_coeffs=([1.0, -0.5], [0.5, 0.5])), packer=p)
 
     def unavailable():
         raise RuntimeError("runtime unavailable")
@@ -172,6 +195,10 @@ def test_no_python_fallback(monkeypatch, path):
     with pytest.raises(RuntimeError, match="runtime unavailable"):
         if path == "compress":
             p.compress(nat)
+        elif path == "compress_many":
+            p.compress_many([nat, nat])
+        elif path == "stream":
+            codec.push(nat)
         elif path == "encode":
             torch_coder.encode(nat, device="cpu")
         else:

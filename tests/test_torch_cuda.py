@@ -1182,6 +1182,133 @@ def test_xdelta_flag_state_resets(dev):
     xdelta_alternating(dev)
 
 
+def xdelta_batch(rng, bps, batch, ns, ch, fail=(1,)):
+    """xdelta_swizzle_batch's input: `batch` payloads of ns x ch samples
+    of bps bytes at planes = max(1, bps - 1) (the flag is checked below
+    bps), as (x, ns, ch, planes): x (batch, ns * ch) int32 words at bps
+    4, else (batch, ns * ch * bps) uint8 native bytes. Payloads in `fail`
+    hold one sample, in their last tile, whose xdelta values need more
+    than `planes` bytes (flag 0 where planes < bps); the others are
+    random within what `planes` planes keep (zeros at 1 plane: flag 1)."""
+    planes = max(1, bps - 1)
+    rows = []
+    for b in range(batch):
+        if b in fail:
+            sig = _spike(ns, ch, ns - 2, ch // 2, planes)
+        elif planes == 1:
+            sig = np.zeros((ns, ch), np.int64)
+        else:
+            lim = 1 << (8 * planes - 5)
+            sig = rng.integers(-lim, lim, (ns, ch), dtype=np.int64)
+        rows.append(native_bytes(sig, bps))
+    x = np.stack(rows)
+    if bps == 4:
+        x = x.view(np.int32)
+    return x, ns, ch, planes
+
+
+# (batch, bps, ns, ch): batches of 1, 2 and 9, bps 1-4, payloads that end
+# inside a tile, 40 channels in two bands
+XDELTA_BATCH_CASES = ((1, 4, 5003, 12), (2, 3, 4096, 12), (9, 2, 1000, 12),
+                      (9, 4, 4096, 12), (3, 1, 1001, 40), (2, 4, 3001, 40))
+
+
+# (batch, planes, plane_len) of the 2-D tokenize_planes: batches of 1, 2
+# and 9, planes 1-4, plane lengths on and off the 64 KiB slab
+TOKENIZE_BATCH_CASES = ((1, 3, 70001), (2, 1, 2 * 65536), (9, 4, 49152),
+                        (9, 2, 4097))
+
+
+@pytest.mark.parametrize("batch,bps,ns,ch", XDELTA_BATCH_CASES)
+def test_xdelta_swizzle_batch_matches_plain(dev, batch, bps, ns, ch):
+    """xdelta_swizzle_batch vs its plain version on XDELTA_BATCH_CASES."""
+    check_xdelta_batch_case(dev, batch, bps, ns, ch)
+
+
+def check_xdelta_batch_case(dev, batch, bps, ns, ch):
+    """xdelta_swizzle_batch vs its plain version and vs xdelta_swizzle a
+    payload, values and flags bit for bit, with flags that differ per
+    payload; the tile equals the kernel's; every ticket counter is back
+    at 0."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = ck._lib()
+    assert lib.rspt_xdelta_tile_batch(ns, ch, batch) == xdelta_tile(
+        ns, ch, max(1, sms // batch))
+    assert lib.rspt_xdelta_tile_batch(ns, ch, 1) == lib.rspt_xdelta_tile(
+        ns, ch)
+    x, ns, ch, planes = xdelta_batch(np.random.default_rng(140 + batch), bps,
+                                     batch, ns, ch, range(1, batch, 2))
+    t = torch.from_numpy(x).to(dev)
+    n0 = ck.xdelta_swizzle_batch.launches
+    enc, ok = ck.xdelta_swizzle_batch(t, ns, ch, planes, bps)
+    assert ck.xdelta_swizzle_batch.launches == n0 + 1
+    want = ck.xdelta_swizzle_batch_plain(t, ns, ch, planes, bps)
+    assert torch.equal(enc, want[0]) and torch.equal(ok, want[1])
+    flags = [int(planes >= bps or b % 2 == 0) for b in range(batch)]
+    assert ok.tolist() == flags
+    for b in range(batch):
+        e1, ok1 = ck.xdelta_swizzle(t[b], ns, ch, planes, bps)
+        assert torch.equal(enc[b], e1) and int(ok1) == flags[b]
+    torch.cuda.synchronize()
+    assert not ck._xdelta_ticket(dev, batch).any()
+
+
+@pytest.mark.parametrize("batch,planes,plane_len", TOKENIZE_BATCH_CASES)
+def test_tokenize_planes_2d_matches_plain(dev, batch, planes, plane_len):
+    """The 2-D tokenize_planes vs its plain version on
+    TOKENIZE_BATCH_CASES."""
+    check_tokenize_batch_case(dev, batch, planes, plane_len)
+
+
+def check_tokenize_batch_case(dev, batch, planes, plane_len):
+    """The 2-D tokenize_planes vs its plain version and vs the 1-D form
+    on the first and last payload (rows payload-major), in one launch."""
+    rng = np.random.default_rng(150 + batch)
+    x = rng.integers(-(1 << 20), 1 << 20, (batch, plane_len)).astype(np.int32)
+    x[rng.random(x.shape) < 0.5] = 0
+    x[0, :min(plane_len, 20000)] = 0
+    t = torch.from_numpy(x).to(dev)
+    n0 = ck.tokenize_planes.launches
+    got = ck.tokenize_planes(t, planes)
+    assert ck.tokenize_planes.launches == n0 + 1
+    for g, w in zip(got, ck.tokenize_planes_plain(t, planes)):
+        assert torch.equal(g, w)
+    nb = planes * -(-plane_len // 65536)
+    for b in (0, batch - 1):
+        one = ck.tokenize_planes(t[b], planes)
+        for g, w in zip(got, one):
+            assert torch.equal(g[b * nb:(b + 1) * nb], w)
+
+
+def test_compress_many_card_equals_cpu(rng, dev):
+    """compress_many on the card: the CPU's containers (8 payloads, two
+    pipelined waves, and a batch of 3 whose middle payload grows the
+    planes to 4), one xdelta_swizzle_batch and one tokenize_planes launch
+    per level probed, one compact_tokens and one pack_flat per wave or
+    per level packed."""
+    ch, ns = 3, 4096
+    srcs = [np.ascontiguousarray(np.cumsum(rng.normal(
+        0, 300 * (k + 1), (ch, ns)), axis=1).astype(np.int32).T)
+        .astype("<i4").tobytes() for k in range(8)]
+    big = np.zeros((ns, ch), np.int32)
+    big[1::2] = 2 ** 24
+    for batch in (srcs, [srcs[0], big.tobytes(), srcs[1]]):
+        for k in ck.KERNELS:
+            k.launches = 0
+        pg = gpack.new_xdelta_hzr(4, ch, ns, 3)
+        got = pg.compress_many(batch)
+        pc = gpack.new_xdelta_hzr(4, ch, ns, 3, device="cpu")
+        assert got == pc.compress_many(batch)
+        assert pg.nr_planes == pc.nr_planes == 3 + (len(batch) == 3)
+        # probed: 3 planes (and 4); packed: 2 waves of the one level, or
+        # the levels 3 and 4 one call each
+        assert ck.xdelta_swizzle_batch.launches == pg.nr_planes - 2
+        assert ck.tokenize_planes.launches == pg.nr_planes - 2
+        assert ck.compact_tokens.launches == 2
+        assert ck.pack_flat.launches == 2
+        assert ck.xdelta_swizzle.launches == 0
+
+
 def _windows_batch(rng, dev):
     """A 3-plane batch with a block of 8 groups (a dense skewed plane 0
     with one long zero run), a short one-group block, FILL blocks and a
