@@ -19,7 +19,9 @@ windows routes of the flat pack on the main pass 1, and the DCT packer
 at BASELINE config 4 (the same signal cut to 4,096 samples, at 4 and 3
 bytes a sample), and the streaming path at BASELINE config 5 (the whole
 signal pushed into a StreamingCodec with 4,096-sample blocks and the
-band-pass pre-filter: 8 frames in one compress_many).
+band-pass pre-filter: 8 frames in one compress_many), and the batch
+signal ops (the peak detectors, the FIR and the rolling medians on 12
+channels of 1,048,576 float32 samples at 360 Hz, the same formula).
 
 Phases: 1 build (the kernels with nvcc and the host runtime,
 rspt_tpu_torch/native, with g++, at once); 2 encode kernels vs plain on
@@ -76,7 +78,19 @@ xdelta_swizzle_batch, one tokenize_planes and two waves of
 compact_tokens and pack_flat, no plain version called, the frames equal
 to the CPU codec's, host and device decoders giving back the filtered
 signal; its timings (CUDA events; compress_many against 8 compress
-calls; cold and steady pushes; a decoder push a frame) come last; 4, last,
+calls; cold and steady pushes; a decoder push a frame) come next; 16
+the batch signal ops: iir_scan, iir_assoc, fir_apply and peak_gate vs
+plain on tests/test_torch_cuda.py's IIR_EDGE_CASES, FIR_EDGE_CASES and
+GATE_EDGE_CASES (tolerance 0, NaN equal to NaN), then at 12 x 2^20
+(iir_assoc and fir_apply against their plain versions on the card,
+iir_scan in float32 and float64 and peak_gate against theirs on the
+CPU, the float64 iir_scan also equal to the host runtime),
+detect_batch, detect_offline_batch and fir_apply
+through the entry points (exact launches, no plain version), both
+detectors on 2 x 120,000 against the host detectors and the rolling
+medians at test_8's windows on 1,000,000 samples against
+RollingWindowMedian; its timings (each kernel's CUDA-event time, fir_apply
+in turns with conv1d, the detectors' and medians' walls) last; 4,
 times each kernel's call (profiler device time of every device operation
 of the wrapper's call: kernels, memsets, copies; xdelta_swizzle on the
 '<i4' words and on 16-bit native bytes, each one device operation a
@@ -1090,6 +1104,360 @@ def time_stream(ck, stream, native, ch, dev):
         log(f"phase 4: StreamingDecoder.push a frame (device_decode={dd}) "
             f"{spread(per_frame)} s (median over the {nblk} frames, 5 "
             f"rounds); stages of the last {dec.packer.stage_seconds}")
+    return rows
+
+
+SIG_SR = 360.0           # the MIT-BIH rate of tests/test_jax_analysis.py
+SIG_NS = 1 << 20         # 48.5 minutes a channel: 12 x 1,048,576 float32
+DET_CUT = (2, 120000)    # the detectors against the host detectors
+MEDIAN_NS = 1000000      # the reference's test_8 (rspt_test.cpp:327-395)
+MEDIAN_WINDOWS = (5, 6, 7, 1500)
+FIR_TAPS = 61
+# S1 and S4 run one thread a row, so their design is bounded by T x the
+# cycles of one step's dependent chain; an estimate from the source (not
+# from SASS), at 4 cycles a dependent float or integer operation (the
+# microbenchmarked latency of the FMA and ALU pipes since Volta)
+DEP_LAT = 4
+CLOCK_HZ = 1.98e9
+# H100 SXM float32 outside the tensor cores: 67e12 FLOP/s counts an FMA as
+# two; S1-S4 run separate multiplies and adds, one instruction each
+F32_INSTR_PER_S = 33.5e12
+
+
+def held(edges, name, got, want):
+    """got equal to want (edges.same_floats: tolerance 0, a NaN equal to a
+    NaN), compared on the CPU; returns the measured max |got - want| over
+    the values that are not NaN in both."""
+    g, w = got.cpu(), want.cpu()
+    try:
+        edges.same_floats(g, w)
+    except AssertionError as e:
+        raise AssertionError(f"{name}: {e}") from None
+    if not g.numel():
+        return 0.0
+    return float(torch.nan_to_num((g.double() - w.double()).abs(),
+                                  nan=0.0).max())
+
+
+def signal_designs():
+    """The batch detectors' filters at 360 Hz, as (b, a): detect_batch's
+    band-pass (order 4 digital, p = 5) and its threshold low-pass (p =
+    3), and a 61-tap Hamming-windowed sinc low-pass at 40 Hz for the FIR."""
+    from rspt_tpu_torch.analysis import torch_peaks
+    bp, _, th = torch_peaks._coeffs(SIG_SR)
+    k = np.arange(FIR_TAPS) - (FIR_TAPS - 1) / 2
+    taps = np.sinc(2 * 40.0 / SIG_SR * k) * np.hamming(FIR_TAPS)
+    return bp, th, taps / taps.sum()
+
+
+def check_signal_path(ck, edges, dev):
+    """Phase 16: the batch signal ops (S1 iir_scan, S2 iir_assoc, S3
+    fir_apply, S4 peak_gate). Each kernel against its plain version on the
+    card tests' edge cases; at full width (12 x 1,048,576 float32 of
+    make_ecg at 360 Hz) each bit for bit against its plain version: S2
+    (the band-pass from its warm-up state) and S3 on the card, S1 in
+    float32 and float64 and S4 (on detect_batch's signal and threshold)
+    on CPU copies (their plain versions take a step of torch ops a
+    sample), S1 in float64 also equal to the host runtime's
+    iir_filter_channels(opt=1). Then, with every launch count at
+    0, detect_batch and detect_offline_batch at full width: exact launch
+    counts, no plain version called; both on 2 channels cut to 120,000
+    samples against the host detectors (equal counts and positions within
+    +-3 of PeakDetector's; indexes equal to PeakDetectorOffline's); the
+    rolling medians at test_8's windows on 1,000,000 samples equal to
+    RollingWindowMedian. Returns what phase 4 times."""
+    from rspt_tpu_torch.analysis import peaks, torch_peaks
+    from rspt_tpu_torch.analysis.rolling_median import (
+        rolling_median, torch_rolling_median, torch_rolling_median_large)
+    from rspt_tpu_torch.filters import torch_filters as tf
+    from rspt_tpu_torch.native import bindings as rt
+    t0 = time.perf_counter()
+    for case in edges.IIR_EDGE_CASES:
+        edges.check_iir_case(dev, *case)
+    for case in edges.FIR_EDGE_CASES:
+        edges.check_fir_case(dev, *case)
+    for case in edges.GATE_EDGE_CASES:
+        edges.check_gate_case(dev, *case)
+    torch.cuda.synchronize()
+    log(f"phase 16: iir_scan, iir_assoc, fir_apply, peak_gate equal to "
+        f"their plain versions on {edges.IIR_EDGE_CASES}, "
+        f"{edges.FIR_EDGE_CASES}, {edges.GATE_EDGE_CASES} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    ch = 12
+    sig, _ = make_ecg(ch, SIG_NS)
+    x = torch.from_numpy(sig.astype(np.float32)).to(dev)
+    (bp_b, bp_a), (th_b, th_a), taps = signal_designs()
+    m_bp, m_th = len(bp_a) - 1, len(th_a) - 1
+    xz, yz = tf.iir_warmup_state(x[:, 0], bp_a, bp_b, 4 * int(SIG_SR),
+                                 device=dev)
+    args = {
+        "iir_assoc": (x, bp_a, bp_b, xz, yz.contiguous(), tf.IIR_TILE),
+        "iir_scan": (x, th_a, th_b, x.new_zeros((ch, m_th)),
+                     x.new_zeros((ch, m_th))),
+        "fir_apply": (x, torch.from_numpy(taps.astype(np.float32)).to(dev),
+                      None),
+    }
+    err, plain_s = {}, {}
+    err["iir_assoc"] = held(edges, "iir_assoc full width",
+                            ck.iir_assoc(*args["iir_assoc"]),
+                            ck.iir_assoc_plain(*args["iir_assoc"]))
+    err["fir_apply"] = held(edges, "fir_apply full width",
+                            ck.fir_apply(*args["fir_apply"]),
+                            ck.fir_apply_plain(*args["fir_apply"]))
+
+    def on_cpu(fn, call):
+        # a serial plain version (a step of torch ops a sample) on CPU
+        # copies of the inputs; its wall, synchronous, in ms
+        cpu = [v.cpu() if torch.is_tensor(v) else v for v in call]
+        t1 = time.perf_counter()
+        out = fn(*cpu)
+        return out, (time.perf_counter() - t1) * 1e3
+
+    want, plain_s["iir_scan"] = on_cpu(ck.iir_scan_plain, args["iir_scan"])
+    err["iir_scan"] = held(edges, "iir_scan float32 full width",
+                           ck.iir_scan(*args["iir_scan"]), want)
+    x64 = x.double()
+    z64 = x64.new_zeros((ch, m_th))
+    y64 = ck.iir_scan(x64, th_a, th_b, z64, z64)
+    want, plain64_ms = on_cpu(ck.iir_scan_plain, (x64, th_a, th_b, z64, z64))
+    err["iir_scan"] = max(err["iir_scan"], held(
+        edges, "iir_scan float64 full width", y64, want))
+    st = np.zeros((ch, m_th + 1))
+    host = rt.iir_filter_channels(x64.cpu().numpy(), th_a, th_b, st,
+                                  st.copy(), 1)
+    held(edges, "iir_scan float64 vs the host runtime", y64,
+         torch.from_numpy(host))
+    # the gate on detect_batch's own signal and threshold at full width
+    _, sg, th = torch_peaks.detect_batch(x, SIG_SR)
+    gate = (sg, th, int(100.0 * SIG_SR / 1000.0),
+            1.0 / (1.0 + 25.0 / SIG_SR), 1.0)
+    want, plain_s["peak_gate"] = on_cpu(ck.peak_gate_plain, gate)
+    err["peak_gate"] = held(edges, "peak_gate full width",
+                            ck.peak_gate(*gate), want)
+    torch.cuda.synchronize()
+    log(f"phase 16: at full width ({ch} x {SIG_NS}): iir_assoc ({len(bp_a)} "
+        f"coefficients, tiles of {tf.IIR_TILE}) and fir_apply ({FIR_TAPS} "
+        f"taps) equal to their plain versions; iir_scan ({len(th_a)} "
+        f"coefficients) in float32 and float64 and peak_gate (on "
+        f"detect_batch's signal and threshold) equal to their plain "
+        f"versions on the CPU (iir_scan {plain_s['iir_scan'] / 1e3:.1f} s / "
+        f"{plain64_ms / 1e3:.1f} s, peak_gate "
+        f"{plain_s['peak_gate'] / 1e3:.1f} s), iir_scan float64 to the host "
+        f"runtime's iir_filter_channels(opt=1); max |err| {err}")
+
+    # the entry points at full width: both detectors and the FIR
+    plains = [n for n in dir(ck) if n.endswith("_plain")]
+    runs, launches = {}, {}
+    fir_taps = args["fir_apply"][1].cpu().numpy()
+    for name, fn in (("detect_batch", lambda: torch_peaks.detect_batch(
+                          x, SIG_SR)),
+                     ("detect_offline_batch",
+                      lambda: torch_peaks.detect_offline_batch(x, SIG_SR)),
+                     ("fir_apply", lambda: tf.fir_apply(x, fir_taps))):
+        for k in ck.KERNELS:
+            k.launches = 0
+        with CountCalls(ck, plains) as plain:
+            runs[name] = fn()
+            torch.cuda.synchronize()
+        launches[name] = {k.__name__: k.launches for k in ck.KERNELS
+                          if k.launches}
+        if any(plain.calls.values()):
+            raise AssertionError(f"{name}: plain versions called "
+                                 f"{plain.calls}")
+    want = {"detect_batch": {"iir_assoc": 3, "peak_gate": 1},
+            "detect_offline_batch": {"iir_assoc": 6, "iir_scan": 2,
+                                     "peak_gate": 1},
+            "fir_apply": {"fir_apply": 1}}
+    if launches != want:
+        raise AssertionError(f"detectors: launches {launches}, want {want}")
+    pk_b = runs["detect_batch"][0]
+    pk_o = runs["detect_offline_batch"][0]
+    counts_b = (pk_b != 0).sum(1).tolist()
+    counts_o = (pk_o != 0).sum(1).tolist()
+    if (pk_b.shape != x.shape or pk_o.shape != tuple(x.shape)
+            or min(counts_b + counts_o) < SIG_NS // 400):
+        raise AssertionError(f"detectors: shapes {pk_b.shape} {pk_o.shape},"
+                             f" peaks {counts_b} {counts_o}")
+    held(edges, "fir_apply entry point", runs["fir_apply"][0],
+         ck.fir_apply(*args["fir_apply"]))
+    log(f"phase 16: detect_batch, detect_offline_batch and fir_apply at "
+        f"full width through the entry points: launches {launches}, no "
+        f"plain version called; peaks a channel {counts_b} / {counts_o}")
+
+    rows, ns = DET_CUT
+    xc = x[:rows, :ns].contiguous()
+    xc_np = xc.cpu().numpy().astype(np.float64)
+    pkc = torch_peaks.detect_batch(xc, SIG_SR)[0].cpu().numpy()
+    idx = torch_peaks.detect_offline_batch(xc, SIG_SR,
+                                           return_indexes=True)[3]
+    for r in range(rows):
+        pd = peaks.PeakDetector(SIG_SR)
+        host_pk = np.array([pd.detect(float(v))[0] for v in xc_np[r]])
+        got, want_i = np.flatnonzero(pkc[r]), np.flatnonzero(host_pk)
+        if len(got) != len(want_i) or np.abs(got - want_i).max() > 3:
+            raise AssertionError(f"detect_batch row {r}: {len(got)} peaks "
+                                 f"against the host's {len(want_i)}")
+        want_o = peaks.PeakDetectorOffline(SIG_SR).detect(
+            xc_np[r], return_indexes=True)[3]
+        if not np.array_equal(idx[r], want_o):
+            raise AssertionError(f"detect_offline_batch row {r}: indexes "
+                                 f"differ from PeakDetectorOffline's")
+    log(f"phase 16: on {rows} x {ns}: detect_batch's peaks "
+        f"{[int((pkc[r] != 0).sum()) for r in range(rows)]} equal in count "
+        f"to PeakDetector's, positions within +-3; detect_offline_batch's "
+        f"indexes ({[len(i) for i in idx]}) equal PeakDetectorOffline's")
+
+    rng = np.random.default_rng(1234)
+    vals = np.concatenate([
+        np.array([9, 1, 8, 2, 7, 3, 6, 4, 5, 5, 4, 6, 3, 7, 2, 8, 1, 9, 0,
+                  10], np.float64),
+        rng.normal(0, 100, MEDIAN_NS - 20)]).astype(np.float32)
+    med_in = torch.from_numpy(vals).to(dev)
+    for w in MEDIAN_WINDOWS:
+        fn = torch_rolling_median_large if w > 1024 else torch_rolling_median
+        got = fn(med_in, w)
+        want_m = rolling_median(vals.astype(np.float64), w)
+        held(edges, f"rolling median w={w}", got,
+             torch.from_numpy(want_m.astype(np.float32)))
+    log(f"phase 16: rolling medians of {MEDIAN_NS} samples at windows "
+        f"{MEDIAN_WINDOWS} (torch_rolling_median, torch_rolling_median_large"
+        f" at 1,500) equal RollingWindowMedian as float32")
+    return dict(x=x, args=args, launches=launches, gate=gate, err=err,
+                plain_ms=plain_s, med_in=med_in)
+
+
+def time_signal(ck, sp):
+    """Phase 4's batch-signal part: each kernel at its path's shape (12 x
+    1,048,576 float32), device time from CUDA events around back-to-back
+    calls (median of 5 rounds [min, max]), its launches on the detectors'
+    path, its bound (and S1 and S4's serial chain's), its plain version
+    (CUDA events around a call; S1 and S4's the wall of phase 16's call on
+    the CPU, at the same shape); S3 in turns with torch.nn.functional.conv1d at
+    the same shape (cuDNN, TF32 off: not the same order of sums); then the
+    walls of both detectors (detect_offline_batch's device part and host
+    relocation apart) and of the two medians. Returns the kernels JSON
+    lines."""
+    from rspt_tpu_torch.analysis import torch_peaks
+    from rspt_tpu_torch.analysis.rolling_median import (
+        torch_rolling_median, torch_rolling_median_large)
+    x = sp["x"]
+    rows_n, T = x.shape
+    n = rows_n * T
+    (bp_b, bp_a), (th_b, th_a), _ = signal_designs()
+    a = sp["args"]
+    fir_x, taps = a["fir_apply"][0], a["fir_apply"][1]
+    ks = taps.numel()
+    w_conv = taps.flip(0).reshape(1, 1, ks)
+    xpad = torch.nn.functional.pad(fir_x, (ks - 1, 0)).reshape(rows_n, 1, -1)
+
+    def conv():
+        return torch.nn.functional.conv1d(xpad, w_conv)
+
+    m_th, m_bp = len(th_a) - 1, len(bp_a) - 1
+    # a serial kernel's longest loop-carried chain, counted from the
+    # source: from y[t-1] to y[t] a multiply and M subtractions (S1); the
+    # count's select (accept / rising), its compare with 0, the increment,
+    # the compare with nr_slope and the select of 0 (S4; prev_amp's cycle,
+    # a multiply, a compare, accept and a select, is 4)
+    steps = {"iir_scan": 1 + m_th, "peak_gate": 5}
+    chain = {k: T * v * DEP_LAT / CLOCK_HZ * 1e3 for k, v in steps.items()}
+    spec = {
+        "iir_scan": dict(
+            fn=lambda: ck.iir_scan(*a["iir_scan"]), n=3,
+            bytes=8 * n, ops=n * (2 * (m_th + 1) + 2 * m_th),
+            src="iir.cu", rep="rspt_tpu/filters/jax_filters.py:96"),
+        "iir_assoc": dict(
+            fn=lambda: ck.iir_assoc(*a["iir_assoc"]), n=20,
+            plain=lambda: ck.iir_assoc_plain(*a["iir_assoc"]),
+            bytes=8 * n, ops=n * (2 * (m_bp + 1) + 4 * m_bp + 1),
+            src="iir.cu", rep="rspt_tpu/filters/jax_filters.py:109"),
+        "fir_apply": dict(
+            fn=lambda: ck.fir_apply(*a["fir_apply"]), n=20,
+            plain=lambda: ck.fir_apply_plain(*a["fir_apply"]),
+            bytes=8 * n + 4 * ks, ops=2 * ks * n,
+            src="fir.cu", rep="rspt_tpu/filters/jax_filters.py:134"),
+        "peak_gate": dict(
+            fn=lambda: ck.peak_gate(*sp["gate"]), n=3,
+            bytes=12 * n, ops=15 * n,
+            src="peaks.cu", rep="rspt_tpu/analysis/jax_peaks.py:58"),
+    }
+    rows = []
+    for name, r in spec.items():
+        ts, lib_ts = [], []
+        for _ in range(5):
+            ts.append(events_ms(r["fn"], n=r["n"], rounds=1)[0])
+            if name == "fir_apply":
+                prev = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                lib_ts.append(events_ms(conv, n=20, rounds=1)[0])
+                torch.backends.cudnn.allow_tf32 = prev
+        ms = statistics.median(ts)
+        # S1 and S4's plain versions: phase 16's wall on the CPU
+        plain_ms = (sp["plain_ms"][name] if name in chain
+                    else cuda_ms(r["plain"], reps=1, warm=0))
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / F32_INSTR_PER_S * 1e3
+        launches = sum(run.get(name, 0) for run in sp["launches"].values())
+        row = dict(name=name, route="cuda",
+                   source=f"rspt_tpu_torch/ops/csrc/{r['src']}",
+                   replaces=r["rep"], launches=launches,
+                   max_abs_err=sp["err"][name], ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=statistics.median(lib_ts) if lib_ts else None)
+        if name in chain:    # the bound of the one-thread-a-row design
+            row["chain_ms"] = chain[name]
+        rows.append(row)
+        if name == "iir_assoc":      # its three kernels, from the profiler
+            parts = {k: device_ms(r["fn"], reps=10, kernel=k) for k in (
+                "iir_local_kernel", "iir_carry_kernel", "iir_fixup_kernel")}
+            log(f"phase 4: iir_assoc's kernels (profiler, medians of 10 "
+                f"calls): { {k: v and round(v, 6) for k, v in parts.items()} }")
+        log(f"phase 4: {name} at {rows_n} x {T}: {ms:.6f} ms "
+            f"[{min(ts):.6f}, {max(ts):.6f}] (CUDA events, medians of 5), "
+            f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
+            f"({r['bytes']} B, {r['ops']} operations)"
+            + (f", one-thread-a-row chain bound {chain[name]:.4f} ms (T x "
+               f"{steps[name]} dependent operations x {DEP_LAT} cycles at "
+               f"{CLOCK_HZ / 1e9} GHz, an estimate)" if name in chain else "")
+            + f"; plain {plain_ms:.4f} ms"
+            + (" (on the CPU)" if name in chain else " (on the card)")
+            + (f"; conv1d {row['library_ms']:.6f} ms [{min(lib_ts):.6f}, "
+               f"{max(lib_ts):.6f}] in turns" if lib_ts else ""))
+    # walls; detect_offline_batch's two parts apart: its device part
+    # (offline_filters and the copies to the host) and the relocation
+    radius = int(10.0 * SIG_SR / 1000.0)
+    parts = {}
+
+    def offline_device():
+        moved, _, _, base = torch_peaks.offline_filters(x, SIG_SR)
+        parts["host"] = (moved.cpu().numpy(),
+                         x.cpu().numpy().astype(np.float64),
+                         base.cpu().numpy().astype(np.float64))
+
+    def offline_relocate():
+        pk, ecg, base = (a.copy() for a in parts["host"])
+        for r in range(rows_n):
+            torch_peaks.relocate(pk[r], ecg[r], base[r], radius)
+
+    for name, fn in (("detect_batch",
+                      lambda: torch_peaks.detect_batch(x, SIG_SR)),
+                     ("detect_offline_batch",
+                      lambda: torch_peaks.detect_offline_batch(x, SIG_SR)),
+                     ("detect_offline_batch device part", offline_device),
+                     ("detect_offline_batch host relocation",
+                      offline_relocate),
+                     ("torch_rolling_median w=7",
+                      lambda: torch_rolling_median(sp["med_in"], 7)),
+                     ("torch_rolling_median_large w=1500",
+                      lambda: torch_rolling_median_large(sp["med_in"],
+                                                         1500))):
+        ts = []
+        for _ in range(5):
+            ts += wall_times(fn, 1)
+        log(f"phase 4: {name} wall {spread(ts)} s (5 calls); rounds "
+            f"{[round(t, 6) for t in ts]}")
     return rows
 
 
@@ -2176,6 +2544,10 @@ def main() -> int:
     # phase 15 and its timings: the streaming path at BASELINE config 5
     stream = check_stream_path(ck, edges, sig, native, ch, dev)
     kernels += time_stream(ck, stream, native, ch, dev)
+    # phase 16 and its timings: the batch signal ops at 12 x 2^20
+    del stream
+    sp = check_signal_path(ck, edges, dev)
+    kernels += time_signal(ck, sp)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@ plain PyTorch versions instead)::
 
 The streaming path (BASELINE config 5) is ``rspt_tpu_torch.pipeline``:
 ``StreamingCodec(StreamConfig(...)).push(native_bytes)`` gives frames.
+The batch signal ops are ``filters.torch_filters`` (``iir_apply``,
+``fir_apply``) and ``analysis`` (``detect_batch``,
+``detect_offline_batch``, the rolling medians).
 
 Streams and containers are byte-identical to ``rspt_tpu``'s.
 """
@@ -23,4 +26,4 @@ from . import packers  # noqa: F401
 
 __version__ = "0.1.0"
 __all__ = ["packers", "formats", "hzr", "ops", "native", "filters", "io",
-           "pipeline"]
+           "pipeline", "analysis"]

@@ -1,12 +1,14 @@
-"""Filters of the streaming path: the Butterworth designs and the
-streaming IIR (counterparts of rspt_tpu/filters/design.py and
-streaming.py)."""
+"""Filters: the Butterworth designs, the streaming host filters (IIR,
+FIR, delay) and the batched device filters (counterparts of
+rspt_tpu/filters/design.py, streaming.py and jax_filters.py; the last is
+``filters.torch_filters``, imported on use)."""
 
 from .design import (FilterKind, FilterType, butterworth_1st,
                      butterworth_2nd, butterworth_bandpass_1st,
                      butterworth_bandpass_2nd, create_filter_iir)
-from .streaming import IirFilter, new_iir
+from .streaming import Delay, FirFilter, IirFilter, new_fir, new_iir
 
-__all__ = ["FilterKind", "FilterType", "IirFilter", "butterworth_1st",
-           "butterworth_2nd", "butterworth_bandpass_1st",
-           "butterworth_bandpass_2nd", "create_filter_iir", "new_iir"]
+__all__ = ["Delay", "FilterKind", "FilterType", "FirFilter", "IirFilter",
+           "butterworth_1st", "butterworth_2nd", "butterworth_bandpass_1st",
+           "butterworth_bandpass_2nd", "create_filter_iir", "new_fir",
+           "new_iir"]

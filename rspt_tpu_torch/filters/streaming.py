@@ -1,5 +1,5 @@
-"""Streaming sample-at-a-time IIR filter — the port's copy of
-rspt_tpu/filters/streaming.py:30-108, 163-167.
+"""Streaming sample-at-a-time filters — the port's copy of
+rspt_tpu/filters/streaming.py:30-173.
 
 Bit-exact (f64, identical accumulation order) mirror of ``iir_filter``
 (lib_rspt/lib_filter/iir_filter.cpp:46-121): the generic ``filter()``
@@ -11,6 +11,10 @@ accumulation order, and both orders are kept exactly.
 failed build raises. The per-sample ``filter`` / ``filter_opt`` loops
 are its plain versions, which the tests hold it against.
 
+``FirFilter`` (fir_filter.cpp:26-79: 0 until the kernel window fills)
+and ``Delay`` (iir_filter_opt.h:113-130) are host classes in f64, the
+oracles of the batched ``filters.torch_filters.fir_apply``.
+
 Parameter naming follows the reference: ``n`` is the FEEDBACK
 (denominator) vector with n[0] == 1, ``d`` the FEEDFORWARD (numerator),
 swapped relative to scipy's (b, a) (see filters/design.py). The state
@@ -19,7 +23,7 @@ swapped relative to scipy's (b, a) (see filters/design.py). The state
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -99,3 +103,60 @@ def new_iir(n: Sequence[float], d: Sequence[float],
     if nr_coefficients is not None:
         n, d = list(n)[:nr_coefficients], list(d)[:nr_coefficients]
     return IirFilter(n, d)
+
+
+class FirFilter:
+    """Kernel dot product over a sliding window (fir_filter.cpp:26-79)."""
+
+    def __init__(self, kernel: Sequence[float]):
+        self.kernel = [float(v) for v in kernel]
+        self.ksize = len(self.kernel)
+        self.window: List[float] = []
+
+    def get_state(self):
+        return list(self.window)
+
+    def set_state(self, state):
+        self.window = list(state)
+
+    def filter(self, x: float) -> float:
+        """0 until the window fills (fir_filter.cpp:41-50)."""
+        if len(self.window) == self.ksize:
+            return self.filter_opt(x)
+        self.window.append(float(x))
+        return 0.0
+
+    def filter_opt(self, x: float) -> float:
+        """Push, pop, dot (fir_filter.cpp:52-60)."""
+        self.window.append(float(x))
+        self.window.pop(0)
+        y = 0.0
+        for i in range(self.ksize):
+            y += self.window[i] * self.kernel[i]
+        return y
+
+    def init_history_values(self, x: float, nr_samples: int) -> None:
+        """kernel_size warm-up calls (fir_filter.cpp:62-66; nr_samples is
+        unused there too)."""
+        for _ in range(self.ksize):
+            self.filter(x)
+
+
+class Delay:
+    """Pure delay line (iir_filter_opt.h:113-130)."""
+
+    def __init__(self, nr_samples: int):
+        self.history = [0.0] * int(nr_samples)
+
+    def get_delayed(self, new_sample: float) -> float:
+        res = self.history[-1]
+        self.history = [float(new_sample)] + self.history[:-1]
+        return res
+
+
+def new_fir(kernel: Sequence[float], kernel_size: int = None) -> FirFilter:
+    """The i_filter factory for a FIR (filter.h:75-88): the first
+    kernel_size taps of kernel, or all of them."""
+    if kernel_size is not None:
+        kernel = list(kernel)[:kernel_size]
+    return FirFilter(kernel)

@@ -49,14 +49,25 @@ and, with no pallas_call (a TPU has no f64; the JAX package runs them on
 the host, rspt_tpu/native/rspt_native.cpp):
   dct_forward      D1 rn_dct_forward (:1274), the exact DCT-II
   dct_inverse      D2 rn_dct_inverse (:1290), its inverse
+and, with no pallas_call (the JAX package runs the batch signal ops on XLA
+primitives: rspt_tpu/filters/jax_filters.py, rspt_tpu/analysis/
+jax_peaks.py):
+  iir_scan         S1 _iir_apply mode="scan" (the lax.scan step, :96-108)
+                   with _feedforward (:47-65)
+  iir_assoc        S2 _iir_apply mode="assoc" (the associative scan of the
+                   companion affine maps, :109-126)
+  fir_apply        S3 fir_apply (:134-162)
+  peak_gate        S4 detect_batch.gate (:58-84) and _gate_scan.gate
+                   (:98-126)
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -106,6 +117,11 @@ def _lib() -> ctypes.CDLL:
         "rspt_group_windows": [P] * 7 + [I] + [P],
         "rspt_place_windows_aligned": [P] * 8 + [I] * 2 + [P],
         "rspt_windows_place_flat": [P] * 7 + [I] * 2 + [P],
+        "rspt_iir_scan": [P] * 6 + [I, I, ctypes.c_long, I, P],
+        "rspt_iir_assoc": [P] * 10 + [I, I, ctypes.c_long, I, I, P],
+        "rspt_fir_apply": [P] * 4 + [I, ctypes.c_long, I, I, I, P],
+        "rspt_peak_gate": [P] * 3 + [I, ctypes.c_long, I, ctypes.c_float,
+                                     ctypes.c_float, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -1415,8 +1431,329 @@ def windows_place_flat(tokc: torch.Tensor, lut3: torch.Tensor,
 windows_place_flat.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Kernels S1-S4 — iir_scan, iir_assoc, fir_apply, peak_gate (the batch
+# signal ops; rows of float32 or float64 samples, one channel a row)
+# ---------------------------------------------------------------------------
+
+IIR_MAX_P = 8           # coefficients S1/S2 take (order 7)
+FIR_MAX_TAPS = 256      # taps S3 takes
+_FLOATS = (torch.float32, torch.float64)
+
+
+def _rounded(vals: Sequence[float], dtype: torch.dtype):
+    """Python floats of vals rounded to dtype, as the JAX package casts
+    its static coefficients (jax_filters.py:60, :103)."""
+    t = torch.tensor([float(v) for v in vals], dtype=torch.float64)
+    return t.to(dtype).tolist()
+
+
+def _feedforward_plain(x: torch.Tensor, d, xz: torch.Tensor) -> torch.Tensor:
+    """u[t] = the sum over i, from 0 in order, of d[i]·x[t−i], with x's
+    history xz (the newest first) before t = 0 (jax_filters._feedforward)."""
+    p, T = len(d), x.shape[1]
+    xp = torch.cat([xz.flip(1), x], 1)
+    u = torch.zeros_like(x)
+    for i in range(p):
+        u = u + d[i] * xp[:, p - 1 - i:p - 1 - i + T]
+    return u
+
+
+def _recurrence_plain(u: torch.Tensor, n, s) -> torch.Tensor:
+    """y[t] = u[t] − n[1]·s[0] − n[2]·s[1] − … in that order, a step of
+    torch ops a sample; s: the p − 1 (rows,) y histories, the newest
+    first, updated in place."""
+    uT = u.t()
+    out = torch.empty_like(uT)
+    for t in range(uT.shape[0]):
+        y = uT[t]
+        for i in range(1, len(n)):
+            y = y - n[i] * s[i - 1]
+        out[t] = y
+        s.insert(0, y)
+        s.pop()
+    return out.t()
+
+
+def iir_scan_plain(x: torch.Tensor, n, d, xz: torch.Tensor,
+                   yz: torch.Tensor) -> torch.Tensor:
+    n, d = _rounded(n, x.dtype), _rounded(d, x.dtype)
+    s = [yz[:, i] for i in range(len(n) - 1)]
+    return _recurrence_plain(_feedforward_plain(x, d, xz), n,
+                             s).contiguous()
+
+
+def check_iir_coefficients(n, d) -> int:
+    """p, the coefficients of each of n and d; raises ValueError unless
+    2 <= p <= 8 (what S1 and S2 take)."""
+    p = len(n)
+    if len(d) != p or not 2 <= p <= IIR_MAX_P:
+        raise ValueError(f"iir: 2..{IIR_MAX_P} coefficients, equal lengths "
+                         f"(got {len(n)} and {len(d)})")
+    return p
+
+
+def _check_iir_args(x, n, d, xz, yz):
+    if x.dtype not in _FLOATS:
+        raise TypeError(f"x: expected float32 or float64, got {x.dtype}")
+    _check(x, "x", x.dtype)
+    if x.dim() != 2:
+        raise ValueError("x: need (rows, T)")
+    p = check_iir_coefficients(n, d)
+    rows = x.shape[0]
+    _check(xz, "xz", x.dtype, (rows, p - 1))
+    _check(yz, "yz", x.dtype, (rows, p - 1))
+    return _on_cuda(x, xz, yz)
+
+
+def _coef_args(n, d, dtype):
+    """The coefficients rounded to dtype as host double arrays (kept
+    alive by the caller) and their addresses."""
+    arrs = [(ctypes.c_double * len(v))(*_rounded(v, dtype)) for v in (n, d)]
+    return arrs, [ctypes.addressof(a) for a in arrs]
+
+
+def iir_scan(x: torch.Tensor, n: Sequence[float], d: Sequence[float],
+             xz: torch.Tensor, yz: torch.Tensor) -> torch.Tensor:
+    """S1: each row of x ((rows, T) float32 or float64) through the IIR
+    with feedback n and feedforward d (2..8 coefficients each, rounded to
+    x's type), serially: u[t] = sum_i d[i]·x[t−i] from 0 in order, y[t] =
+    u[t] − n[1]·y[t−1] − … in order (filter_opt's order: in float64 the
+    bits of the host runtime's iir_filter_channels(opt=1)). xz, yz: (rows,
+    p − 1) histories of x and y, the newest first. One launch, one thread
+    a row; a new tensor."""
+    if not _check_iir_args(x, n, d, xz, yz):
+        return iir_scan_plain(x, n, d, xz, yz)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    _keep, (nh, dh) = _coef_args(n, d, x.dtype)
+    _launch("iir_scan", _lib().rspt_iir_scan, x.data_ptr(), xz.data_ptr(),
+            yz.data_ptr(), y.data_ptr(), nh, dh, len(n), x.shape[0],
+            x.shape[1], int(x.dtype == torch.float64), device=x.device)
+    iir_scan.launches += 1
+    return y
+
+
+iir_scan.launches = 0
+
+
+def companion_matrix(n: Sequence[float]) -> np.ndarray:
+    """The feedback's companion matrix A ((p − 1) × (p − 1) float64):
+    row 0 holds −n[1:], the subdiagonal 1 shifts the y history
+    (jax_filters._companion, :36)."""
+    m = len(n) - 1
+    A = np.zeros((m, m))
+    A[0] = -np.asarray(n[1:], np.float64)
+    A[np.arange(1, m), np.arange(m - 1)] = 1.0
+    return A
+
+
+@functools.lru_cache(maxsize=64)
+def _iir_tables_host(n: Tuple[float, ...], L: int, dtype: torch.dtype):
+    A = companion_matrix(n)
+    pw = np.empty((L, len(n) - 1))
+    row = A[0].copy()
+    for j in range(L):
+        pw[j] = row
+        row = row @ A
+    al = np.linalg.matrix_power(A, L)
+    return (torch.from_numpy(al).to(dtype).contiguous(),
+            torch.from_numpy(pw).to(dtype).contiguous())
+
+
+def iir_tables(n: Sequence[float], L: int, dtype: torch.dtype,
+               device: torch.device):
+    """S2's tables for tiles of L samples: (A^L (m, m), P (L, m)) with P[j]
+    row 0 of A^(j+1), A the companion matrix of the feedback n (row 0
+    −n[1:], the subdiagonal 1; m = p − 1). Powers in float64 on the host,
+    stored in dtype."""
+    al, pw = _iir_tables_host(tuple(float(v) for v in n), int(L), dtype)
+    return al.to(device), pw.to(device)
+
+
+def iir_assoc_plain(x: torch.Tensor, n, d, xz: torch.Tensor,
+                    yz: torch.Tensor, L: int) -> torch.Tensor:
+    """S2's arithmetic in torch ops: tiles of L samples, each from a zero
+    state; the tiles' start states by a serial pass over them; the fix-up
+    of each output by row 0 of A^(j+1)."""
+    rows, T = x.shape
+    m = len(n) - 1
+    al, pw = iir_tables(n, L, x.dtype, x.device)
+    n, d = _rounded(n, x.dtype), _rounded(d, x.dtype)
+    nt = -(-T // L)
+    u = torch.nn.functional.pad(_feedforward_plain(x, d, xz),
+                                (0, nt * L - T))
+    s = [x.new_zeros(rows * nt) for _ in range(m)]
+    loc = _recurrence_plain(u.reshape(rows * nt, L), n, s)
+    ends = torch.stack(s, 1).reshape(rows, nt, m)
+    starts = x.new_empty((rows, nt, m))
+    cur = yz
+    for k in range(nt):
+        starts[:, k] = cur
+        if k + 1 == nt:
+            break
+        acc = x.new_zeros((rows, m))
+        for c in range(m):
+            acc = acc + al[:, c] * cur[:, c:c + 1]
+        cur = acc + ends[:, k]
+    f = x.new_zeros((rows, nt, L))
+    for c in range(m):
+        f = f + pw[:, c] * starts[:, :, c:c + 1]
+    y = loc.reshape(rows, nt, L) + f
+    return y.reshape(rows, nt * L)[:, :T].contiguous()
+
+
+def iir_assoc(x: torch.Tensor, n: Sequence[float], d: Sequence[float],
+              xz: torch.Tensor, yz: torch.Tensor, L: int) -> torch.Tensor:
+    """S2: iir_scan's filter parallel in T, over tiles of L samples: each
+    tile's recurrence from a zero state (a thread a row and tile), the
+    tiles' start states s_(k+1) = A^L·s_k + e_k by a serial pass a row,
+    then y[kL + j] += (A^(j+1)·s_k)[0] (a thread an output); the tables
+    from iir_tables. Not iir_scan's bits: close to them. One call, three
+    launches (counted as one); a new tensor."""
+    cuda = _check_iir_args(x, n, d, xz, yz)
+    if L < 1:
+        raise ValueError("L must be >= 1")
+    if not cuda:
+        return iir_assoc_plain(x, n, d, xz, yz, L)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    rows, T = x.shape
+    m = len(n) - 1
+    nt = -(-T // L)
+    al, pw = iir_tables(n, L, x.dtype, x.device)
+    scratch = torch.empty((2, rows, nt, m), dtype=x.dtype, device=x.device)
+    _keep, (nh, dh) = _coef_args(n, d, x.dtype)
+    _launch("iir_assoc", _lib().rspt_iir_assoc, x.data_ptr(), xz.data_ptr(),
+            yz.data_ptr(), y.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), al.data_ptr(), pw.data_ptr(), nh, dh,
+            m + 1, rows, T, L, int(x.dtype == torch.float64),
+            device=x.device)
+    iir_assoc.launches += 1
+    return y
+
+
+iir_assoc.launches = 0
+
+
+def fir_apply_plain(x: torch.Tensor, taps: torch.Tensor,
+                    window=None) -> torch.Tensor:
+    rows, T = x.shape
+    ks = taps.numel()
+    w = x.new_zeros((rows, ks)) if window is None else window
+    xp = torch.cat([w, x], 1)
+    y = torch.zeros_like(x)
+    for i, k in enumerate(taps.tolist()):
+        y = y + k * xp[:, i + 1:i + 1 + T]
+    if window is None:
+        y[:, :ks] = 0
+    return y
+
+
+def fir_apply(x: torch.Tensor, taps: torch.Tensor,
+              window=None) -> torch.Tensor:
+    """S3: each row of x ((rows, T) float32 or float64) through the FIR
+    taps ((ks,) of x's type, 1..256): y[t] = the sum over i, from 0 in
+    order, of taps[i]·xp[t + i + 1], xp = window then x; window: (rows,
+    ks) prior samples, the oldest first, or None: fresh, and then y[t] = 0
+    for t < ks (the reference's warm-up). One launch, a thread an output;
+    a new tensor."""
+    if x.dtype not in _FLOATS:
+        raise TypeError(f"x: expected float32 or float64, got {x.dtype}")
+    _check(x, "x", x.dtype)
+    if x.dim() != 2:
+        raise ValueError("x: need (rows, T)")
+    ks = taps.numel()
+    _check(taps, "taps", x.dtype, (ks,))
+    if not 1 <= ks <= FIR_MAX_TAPS:
+        raise ValueError(f"taps: 1..{FIR_MAX_TAPS} of them, got {ks}")
+    rows, T = x.shape
+    if window is not None:
+        _check(window, "window", x.dtype, (rows, ks))
+    if not _on_cuda(*(t for t in (x, taps, window) if t is not None)):
+        return fir_apply_plain(x, taps, window)
+    if rows > 65535:
+        raise ValueError("x: at most 65,535 rows")
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    w = torch.zeros((rows, ks), dtype=x.dtype, device=x.device) \
+        if window is None else window
+    _launch("fir_apply", _lib().rspt_fir_apply, x.data_ptr(), w.data_ptr(),
+            taps.data_ptr(), y.data_ptr(), rows, T, ks, int(window is None),
+            int(x.dtype == torch.float64), device=x.device)
+    fir_apply.launches += 1
+    return y
+
+
+fir_apply.launches = 0
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def peak_gate_plain(sig: torch.Tensor, thr: torch.Tensor, nr_slope: int,
+                    atten: float, marker: float) -> torch.Tensor:
+    """peak_gate's state machine, a step of torch ops a sample."""
+    atten, marker = _f32(atten), _f32(marker)
+    rows, T = sig.shape
+    prev_amp = sig.new_zeros(rows)
+    prev_sig = sig.new_zeros(rows)
+    searching = torch.zeros(rows, dtype=torch.bool, device=sig.device)
+    count = torch.zeros(rows, dtype=torch.int32, device=sig.device)
+    sT, gT = sig.t(), (thr * 1.5).t()
+    out = torch.empty_like(sT)
+    for t in range(T):
+        s = sT[t]
+        confirm = searching & (s > gT[t]) & (prev_sig > s)
+        accept = confirm & ((prev_amp == 0) | (prev_sig > prev_amp * 0.5))
+        attenuate = confirm & ~accept
+        rising = ~confirm & (prev_sig < s)
+        prev_amp = torch.where(accept, prev_sig, torch.where(
+            attenuate, prev_amp * atten, prev_amp))
+        count = torch.where(accept, 1, torch.where(rising, 0, count))
+        searching = torch.where(accept, False, torch.where(
+            rising, True, searching))
+        count = torch.where(count > 0, count + 1, count)
+        fire = count == nr_slope
+        count = torch.where(fire, 0, count)
+        out[t] = torch.where(fire, s if marker == -1.0 else marker, 0.0)
+        prev_sig = s
+    return out.t().contiguous()
+
+
+def peak_gate(sig: torch.Tensor, thr: torch.Tensor, nr_slope: int,
+              atten: float, marker: float) -> torch.Tensor:
+    """S4: the amplitude-gated state machine of the peak detectors
+    (peak_detector.h:95-122) along each row of sig and thr ((rows, T)
+    float32), in float32: threshold ratio 1.5, reference ratio 0.5, the
+    attenuation factor atten (1 / (1 + a / sr)), a marker nr_slope samples
+    after each accepted peak (marker, or the signal value if marker is
+    −1). One launch, one thread a row; a new (rows, T) float32 tensor."""
+    _check(sig, "sig", torch.float32)
+    if sig.dim() != 2:
+        raise ValueError("sig: need (rows, T)")
+    _check(thr, "thr", torch.float32, tuple(sig.shape))
+    if not _on_cuda(sig, thr):
+        return peak_gate_plain(sig, thr, nr_slope, atten, marker)
+    out = torch.empty_like(sig)
+    if out.numel() == 0:
+        return out
+    _launch("peak_gate", _lib().rspt_peak_gate, sig.data_ptr(),
+            thr.data_ptr(), out.data_ptr(), sig.shape[0], sig.shape[1],
+            int(nr_slope), _f32(atten), _f32(marker), device=sig.device)
+    peak_gate.launches += 1
+    return out
+
+
+peak_gate.launches = 0
+
+
 KERNELS = (xdelta_swizzle, xdelta_swizzle_batch, tokenize_planes,
            compact_tokens, pack_flat, pack_flat_lanes, pack_blocks,
            pack_blocks_tokw, fwht, dct_forward, dct_inverse, hzr_decode,
            place_literals, group_windows, place_windows_aligned,
-           windows_place_flat)
+           windows_place_flat, iir_scan, iir_assoc, fir_apply, peak_gate)

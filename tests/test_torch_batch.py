@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a process: the suite runs in several worker
+# processes on the same cores, where more threads each contend
+torch.set_num_threads(1)
 pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a process: the suite runs in several worker
+# processes on the same cores, where more threads each contend
+torch.set_num_threads(1)
 
 from rspt_tpu_torch import packers as gpack  # noqa: E402
 from rspt_tpu_torch import pipeline as gpipe  # noqa: E402
@@ -24,8 +27,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_loads_neither_jax_nor_rspt_tpu():
     """The port's modules import no jax and nothing of rspt_tpu, nor do a
-    stream encode (pack_blocks' plain version), a DCT compress and a
-    filtered streaming push (compress_many) through them."""
+    stream encode (pack_blocks' plain version), a DCT compress, a
+    filtered streaming push (compress_many), both batch peak detectors,
+    a FIR and the rolling medians through them."""
     code = (
         "import sys\n"
         "import rspt_tpu_torch\n"
@@ -48,6 +52,21 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "assert len(new_dct(4, 2, 3, device='cpu').compress(bytes(24))) > 7\n"
         "assert torch_coder.encode(b'ab' * 99, device='cpu')[:4] == "
         "(198).to_bytes(4, 'little')\n"
+        "import numpy as np\n"
+        "from rspt_tpu_torch import analysis\n"
+        "from rspt_tpu_torch.analysis import peaks, rolling_median, "
+        "torch_peaks\n"
+        "from rspt_tpu_torch.filters import torch_filters\n"
+        "x = np.sin(np.arange(800) / 9.0) ** 8 * 500\n"
+        "assert analysis.detect_batch(x, 360.0, device='cpu')[0].shape == "
+        "(800,)\n"
+        "assert len(analysis.detect_offline_batch(x[None], 360.0, "
+        "return_indexes=True, device='cpu')[3]) == 1\n"
+        "assert torch_filters.fir_apply(x, [0.5, 0.5], device='cpu')[0]"
+        ".shape == (800,)\n"
+        "assert float(analysis.torch_rolling_median_large(x, 40, 8, "
+        "device='cpu')[-1]) == float(np.float32(analysis.rolling_median("
+        "x.astype(np.float32), 40)[-1]))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rspt_tpu' or m.startswith('rspt_tpu.')]\n"
         "assert not bad, bad\n")
@@ -98,6 +117,33 @@ def test_streaming_raises_without_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(cfg)
         assert make(cfg, device="cpu").packer.device.type == "cpu"
+
+
+def test_signal_ops_raise_without_card(monkeypatch):
+    """The batch signal ops with no device and no card raise; with
+    device="cpu" they run on the plain versions."""
+    from rspt_tpu_torch import analysis
+    from rspt_tpu_torch.filters import torch_filters as tf
+    x = np.sin(np.arange(500) / 9.0) ** 8 * 500
+    calls = {
+        "iir_apply": lambda **kw: tf.iir_apply(x, [1.0, -0.5], [0.5, 0.5],
+                                               **kw),
+        "fir_apply": lambda **kw: tf.fir_apply(x, [0.5, 0.5], **kw),
+        "iir_warmup_state": lambda **kw: tf.iir_warmup_state(
+            x[:2], [1.0, -0.5], [0.5, 0.5], 100, **kw),
+        "detect_batch": lambda **kw: analysis.detect_batch(x, 360.0, **kw),
+        "detect_offline_batch": lambda **kw: analysis.detect_offline_batch(
+            x, 360.0, **kw),
+        "torch_rolling_median": lambda **kw: analysis.torch_rolling_median(
+            x, 5, **kw),
+        "torch_rolling_median_large":
+            lambda **kw: analysis.torch_rolling_median_large(x, 40, 8, **kw),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert call(device="cpu") is not None, name
 
 
 def test_decoder_raises_without_card(monkeypatch):
@@ -174,12 +220,41 @@ def test_runtime_build_failure_raises(tmp_path, monkeypatch, compiler):
     assert not list((tmp_path / "root").glob("*/*.so"))
 
 
+SIGNAL_KERNELS = ("iir_scan", "iir_assoc", "fir_apply", "peak_gate")
+
+
 @pytest.mark.parametrize("path", ["compress", "decompress", "device_decode",
-                                  "encode", "compress_many", "stream"])
+                                  "encode", "compress_many", "stream",
+                                  *SIGNAL_KERNELS])
 def test_no_python_fallback(monkeypatch, path):
     """When the runtime cannot be had, the main path raises: no entry
     point falls back to the Python versions (the streaming codec's IIR
-    neither: its push raises before the packer runs)."""
+    neither: its push raises before the packer runs). Nor does a batch
+    signal kernel's wrapper given a tensor it takes for a card's when the
+    kernels' library cannot be had: it raises, and its plain version is
+    never called."""
+    if path in SIGNAL_KERNELS:
+        from rspt_tpu_torch.ops import cuda_kernels as ck
+        x = torch.ones((2, 64))
+        z = torch.zeros((2, 2))
+        args = {"iir_scan": (x, [1.0, -0.5, 0.1], [0.5, 0.5, 0.1], z, z),
+                "iir_assoc": (x, [1.0, -0.5, 0.1], [0.5, 0.5, 0.1], z, z,
+                              16),
+                "fir_apply": (x, torch.ones(3), None),
+                "peak_gate": (x, x, 36, 0.9, 1.0)}[path]
+
+        def no_library():
+            raise RuntimeError("kernels unavailable")
+
+        def no_plain(*a, **kw):
+            raise AssertionError("plain version called")
+
+        monkeypatch.setattr(ck, "_on_cuda", lambda *t: True)
+        monkeypatch.setattr(ck, "_lib", no_library)
+        monkeypatch.setattr(ck, path + "_plain", no_plain)
+        with pytest.raises(RuntimeError, match="kernels unavailable"):
+            getattr(ck, path)(*args)
+        return
     nat = np.arange(3000, dtype="<i4").tobytes()
     p = gpack.new_xdelta_hzr(4, 3, 1000, 3, device="cpu",
                              device_decode=path == "device_decode")

@@ -1517,3 +1517,144 @@ def test_dct_packer_card_equals_cpu(rng, dev, bps):
         assert p.decompress(comp)[0] == want
         assert p.decompress_many([comp, comp]) == [want, want]
     assert ck.dct_inverse.launches - before == 6
+
+
+# --- S1-S4: the batch signal ops (float outputs: equal values, NaN equal
+# to NaN, tolerance 0) ---
+
+def same_floats(got, want):
+    """Equal values, a NaN equal to a NaN (tolerance 0)."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def iir_edge_batch(rng, rows, T, p, dtype):
+    """iir_scan / iir_assoc inputs: a stable random IIR of p coefficients,
+    (rows, T) samples with an all-zero row 0 (and a zero history) and a
+    NaN in the last row, random histories."""
+    poles = rng.uniform(-0.9, 0.9, p - 1)
+    n = list(np.poly(poles))
+    d = list(rng.normal(0, 0.5, p))
+    x = rng.normal(0, 100, (rows, T))
+    xz = rng.normal(0, 100, (rows, p - 1))
+    yz = rng.normal(0, 100, (rows, p - 1))
+    x[0] = xz[0] = yz[0] = 0
+    if rows > 1:
+        x[-1, T // 2] = np.nan
+    t = [torch.from_numpy(a).to(dtype) for a in (x, xz, yz)]
+    return t[0], n, d, t[1], t[2]
+
+
+# (rows, T, p, dtype, L): T = 1, T < L, T on and off a tile's end, p 2-8
+IIR_EDGE_CASES = ((3, 1, 2, "float32", 512), (3, 300, 8, "float64", 512),
+                  (4, 5000, 3, "float32", 512), (4, 5000, 5, "float64", 7),
+                  (2, 4096, 8, "float32", 256), (13, 1025, 4, "float32", 1),
+                  (1, 2048, 2, "float64", 512))
+
+
+def check_iir_case(dev, rows, T, p, dtype, L, seed=150):
+    """iir_scan and iir_assoc (tiles of L) against their plain versions,
+    one launch counted each."""
+    x, n, d, xz, yz = (a.to(dev) if isinstance(a, torch.Tensor) else a
+                       for a in iir_edge_batch(np.random.default_rng(seed),
+                                               rows, T, p,
+                                               getattr(torch, dtype)))
+    before = (ck.iir_scan.launches, ck.iir_assoc.launches)
+    same_floats(ck.iir_scan(x, n, d, xz, yz),
+                ck.iir_scan_plain(x, n, d, xz, yz))
+    same_floats(ck.iir_assoc(x, n, d, xz, yz, L),
+                ck.iir_assoc_plain(x, n, d, xz, yz, L))
+    launched = int(dev.type == "cuda")
+    assert (ck.iir_scan.launches - before[0],
+            ck.iir_assoc.launches - before[1]) == (launched, launched)
+
+
+@pytest.mark.parametrize("rows,T,p,dtype,L", IIR_EDGE_CASES)
+def test_iir_kernels_match_plain(dev, rows, T, p, dtype, L):
+    """S1 and S2 vs their plain versions on IIR_EDGE_CASES."""
+    check_iir_case(dev, rows, T, p, dtype, L)
+
+
+def test_iir_coefficient_limit_raises_on_card(dev):
+    """More than 8 coefficients: the card wrappers raise ValueError, no
+    launch and no plain version."""
+    x = torch.zeros((2, 100), device=dev)
+    z = torch.zeros((2, 8), device=dev)
+    before = (ck.iir_scan.launches, ck.iir_assoc.launches)
+    for call in (lambda: ck.iir_scan(x, [1.0] * 9, [0.1] * 9, z, z),
+                 lambda: ck.iir_assoc(x, [1.0] * 9, [0.1] * 9, z, z, 512)):
+        with pytest.raises(ValueError, match="coefficients"):
+            call()
+    assert (ck.iir_scan.launches, ck.iir_assoc.launches) == before
+
+
+# (rows, T, ks, dtype, fresh): ks 1 and 256, T < ks, a window or fresh
+FIR_EDGE_CASES = ((3, 5000, 1, "float32", True), (2, 4097, 256, "float32",
+                                                   False),
+                  (2, 100, 256, "float64", True), (5, 1, 7, "float32", False),
+                  (4, 3000, 65, "float64", False))
+
+
+def fir_edge_batch(rng, rows, T, ks, dtype, fresh):
+    """fir_apply inputs: (x with an all-zero row 0 and a NaN in the last
+    row, taps, window or None)."""
+    x = rng.normal(0, 10, (rows, T))
+    x[0] = 0
+    if rows > 1:
+        x[-1, T // 2] = np.nan
+    dt = getattr(torch, dtype)
+    w = None if fresh else torch.from_numpy(rng.normal(0, 10, (rows, ks))
+                                            ).to(dt)
+    return (torch.from_numpy(x).to(dt),
+            torch.from_numpy(rng.normal(0, 0.3, ks)).to(dt), w)
+
+
+def check_fir_case(dev, rows, T, ks, dtype, fresh, seed=160):
+    x, k, w = (None if a is None else a.to(dev) for a in fir_edge_batch(
+        np.random.default_rng(seed), rows, T, ks, dtype, fresh))
+    before = ck.fir_apply.launches
+    same_floats(ck.fir_apply(x, k, w), ck.fir_apply_plain(x, k, w))
+    assert ck.fir_apply.launches - before == int(dev.type == "cuda")
+
+
+@pytest.mark.parametrize("rows,T,ks,dtype,fresh", FIR_EDGE_CASES)
+def test_fir_apply_matches_plain(dev, rows, T, ks, dtype, fresh):
+    """S3 vs its plain version on FIR_EDGE_CASES."""
+    check_fir_case(dev, rows, T, ks, dtype, fresh)
+
+
+# (rows, T, marker): rows of bumps that fire, a NaN, an all-zero row
+GATE_EDGE_CASES = ((3, 4000, 1.0), (3, 4000, -1.0), (1, 1, 1.0),
+                   (130, 999, -1.0))
+
+
+def gate_edge_batch(rng, rows, T):
+    """peak_gate inputs: smooth bumps of rising amplitude a row (row 0 all
+    zero, a NaN in the last row), a threshold of 40."""
+    t = np.arange(T)
+    amp = rng.uniform(100, 900, (rows, 1)) + t / 10.0
+    sig = np.sin(t / rng.uniform(15, 40, (rows, 1))) ** 8 * amp
+    sig += rng.normal(0, 0.01, (rows, T))
+    sig[0] = 0
+    if rows > 1:
+        sig[-1, T // 2] = np.nan
+    return (torch.from_numpy(sig.astype(np.float32)),
+            torch.full((rows, T), 40.0))
+
+
+def check_gate_case(dev, rows, T, marker, seed=170):
+    sig, thr = (a.to(dev) for a in gate_edge_batch(
+        np.random.default_rng(seed), rows, T))
+    before = ck.peak_gate.launches
+    atten = 1.0 / (1.0 + 70.0 / 360.0)
+    got = ck.peak_gate(sig, thr, 36, atten, marker)
+    same_floats(got, ck.peak_gate_plain(sig, thr, 36, atten, marker))
+    assert ck.peak_gate.launches - before == int(dev.type == "cuda")
+    return got
+
+
+@pytest.mark.parametrize("rows,T,marker", GATE_EDGE_CASES)
+def test_peak_gate_matches_plain(dev, rows, T, marker):
+    """S4 vs its plain version on GATE_EDGE_CASES; the bumps fire."""
+    got = check_gate_case(dev, rows, T, marker)
+    if T > 1:
+        assert int((got != 0).sum()) > 10

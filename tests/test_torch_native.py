@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a process: the suite runs in several worker
+# processes on the same cores, where more threads each contend
+torch.set_num_threads(1)
 
 from rspt_tpu.hzr import pyref as jref  # noqa: E402
 from rspt_tpu.native import bindings as ref_native  # noqa: E402

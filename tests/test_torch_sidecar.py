@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a process: the suite runs in several worker
+# processes on the same cores, where more threads each contend
+torch.set_num_threads(1)
 pytest.importorskip("jax")
 
 from rspt_tpu_torch import packers as gpack  # noqa: E402

@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread a process: the suite runs in several worker
+# processes on the same cores, where more threads each contend
+torch.set_num_threads(1)
 
 from rspt_tpu import pipeline as rpipe  # noqa: E402
 from rspt_tpu.filters import design as rdesign  # noqa: E402
