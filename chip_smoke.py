@@ -81,10 +81,14 @@ signal; its timings (CUDA events; compress_many against 8 compress
 calls; cold and steady pushes; a decoder push a frame) come next; 16
 the batch signal ops: iir_scan, iir_assoc, fir_apply and peak_gate vs
 plain on tests/test_torch_cuda.py's IIR_EDGE_CASES, FIR_EDGE_CASES and
-GATE_EDGE_CASES (tolerance 0, NaN equal to NaN), then at 12 x 2^20
-(iir_assoc and fir_apply against their plain versions on the card,
-iir_scan in float32 and float64 and peak_gate against theirs on the
-CPU, the float64 iir_scan also equal to the host runtime),
+GATE_EDGE_CASES (tolerance 0, NaN equal to NaN; peak_gate at each case's
+schedule, its re-run counts equal to tests/test_torch_cuda.py's model of
+the schedule), then at 12 x 2^20 (iir_assoc and fir_apply against their
+plain versions on the card, iir_scan in float32 and float64 and
+peak_gate on detect_batch's gate against theirs on the CPU, the float64
+iir_scan also equal to the host runtime, peak_gate on the offline
+detector's gate against its own serial schedule; peak_gate's re-run
+counts on both gates logged),
 detect_batch, detect_offline_batch and fir_apply
 through the entry points (exact launches, no plain version), both
 detectors on 2 x 120,000 against the host detectors and the rolling
@@ -1159,7 +1163,9 @@ def check_signal_path(ck, edges, dev):
     float32 and float64 and S4 (on detect_batch's signal and threshold)
     on CPU copies (their plain versions take a step of torch ops a
     sample), S1 in float64 also equal to the host runtime's
-    iir_filter_channels(opt=1). Then, with every launch count at
+    iir_filter_channels(opt=1), S4 on the offline detector's gate equal
+    to its own serial schedule (chunk = T); S4's re-runs on both gates
+    logged. Then, with every launch count at
     0, detect_batch and detect_offline_batch at full width: exact launch
     counts, no plain version called; both on 2 channels cut to 120,000
     samples against the host detectors (equal counts and positions within
@@ -1177,7 +1183,8 @@ def check_signal_path(ck, edges, dev):
     for case in edges.FIR_EDGE_CASES:
         edges.check_fir_case(dev, *case)
     for case in edges.GATE_EDGE_CASES:
-        edges.check_gate_case(dev, *case)
+        edges.check_gate_expectations(case, *edges.check_gate_case(dev,
+                                                                   *case))
     torch.cuda.synchronize()
     log(f"phase 16: iir_scan, iir_assoc, fir_apply, peak_gate equal to "
         f"their plain versions on {edges.IIR_EDGE_CASES}, "
@@ -1229,13 +1236,33 @@ def check_signal_path(ck, edges, dev):
     held(edges, "iir_scan float64 vs the host runtime", y64,
          torch.from_numpy(host))
     # the gate on detect_batch's own signal and threshold at full width
+    nr_slope = int(100.0 * SIG_SR / 1000.0)
     _, sg, th = torch_peaks.detect_batch(x, SIG_SR)
-    gate = (sg, th, int(100.0 * SIG_SR / 1000.0),
-            1.0 / (1.0 + 25.0 / SIG_SR), 1.0)
+    gate = (sg, th, nr_slope, 1.0 / (1.0 + 25.0 / SIG_SR), 1.0)
     want, plain_s["peak_gate"] = on_cpu(ck.peak_gate_plain, gate)
-    err["peak_gate"] = held(edges, "peak_gate full width",
-                            ck.peak_gate(*gate), want)
+    got = ck.peak_gate(*gate)
+    reruns = {"detect_batch": ck.peak_gate.last_reruns.sum(0).tolist()}
+    err["peak_gate"] = held(edges, "peak_gate full width", got, want)
+    # the offline gate (attenuation 70) on offline_filters' signal and
+    # threshold, against the kernel's serial schedule (one chunk a row)
+    _, filt, thr_o, _ = torch_peaks.offline_filters(x, SIG_SR)
+    gate_o = (filt.contiguous(), thr_o.contiguous(), nr_slope,
+              1.0 / (1.0 + 70.0 / SIG_SR), 1.0)
+    got = ck.peak_gate(*gate_o)
+    reruns["offline"] = ck.peak_gate.last_reruns.sum(0).tolist()
+    serial = ck.peak_gate(*gate_o, chunk=SIG_NS)
+    if ck.peak_gate.last_reruns.any():
+        raise AssertionError("peak_gate's serial schedule re-ran chunks")
+    err["peak_gate"] = max(err["peak_gate"], held(
+        edges, "peak_gate offline full width vs its serial schedule", got,
+        serial))
+    chunk, warm, _ = ck.gate_schedule()
+    nk = ch * (-(-SIG_NS // chunk) - 1)      # chunks the repair checks
     torch.cuda.synchronize()
+    log(f"phase 16: peak_gate's re-runs at the default schedule (chunks of "
+        f"{chunk}, warm-up {warm}) on the full-width gates: " + "; ".join(
+            f"{k} {c} of {nk} chunks ({100.0 * c / nk:.3f}%), {n} samples"
+            for k, (c, n) in reruns.items()))
     log(f"phase 16: at full width ({ch} x {SIG_NS}): iir_assoc ({len(bp_a)} "
         f"coefficients, tiles of {tf.IIR_TILE}) and fir_apply ({FIR_TAPS} "
         f"taps) equal to their plain versions; iir_scan ({len(th_a)} "
@@ -1244,7 +1271,8 @@ def check_signal_path(ck, edges, dev):
         f"versions on the CPU (iir_scan {plain_s['iir_scan'] / 1e3:.1f} s / "
         f"{plain64_ms / 1e3:.1f} s, peak_gate "
         f"{plain_s['peak_gate'] / 1e3:.1f} s), iir_scan float64 to the host "
-        f"runtime's iir_filter_channels(opt=1); max |err| {err}")
+        f"runtime's iir_filter_channels(opt=1), peak_gate on the offline "
+        f"gate to its serial schedule; max |err| {err}")
 
     # the entry points at full width: both detectors and the FIR
     plains = [n for n in dir(ck) if n.endswith("_plain")]
@@ -1324,7 +1352,7 @@ def check_signal_path(ck, edges, dev):
         f"{MEDIAN_WINDOWS} (torch_rolling_median, torch_rolling_median_large"
         f" at 1,500) equal RollingWindowMedian as float32")
     return dict(x=x, args=args, launches=launches, gate=gate, err=err,
-                plain_ms=plain_s, med_in=med_in)
+                plain_ms=plain_s, med_in=med_in, reruns=reruns)
 
 
 def time_signal(ck, sp):
@@ -1355,13 +1383,17 @@ def time_signal(ck, sp):
         return torch.nn.functional.conv1d(xpad, w_conv)
 
     m_th, m_bp = len(th_a) - 1, len(bp_a) - 1
-    # a serial kernel's longest loop-carried chain, counted from the
-    # source: from y[t-1] to y[t] a multiply and M subtractions (S1); the
-    # count's select (accept / rising), its compare with 0, the increment,
-    # the compare with nr_slope and the select of 0 (S4; prev_amp's cycle,
-    # a multiply, a compare, accept and a select, is 4)
-    steps = {"iir_scan": 1 + m_th, "peak_gate": 5}
-    chain = {k: T * v * DEP_LAT / CLOCK_HZ * 1e3 for k, v in steps.items()}
+    # each design's longest loop-carried chain, counted from the source:
+    # from y[t-1] to y[t] a multiply and M subtractions, T steps a row (S1);
+    # the count's select (accept / rising), its compare with 0, the
+    # increment, the compare with nr_slope and the select of 0 (S4; prev_
+    # amp's cycle, a multiply, a compare, accept and a select, is 4), warm
+    # + chunk steps a thread (the speculation; the repair walk re-runs
+    # little, its count is the row's "reruns")
+    chunk, warm, _ = ck.gate_schedule()
+    steps = {"iir_scan": (T, 1 + m_th), "peak_gate": (warm + chunk, 5)}
+    chain = {k: n_ * v * DEP_LAT / CLOCK_HZ * 1e3
+             for k, (n_, v) in steps.items()}
     spec = {
         "iir_scan": dict(
             fn=lambda: ck.iir_scan(*a["iir_scan"]), n=3,
@@ -1406,8 +1438,10 @@ def time_signal(ck, sp):
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=statistics.median(lib_ts) if lib_ts else None)
-        if name in chain:    # the bound of the one-thread-a-row design
+        if name in chain:    # the bound of the design's serial chain
             row["chain_ms"] = chain[name]
+        if name == "peak_gate":   # chunks and samples re-run, summed
+            row["reruns"] = sp["reruns"]
         rows.append(row)
         if name == "iir_assoc":      # its three kernels, from the profiler
             parts = {k: device_ms(r["fn"], reps=10, kernel=k) for k in (
@@ -1418,9 +1452,10 @@ def time_signal(ck, sp):
             f"[{min(ts):.6f}, {max(ts):.6f}] (CUDA events, medians of 5), "
             f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
             f"({r['bytes']} B, {r['ops']} operations)"
-            + (f", one-thread-a-row chain bound {chain[name]:.4f} ms (T x "
-               f"{steps[name]} dependent operations x {DEP_LAT} cycles at "
-               f"{CLOCK_HZ / 1e9} GHz, an estimate)" if name in chain else "")
+            + (f", the design's chain bound {chain[name]:.4f} ms "
+               f"({steps[name][0]} steps x {steps[name][1]} dependent "
+               f"operations x {DEP_LAT} cycles at {CLOCK_HZ / 1e9} GHz, an "
+               f"estimate)" if name in chain else "")
             + f"; plain {plain_ms:.4f} ms"
             + (" (on the CPU)" if name in chain else " (on the card)")
             + (f"; conv1d {row['library_ms']:.6f} ms [{min(lib_ts):.6f}, "

@@ -4,8 +4,8 @@
                          [--baseline DIR]
 
 Builds variants of ops/csrc/xdelta.cu, hzr_decode.cu, tokenize.cu,
-compact.cu, place_literals.cu, pack_flat.cu, fwht.cu, pack_blocks.cu and
-dct.cu,
+compact.cu, place_literals.cu, pack_flat.cu, fwht.cu, pack_blocks.cu,
+dct.cu, peaks.cu and iir.cu,
 each the committed source with some of its constants (or a line)
 replaced, into one shared library apiece (nvcc, sm_90a, all at once),
 and times each variant at the main path's shapes (the chip_smoke inputs:
@@ -18,7 +18,9 @@ modes of pack_flat, its device decode's emissions for place_literals,
 config 3's centred rows for fwht, the main payload as one stream for
 pack_blocks, the main pass 1 for pack_blocks_tokw and BASELINE config
 4's centred rows and their coefficients for dct_forward and
-dct_inverse) beside the library call that computes the same function
+dct_inverse, chip_smoke phase 16's full-width detect_batch gate for
+peak_gate and its 12 x 2^20 signal through the offline threshold's
+low-pass, float32 and float64, for iir_scan) beside the library call that computes the same function
 where there is one (for the DCT pair an f64 torch.matmul, not exact), in
 turns, by torch.profiler device time of the whole call (every kernel
 and memset of it; mean of 30 calls a round, medians over the rounds
@@ -29,7 +31,9 @@ two_launches and global_atomics variants put back designs that lost
 this A/B (a first launch of tile sums; a global atomicOr a token
 field). Variants marked "diag" drop work (their output is not the
 function's) to show what the rest costs; every other variant is first
-checked bit for bit against the plain version. Prints the card's name
+checked bit for bit against the plain version (peak_gate and iir_scan:
+against the committed kernel, which chip_smoke holds against the plain
+version at the same shapes). Prints the card's name
 and power limit and one JSON line of the medians. Needs a CUDA card and
 nvcc; imports nothing of JAX.
 """
@@ -312,10 +316,45 @@ DCT = {
                         "    if (more && n < 0) fetch((ck + 1) * kX, b ^ 1);"},
                        True),
 }
+# peak_gate (S4) on detect_batch's full-width gate: chunks of 1,024 from a
+# 512-sample warm-up (the default), other chunks and warm-ups, fewer
+# stages in flight
+PEAKS = {
+    "chunk1024_warm512": ({}, False),
+    "chunk2048_warm512": ({"kChunk = 1024;": "kChunk = 2048;"}, False),
+    "chunk512_warm512": ({"kChunk = 1024;": "kChunk = 512;"}, False),
+    "chunk1024_warm1024": ({"kWarm = 512;": "kWarm = 1024;"}, False),
+    "chunk1024_warm256": ({"kWarm = 512;": "kWarm = 256;"}, False),
+    "stages2": ({"kStages = 4;": "kStages = 2;"}, False),
+    # no state machine: each step passes the sample on
+    "diag_no_step": ({
+        "      const float y = step(nx, in[0][lane][c], in[1][lane][c], a.g);":
+        "      const float y = in[0][lane][c] + in[1][lane][c];"}, True),
+    # no copies after the first stages: every step reads stale strips
+    "diag_no_copies": ({
+        "    if (sl + kStages - 1 < nslab) fetch(sl + kStages - 1);":
+        "    if (sl < 0) fetch(sl + kStages - 1);"}, True),
+}
+# iir_scan (S1) on the offline threshold's low-pass (p = 3) at full width,
+# float32 and float64: slabs of 512 (the default) or 256, u read in blocks
+# of 16 (default) or 8 values, x copied 4 slabs ahead (default) or 2 or 6
+IIR = {
+    "slab512_unroll16_ring6": ({}, False),
+    "slab256": ({"kSlab = 512;": "kSlab = 256;"}, False),
+    "unroll8": ({"kUnroll = 16;": "kUnroll = 8;"}, False),
+    "ring4": ({"kRing = 6;": "kRing = 4;"}, False),
+    "ring8": ({"kRing = 6;": "kRing = 8;"}, False),
+    # no feedback: y = u (the chain lane's loop without its chain)
+    "diag_no_chain": ({
+        "for (int k = 0; k < M; ++k) v = sub_rn(v, mul_rn(c.n[k + 1], s[k]));":
+        "for (int k = 0; k < 0; ++k) v = s[k];"}, True),
+}
 TABLES = {"xdelta.cu": XDELTA, "hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "compact.cu": COMPACT, "place_literals.cu": PLACE,
           "pack_flat.cu": PACK, "fwht.cu": FWHT, "pack_blocks.cu": BLOCKS,
-          "dct.cu": DCT}
+          "dct.cu": DCT, "peaks.cu": PEAKS, "iir.cu": IIR}
+# device_ms's calls a measurement, where 30 would take seconds
+REPS = {"peak_gate": 10, "iir_scan": 3, "iir_scan_f64": 3}
 
 
 def variant_source(src: str, repl: dict) -> str:
@@ -382,7 +421,19 @@ def _bind(cu, lib):
             "dct.cu": {
                 "rspt_dct_forward": [P] * 4 + [I] * 2 + [P],
                 "rspt_dct_inverse": [P] * 4 + [ctypes.c_double] + [I] * 2
-                + [P]}}[cu]
+                + [P]},
+            "peaks.cu": {
+                "rspt_peak_gate_schedule": [P],
+                "rspt_peak_gate": [P] * 5 + [I, ctypes.c_long, I, I, I,
+                                             ctypes.c_float, ctypes.c_float,
+                                             P]},
+            "iir.cu": {"rspt_iir_scan": [P] * 6 + [I, I, ctypes.c_long, I,
+                                                   P]}}[cu]
+    if cu == "peaks.cu" and not hasattr(lib, "rspt_peak_gate_schedule"):
+        # a source with one thread a row: no schedule, no scratch
+        sigs = {"rspt_peak_gate": [P] * 3 + [I, ctypes.c_long, I,
+                                             ctypes.c_float, ctypes.c_float,
+                                             P]}
     if cu == "xdelta.cu" and not hasattr(lib, "rspt_xdelta_tile"):
         # a source with one thread a word and ok set by the caller
         sigs = {"rspt_xdelta_swizzle": [P, P, P] + [I] * 6 + [P]}
@@ -615,6 +666,58 @@ def main() -> int:
         assert err == 0, err
         return out
 
+    # S4 on detect_batch's gate and S1 on the offline threshold's
+    # low-pass (p = 3), at phase 16's full width (12 x 2^20 float32)
+    from rspt_tpu_torch.analysis import torch_peaks
+    sx, _ = cs.make_ecg(12, cs.SIG_NS)
+    xs = torch.from_numpy(sx.astype(np.float32)).to(dev)
+    _, sg, th = torch_peaks.detect_batch(xs, cs.SIG_SR)
+    gate = (sg, th, int(100.0 * cs.SIG_SR / 1000.0),
+            1.0 / (1.0 + 25.0 / cs.SIG_SR), 1.0)
+    th_b, th_a = torch_peaks._coeffs(cs.SIG_SR)[2]
+    z32 = xs.new_zeros((12, len(th_a) - 1))
+    xs64, z64 = xs.double(), z32.double()
+
+    def peak_gate(lib):
+        """peak_gate through lib as its wrapper calls it (its default
+        schedule; a source without one: one thread a row)."""
+        sig, thr, nr, atten, marker = gate
+        out = torch.empty_like(sig)
+        rows, n = sig.shape
+        if hasattr(lib, "rspt_peak_gate_schedule"):
+            sched = (ctypes.c_int * 3)()
+            lib.rspt_peak_gate_schedule(sched)
+            chunk, warm, ckpt = sched
+            nk = -(-n // chunk)
+            state = torch.empty((rows * nk * (2 + (chunk - 1) // ckpt), 4),
+                                **i32)
+            reruns = torch.empty((rows, 2), dtype=torch.int64, device=dev)
+            err = lib.rspt_peak_gate(
+                sig.data_ptr(), thr.data_ptr(), out.data_ptr(),
+                state.data_ptr(), reruns.data_ptr(), rows, n, chunk, warm,
+                nr, atten, marker, stream)
+        else:
+            err = lib.rspt_peak_gate(sig.data_ptr(), thr.data_ptr(),
+                                     out.data_ptr(), rows, n, nr, atten,
+                                     marker, stream)
+        assert err == 0, err
+        return out
+
+    def bits(t):
+        return t.view(torch.int64 if t.dtype == torch.float64
+                      else torch.int32)
+
+    def iir_scan(lib, x, z):
+        """iir_scan through lib as its wrapper calls it."""
+        y = torch.empty_like(x)
+        keep, (nh, dh) = ck._coef_args(th_a, th_b, x.dtype)
+        err = lib.rspt_iir_scan(x.data_ptr(), z.data_ptr(), z.data_ptr(),
+                                y.data_ptr(), nh, dh, len(th_a), x.shape[0],
+                                x.shape[1], int(x.dtype == torch.float64),
+                                stream)
+        assert err == 0, err
+        return y
+
     def decode_view(out):   # what placement reads, and the lane results
         return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])
 
@@ -653,7 +756,18 @@ def main() -> int:
              ck.dct_forward_plain(cen4, pd4._cos, pd4._fwd_scale), None),
             ("dct_inverse", lambda lib: dct(lib, True),
              ck.dct_inverse_plain(coef4, pd4._cos_t, pd4._cs,
-                                  pd4._inv_scale), None)]}
+                                  pd4._inv_scale), None)],
+        # against the committed kernels, which chip_smoke phase 16 holds
+        # against the plain versions at these shapes (their plain versions
+        # take minutes here)
+        # (float outputs compared by their bits)
+        "peaks.cu": [("peak_gate", peak_gate, bits(ck.peak_gate(*gate)),
+                      bits)],
+        "iir.cu": [
+            ("iir_scan", lambda lib: iir_scan(lib, xs, z32),
+             bits(ck.iir_scan(xs, th_a, th_b, z32, z32)), bits),
+            ("iir_scan_f64", lambda lib: iir_scan(lib, xs64, z64),
+             bits(ck.iir_scan(xs64, th_a, th_b, z64, z64)), bits)]}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         libs = build_variants({cu: TABLES[cu] for cu in only}, Path(tmp),
@@ -666,6 +780,9 @@ def main() -> int:
                 run = (lambda fn=fn, lib=lib: fn(lib))
                 kernel_of[f"{kind}/{name}"] = (
                     "xdelta_swizzle_kernel" if kind.startswith("xdelta")
+                    else "iir_scan_kernel" if kind.startswith("iir_scan")
+                    else "gate_speculate" if hasattr(
+                        lib, "rspt_peak_gate_schedule")
                     else kind + "_kernel")
                 if name == "baseline" or not TABLES[cu][name][1]:
                     got = run()
@@ -688,12 +805,14 @@ def main() -> int:
                 lambda: torch.matmul(q4_64, cos4t_64))
         torch.cuda.synchronize()
         times = {name: [] for name in runs}
+        reps = {name: REPS.get(name.split("/")[0], cs.REPS) for name in runs}
         for _ in range(args.rounds):
             for name, fn in runs.items():
-                times[name].append(cs.device_ms(fn) or cs.cuda_ms(fn))
+                times[name].append(cs.device_ms(fn, reps[name])
+                                   or cs.cuda_ms(fn, reps[name]))
         # the named kernel of a call alone (median of its launches),
         # without the call's memsets, copies and other kernels
-        alone = {name: cs.device_ms(fn, kernel=kernel_of[name])
+        alone = {name: cs.device_ms(fn, reps[name], kernel=kernel_of[name])
                  for name, fn in runs.items() if name in kernel_of}
     med = {name: statistics.median(ts) for name, ts in times.items()}
     for name, ts in times.items():

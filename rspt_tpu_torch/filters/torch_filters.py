@@ -80,13 +80,12 @@ def iir_apply(x, n: Sequence[float], d: Sequence[float],
         yz = x.new_zeros(lead + (m,))
     else:
         xz, yz = (_tensor(z, dev).to(dtype) for z in zi)
-    rows = _rows(x, T)
-    xzr, yzr = _rows(xz, m), _rows(yz, m)
-    if mode == "scan":
-        y = ck.iir_scan(rows, n, d, xzr, yzr)
+    if T == 0:      # nothing to filter, no launch: the state passes on
+        y = x.new_empty(lead + (0,))
     else:
-        y = ck.iir_assoc(rows, n, d, xzr, yzr, IIR_TILE)
-    y = y.reshape(lead + (T,))
+        args = (_rows(x, T), n, d, _rows(xz, m), _rows(yz, m))
+        y = (ck.iir_scan(*args) if mode == "scan"
+             else ck.iir_assoc(*args, IIR_TILE)).reshape(lead + (T,))
     xz_out = torch.cat([xz.flip(-1), x], -1)[..., -m:].flip(-1)
     yz_out = torch.cat([yz.flip(-1), y], -1)[..., -m:].flip(-1)
     return y, (xz_out, yz_out)
@@ -106,7 +105,8 @@ def fir_apply(x, kernel, window=None, device=None):
     ks = k.numel()
     lead, T = x.shape[:-1], x.shape[-1]
     w = None if window is None else _tensor(window, dev).to(dtype)
-    y = ck.fir_apply(_rows(x, T), k, None if w is None else _rows(w, ks))
+    y = x.new_empty(lead + (0,)) if T == 0 else ck.fir_apply(
+        _rows(x, T), k, None if w is None else _rows(w, ks))
     if w is None:
         w = x.new_zeros(lead + (ks,))
     return y.reshape(lead + (T,)), torch.cat([w, x], -1)[..., -ks:]

@@ -71,6 +71,30 @@ __device__ int block_scan_excl(int v, int ident, Op op, bool reverse,
 }
 
 // ---------------------------------------------------------------------
+// cp.async of single elements (iir.cu, peaks.cu)
+// ---------------------------------------------------------------------
+
+// One element of kBytes (4 or 8) from gmem into smem; with ok false the
+// element is zero-filled (gmem must still be a valid address).
+template <int kBytes>
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem,
+                                               bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(gmem), "n"(kBytes), "r"(ok ? kBytes : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most kPending of this thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// ---------------------------------------------------------------------
 // Huffman bit packs in tiles (pack_flat.cu, pack_blocks.cu)
 // ---------------------------------------------------------------------
 

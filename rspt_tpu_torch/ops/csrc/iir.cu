@@ -21,12 +21,22 @@
 // whatever the build's -fmad setting, so the plain PyTorch versions
 // (ops/cuda_kernels.py) give the same bits.
 //
-// S1: one thread a row, serial in T (the recurrence's own shape, as the
-// reference's loop). x is read 8 samples ahead into registers, the
-// histories are register arrays (the order p - 1 = M is a template
-// argument, 1 .. 7). Bound: T times the chain's latency a step, one
-// multiply and M subtractions (about 4 + 4M cycles in f32, 8 + 8M in f64),
-// not bytes: with 12 rows the card is mostly idle.
+// S1: a CTA a row, serial in T (the recurrence's own shape, as the
+// reference's loop; split in time it could not keep the serial bits: the
+// detectors' narrow low-pass keeps ulp-level differences alive). The
+// chain is y[t - 1] -> y[t]: one multiply and M subtractions (the order
+// p - 1 = M is a template argument, 1 .. 7), about 4 + 4M cycles a step
+// in f32. Everything else leaves that chain alone. The CTA walks the row
+// in slabs of kSlab samples; in the step for slab i:
+//   - lane 0 of warp 0 runs the feedback of slab i alone: u from shared
+//     memory into registers kUnroll samples ahead, y into a shared slab;
+//   - warps 1-3 compute the feedforward u of slab i + 1 (x from a ring of
+//     kRing slabs in shared memory, xz before t = 0), store y of slab
+//     i - 1 coalesced, and copy x's slab i + kAhead + 1 in by cp.async
+//     (the ring holds slabs i .. i + kAhead + 1);
+// and one barrier ends the step. Splitting u off the chain changes no
+// bit: u[t] does not depend on y. Bound: T times the chain's latency,
+// not bytes (12 rows use 12 SMs).
 //
 // S2: the same recurrence over tiles of L samples, in three launches.
 //   1. local: a thread a (row, tile) runs the tile's recurrence serially
@@ -48,8 +58,13 @@
 namespace {
 
 constexpr int kMaxP = 8;        // coefficients (order 7)
-constexpr int kChunk = 8;       // samples read ahead a thread
+constexpr int kChunk = 8;       // samples read ahead a thread (S2)
 constexpr int kThreads = 128;
+constexpr int kSlab = 512;      // samples a slab (S1)
+constexpr int kRing = 6;        // x slabs in shared memory (S1)
+constexpr int kAhead = kRing - 2;  // slabs S1 copies ahead
+constexpr int kUnroll = 16;     // u read ahead by S1's chain lane
+constexpr int kWorkers = kThreads - 32;  // S1's warps 1-3
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -133,18 +148,117 @@ __device__ __forceinline__ void load_history(const T* __restrict__ x,
   xh[M] = T(0);
 }
 
+// S1's feedback over a slab (lane 0): y[j] = u[j] - n[1] s[0] - ... -
+// n[M] s[M-1] for j < m (every j when not kPartial), the history s
+// shifted; u read from shared memory kUnroll values ahead.
+template <typename T, int M, bool kPartial>
+__device__ __forceinline__ void chain_block(const T (&ub)[kUnroll],
+                                            T* __restrict__ y, int j0, int m,
+                                            T (&s)[M], const Coefs<T>& c) {
+#pragma unroll
+  for (int q = 0; q < kUnroll; ++q) {
+    if (!kPartial || j0 + q < m) {
+      T v = ub[q];
+#pragma unroll
+      for (int k = 0; k < M; ++k) v = sub_rn(v, mul_rn(c.n[k + 1], s[k]));
+#pragma unroll
+      for (int k = M - 1; k > 0; --k) s[k] = s[k - 1];
+      s[0] = v;
+      y[j0 + q] = v;
+    }
+  }
+}
+
+template <typename T, int M, bool kPartial>
+__device__ __forceinline__ void chain_slab(const T* __restrict__ u,
+                                           T* __restrict__ y, int m,
+                                           T (&s)[M], const Coefs<T>& c) {
+  // two register blocks in turns: one is read from u while the other's
+  // steps run
+  T a[kUnroll], b[kUnroll];
+#pragma unroll
+  for (int q = 0; q < kUnroll; ++q) a[q] = u[q];
+  for (int j0 = 0; j0 < m; j0 += 2 * kUnroll) {
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) b[q] = u[j0 + kUnroll + q];
+    chain_block<T, M, kPartial>(a, y, j0, m, s, c);
+    if (j0 + 2 * kUnroll < kSlab) {
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) a[q] = u[j0 + 2 * kUnroll + q];
+    }
+    chain_block<T, M, kPartial>(b, y, j0 + kUnroll, m, s, c);
+  }
+}
+
+// S1: a CTA a row (see the top).
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
     iir_scan_kernel(const T* __restrict__ x, const T* __restrict__ xz,
-                    const T* __restrict__ yz, T* __restrict__ y, int rows,
-                    long n, Coefs<T> c) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= rows) return;
-  T xh[M + 1], s[M];
-  load_history<T, M>(x + (size_t)r * n, xz + (size_t)r * M, 0, xh);
+                    const T* __restrict__ yz, T* __restrict__ y, long n,
+                    Coefs<T> c) {
+  __shared__ T s_x[kRing][kSlab];
+  __shared__ T s_u[2][kSlab];
+  __shared__ T s_y[2][kSlab];
+  const int tid = threadIdx.x;
+  const int w = tid - 32;  // worker index (warps 1-3)
+  const T* xr = x + (size_t)blockIdx.x * n;
+  const T* xzr = xz + (size_t)blockIdx.x * M;
+  T* yr = y + (size_t)blockIdx.x * n;
+  const long ns = (n + kSlab - 1) / kSlab;
+
+  auto fetch = [&](long s) {  // workers: x's slab s into the ring
+    if (s < ns) {
+      T* dst = s_x[s % kRing];
+      for (int i = w; i < kSlab; i += kWorkers) {
+        const long t = s * kSlab + i;
+        rspt::cp_async_zfill<sizeof(T)>(dst + i, xr + (t < n ? t : 0), t < n);
+      }
+    }
+    rspt::cp_async_commit();
+  };
+  auto x_at = [&](long t) -> T {  // x[t] from the ring, or the history
+    return t >= 0 ? s_x[(t / kSlab) % kRing][t % kSlab] : xzr[-t - 1];
+  };
+
+  if (tid >= 32) {
+    for (int k = 0; k < kAhead; ++k) fetch(k);
+    rspt::cp_async_wait<kAhead - 1>();  // slab 0 is in
+  }
+  __syncthreads();
+  T s[M];  // lane 0's y history, the newest first
 #pragma unroll
-  for (int i = 0; i < M; ++i) s[i] = yz[(size_t)r * M + i];
-  run<T, M>(x + (size_t)r * n, y + (size_t)r * n, 0, n, xh, s, c);
+  for (int i = 0; i < M; ++i) s[i] = yz[(size_t)blockIdx.x * M + i];
+  for (long i = -1; i <= ns; ++i) {
+    if (tid == 0 && i >= 0 && i < ns) {  // the chain, slab i
+      if (n - i * kSlab >= kSlab) {
+        chain_slab<T, M, false>(s_u[i & 1], s_y[i & 1], kSlab, s, c);
+      } else {
+        chain_slab<T, M, true>(s_u[i & 1], s_y[i & 1], (int)(n - i * kSlab),
+                               s, c);
+      }
+    } else if (tid >= 32) {
+      if (i + 1 < ns) {  // the feedforward, slab i + 1
+        T* u = s_u[(i + 1) & 1];
+        for (int j = w; j < kSlab; j += kWorkers) {
+          const long t = (i + 1) * kSlab + j;
+          T acc = T(0);
+#pragma unroll
+          for (int k = 0; k <= M; ++k)
+            acc = add_rn(acc, mul_rn(c.d[k], x_at(t - k)));
+          u[j] = acc;
+        }
+      }
+      if (i >= 1) {  // the stores, slab i - 1
+        const T* yo = s_y[(i - 1) & 1];
+        const long t0 = (i - 1) * kSlab;
+        for (int j = w; j < kSlab && t0 + j < n; j += kWorkers)
+          yr[t0 + j] = yo[j];
+      }
+      fetch(i + kAhead + 1);
+      rspt::cp_async_wait<kAhead - 1>();  // slab i + 2 is in
+    }
+    __syncthreads();
+  }
 }
 
 // S2, pass 1: a thread a (row, tile).
@@ -236,8 +350,8 @@ template <typename T, int M>
 int scan_launch(const void* x, const void* xz, const void* yz, void* y,
                 const double* nh, const double* dh, int rows, long n,
                 cudaStream_t st) {
-  iir_scan_kernel<T, M><<<blocks_of(rows), kThreads, 0, st>>>(
-      (const T*)x, (const T*)xz, (const T*)yz, (T*)y, rows, n,
+  iir_scan_kernel<T, M><<<rows, kThreads, 0, st>>>(
+      (const T*)x, (const T*)xz, (const T*)yz, (T*)y, n,
       coefs_of<T>(nh, dh, M + 1));
   return (int)cudaGetLastError();
 }

@@ -65,7 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,8 +120,9 @@ def _lib() -> ctypes.CDLL:
         "rspt_iir_scan": [P] * 6 + [I, I, ctypes.c_long, I, P],
         "rspt_iir_assoc": [P] * 10 + [I, I, ctypes.c_long, I, I, P],
         "rspt_fir_apply": [P] * 4 + [I, ctypes.c_long, I, I, I, P],
-        "rspt_peak_gate": [P] * 3 + [I, ctypes.c_long, I, ctypes.c_float,
-                                     ctypes.c_float, P],
+        "rspt_peak_gate_schedule": [P],
+        "rspt_peak_gate": [P] * 5 + [I, ctypes.c_long, I, I, I,
+                                     ctypes.c_float, ctypes.c_float, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -1520,8 +1521,8 @@ def iir_scan(x: torch.Tensor, n: Sequence[float], d: Sequence[float],
     x's type), serially: u[t] = sum_i d[i]·x[t−i] from 0 in order, y[t] =
     u[t] − n[1]·y[t−1] − … in order (filter_opt's order: in float64 the
     bits of the host runtime's iir_filter_channels(opt=1)). xz, yz: (rows,
-    p − 1) histories of x and y, the newest first. One launch, one thread
-    a row; a new tensor."""
+    p − 1) histories of x and y, the newest first. One launch, a CTA a row
+    (the feedback chain on one lane); a new tensor."""
     if not _check_iir_args(x, n, d, xz, yz):
         return iir_scan_plain(x, n, d, xz, yz)
     y = torch.empty_like(x)
@@ -1725,31 +1726,68 @@ def peak_gate_plain(sig: torch.Tensor, thr: torch.Tensor, nr_slope: int,
     return out.t().contiguous()
 
 
+def gate_schedule() -> Tuple[int, int, int]:
+    """S4's default schedule from peaks.cu: (samples a chunk, warm-up
+    samples before a chunk, samples between checkpoints)."""
+    out = (ctypes.c_int * 3)()
+    _lib().rspt_peak_gate_schedule(out)
+    return tuple(out)
+
+
 def peak_gate(sig: torch.Tensor, thr: torch.Tensor, nr_slope: int,
-              atten: float, marker: float) -> torch.Tensor:
+              atten: float, marker: float, chunk: Optional[int] = None,
+              warmup: Optional[int] = None) -> torch.Tensor:
     """S4: the amplitude-gated state machine of the peak detectors
     (peak_detector.h:95-122) along each row of sig and thr ((rows, T)
     float32), in float32: threshold ratio 1.5, reference ratio 0.5, the
     attenuation factor atten (1 / (1 + a / sr)), a marker nr_slope samples
     after each accepted peak (marker, or the signal value if marker is
-    −1). One launch, one thread a row; a new (rows, T) float32 tensor."""
+    −1). On the card, in chunks of `chunk` samples, each run from a state
+    guessed `warmup` samples before it, then a repair walk a row that
+    re-runs a chunk whose guess was wrong until it merges (peaks.cu): the
+    serial result whatever the schedule. chunk (>= 1) and warmup (>= 0)
+    default to gate_schedule()'s; warmup=0 and small chunks force re-runs,
+    chunk=T is one serial walk a row. The plain version ignores them. Two
+    launches (one when a row is one chunk), counted as one; the chunks and
+    samples re-run a row ((rows, 2) int64 on the card) in
+    peak_gate.last_reruns. A new (rows, T) float32 tensor."""
     _check(sig, "sig", torch.float32)
     if sig.dim() != 2:
         raise ValueError("sig: need (rows, T)")
     _check(thr, "thr", torch.float32, tuple(sig.shape))
+    if (chunk is not None and chunk < 1) or (warmup is not None
+                                             and warmup < 0):
+        raise ValueError(f"chunk must be >= 1 and warmup >= 0, got "
+                         f"{chunk}, {warmup}")
+    peak_gate.last_reruns = None
     if not _on_cuda(sig, thr):
         return peak_gate_plain(sig, thr, nr_slope, atten, marker)
     out = torch.empty_like(sig)
     if out.numel() == 0:
         return out
+    rows, T = sig.shape
+    c_def, w_def, ckpt = gate_schedule()
+    chunk = min(T, c_def if chunk is None else int(chunk))
+    warm = min(T, w_def if warmup is None else int(warmup))
+    nk = -(-T // chunk)
+    if chunk + warm >= 2 ** 31 or rows * nk >= 2 ** 31:
+        raise ValueError(f"peak_gate: chunk + warmup ({chunk + warm}) and "
+                         f"rows x chunks ({rows * nk}) must be < 2^31")
+    # the guessed starts, the ends and the checkpoints: 16 B a state
+    state = torch.empty((rows * nk * (2 + (chunk - 1) // ckpt), 4),
+                        dtype=torch.int32, device=sig.device)
+    reruns = torch.empty((rows, 2), dtype=torch.int64, device=sig.device)
     _launch("peak_gate", _lib().rspt_peak_gate, sig.data_ptr(),
-            thr.data_ptr(), out.data_ptr(), sig.shape[0], sig.shape[1],
-            int(nr_slope), _f32(atten), _f32(marker), device=sig.device)
+            thr.data_ptr(), out.data_ptr(), state.data_ptr(),
+            reruns.data_ptr(), rows, T, chunk, warm, int(nr_slope),
+            _f32(atten), _f32(marker), device=sig.device)
     peak_gate.launches += 1
+    peak_gate.last_reruns = reruns
     return out
 
 
 peak_gate.launches = 0
+peak_gate.last_reruns = None
 
 
 KERNELS = (xdelta_swizzle, xdelta_swizzle_batch, tokenize_planes,

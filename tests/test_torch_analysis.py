@@ -25,6 +25,8 @@ from rspt_tpu_torch.analysis import peaks, torch_peaks  # noqa: E402
 from rspt_tpu_torch.analysis.rolling_median import (  # noqa: E402
     rolling_median, torch_rolling_median, torch_rolling_median_large)
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from test_torch_cuda import (GATE_EDGE_CASES, check_gate_case,  # noqa: E402
+                             check_gate_expectations)
 
 CPU = "cpu"
 
@@ -189,6 +191,30 @@ def test_peak_gate_plain_equals_state_machine_loop(rng, marker):
                       marker)
     assert np.array_equal(got.numpy(), want, equal_nan=True)
     assert (want[:2] != 0).sum() > 20
+
+
+@pytest.mark.parametrize("case", GATE_EDGE_CASES)
+def test_peak_gate_edge_cases_on_cpu(case):
+    """tests/test_torch_cuda.py's GATE_EDGE_CASES on the CPU: the wrapper
+    (its plain version here) against the plain version, and the model of
+    peaks.cu's chunk-parallel schedule (speculation from guessed states,
+    the repair walk; gate_schedule_model) against it bit for bit at each
+    case's (chunk, warmup), forced re-runs and never-merging rows
+    included."""
+    check_gate_expectations(case, *check_gate_case(torch.device(CPU),
+                                                   *case))
+
+
+def test_peak_gate_schedule_arguments_checked():
+    """peak_gate's schedule: chunk >= 1 and warmup >= 0, else ValueError
+    on every device; valid ones leave the plain result unchanged here."""
+    sig = torch.zeros((2, 50))
+    thr = torch.ones((2, 50))
+    for kw in ({"chunk": 0}, {"warmup": -1}):
+        with pytest.raises(ValueError, match="chunk"):
+            ck.peak_gate(sig, thr, 36, 0.8, 1.0, **kw)
+    assert torch.equal(ck.peak_gate(sig, thr, 36, 0.8, 1.0, chunk=7,
+                                    warmup=0), torch.zeros((2, 50)))
 
 
 def _median_inputs(rng):

@@ -1538,17 +1538,25 @@ def iir_edge_batch(rng, rows, T, p, dtype):
     xz = rng.normal(0, 100, (rows, p - 1))
     yz = rng.normal(0, 100, (rows, p - 1))
     x[0] = xz[0] = yz[0] = 0
-    if rows > 1:
+    if rows > 1 and T:
         x[-1, T // 2] = np.nan
     t = [torch.from_numpy(a).to(dtype) for a in (x, xz, yz)]
     return t[0], n, d, t[1], t[2]
 
 
-# (rows, T, p, dtype, L): T = 1, T < L, T on and off a tile's end, p 2-8
+S1_SLAB = 512   # iir.cu kSlab: the samples of S1's slabs
+
+# (rows, T, p, dtype, L): T = 0 and 1, T < L, T on and off a tile's end
+# and S1's slab ends (slab - 1, slab, slab + 1, 3 slab + 7), 13 rows, p 2-8
 IIR_EDGE_CASES = ((3, 1, 2, "float32", 512), (3, 300, 8, "float64", 512),
                   (4, 5000, 3, "float32", 512), (4, 5000, 5, "float64", 7),
                   (2, 4096, 8, "float32", 256), (13, 1025, 4, "float32", 1),
-                  (1, 2048, 2, "float64", 512))
+                  (1, 2048, 2, "float64", 512), (2, 0, 3, "float32", 512),
+                  (13, S1_SLAB - 1, 3, "float32", 512),
+                  (3, S1_SLAB, 8, "float64", 100),
+                  (13, S1_SLAB + 1, 2, "float32", 512),
+                  (2, 3 * S1_SLAB + 7, 5, "float64", 512),
+                  (13, 3 * S1_SLAB + 7, 3, "float32", 256))
 
 
 def check_iir_case(dev, rows, T, p, dtype, L, seed=150):
@@ -1563,7 +1571,7 @@ def check_iir_case(dev, rows, T, p, dtype, L, seed=150):
                 ck.iir_scan_plain(x, n, d, xz, yz))
     same_floats(ck.iir_assoc(x, n, d, xz, yz, L),
                 ck.iir_assoc_plain(x, n, d, xz, yz, L))
-    launched = int(dev.type == "cuda")
+    launched = int(dev.type == "cuda" and T > 0)
     assert (ck.iir_scan.launches - before[0],
             ck.iir_assoc.launches - before[1]) == (launched, launched)
 
@@ -1587,11 +1595,34 @@ def test_iir_coefficient_limit_raises_on_card(dev):
     assert (ck.iir_scan.launches, ck.iir_assoc.launches) == before
 
 
-# (rows, T, ks, dtype, fresh): ks 1 and 256, T < ks, a window or fresh
+def test_filters_empty_time_axis_on_card(dev):
+    """F3 on the card: iir_apply (both modes) and fir_apply at T = 0 give
+    y of shape (2, 0) and the state passed through (the zero state, the
+    given window or zeros), with no launch."""
+    from rspt_tpu_torch.filters import torch_filters as tf
+    x = torch.zeros((2, 0), device=dev)
+    zi = (torch.tensor([[1.0, 2.0], [3.0, 4.0]], device=dev),
+          torch.tensor([[5.0, 6.0], [7.0, 8.0]], device=dev))
+    before = [k.launches for k in ck.KERNELS]
+    for mode in ("scan", "assoc"):
+        y, (xz, yz) = tf.iir_apply(x, [1.0, -1.5, 0.7], [0.05, 0.1, 0.05],
+                                   zi=zi, mode=mode, device=dev)
+        assert y.shape == (2, 0) and y.device.type == "cuda"
+        assert torch.equal(xz, zi[0]) and torch.equal(yz, zi[1])
+    window = torch.arange(6.0, device=dev).reshape(2, 3)
+    for w, want in ((None, torch.zeros_like(window)), (window, window)):
+        y, wout = tf.fir_apply(x, [0.2, 0.3, 0.5], w, device=dev)
+        assert y.shape == (2, 0) and torch.equal(wout, want)
+    assert [k.launches for k in ck.KERNELS] == before
+
+
+# (rows, T, ks, dtype, fresh): ks 1 and 256, T = 0, T < ks, a window or
+# fresh
 FIR_EDGE_CASES = ((3, 5000, 1, "float32", True), (2, 4097, 256, "float32",
                                                    False),
                   (2, 100, 256, "float64", True), (5, 1, 7, "float32", False),
-                  (4, 3000, 65, "float64", False))
+                  (4, 3000, 65, "float64", False), (3, 0, 3, "float32", True),
+                  (2, 0, 7, "float64", False))
 
 
 def fir_edge_batch(rng, rows, T, ks, dtype, fresh):
@@ -1599,7 +1630,7 @@ def fir_edge_batch(rng, rows, T, ks, dtype, fresh):
     row, taps, window or None)."""
     x = rng.normal(0, 10, (rows, T))
     x[0] = 0
-    if rows > 1:
+    if rows > 1 and T:
         x[-1, T // 2] = np.nan
     dt = getattr(torch, dtype)
     w = None if fresh else torch.from_numpy(rng.normal(0, 10, (rows, ks))
@@ -1613,7 +1644,7 @@ def check_fir_case(dev, rows, T, ks, dtype, fresh, seed=160):
         np.random.default_rng(seed), rows, T, ks, dtype, fresh))
     before = ck.fir_apply.launches
     same_floats(ck.fir_apply(x, k, w), ck.fir_apply_plain(x, k, w))
-    assert ck.fir_apply.launches - before == int(dev.type == "cuda")
+    assert ck.fir_apply.launches - before == int(dev.type == "cuda" and T > 0)
 
 
 @pytest.mark.parametrize("rows,T,ks,dtype,fresh", FIR_EDGE_CASES)
@@ -1622,39 +1653,252 @@ def test_fir_apply_matches_plain(dev, rows, T, ks, dtype, fresh):
     check_fir_case(dev, rows, T, ks, dtype, fresh)
 
 
-# (rows, T, marker): rows of bumps that fire, a NaN, an all-zero row
-GATE_EDGE_CASES = ((3, 4000, 1.0), (3, 4000, -1.0), (1, 1, 1.0),
-                   (130, 999, -1.0))
+GATE_CHUNK, GATE_WARMUP, GATE_CKPT = 1024, 512, 64   # peaks.cu's schedule
+
+# (rows, T, marker, chunk, warmup, kind); chunk / warmup None: peaks.cu's
+# defaults. Bumps that fire with a NaN row and an all-zero row, at the
+# default schedule and at forced re-runs (warmup 0, chunks of 64 and 256);
+# rows that never merge ("flat"); accepts just before chunk ends ("late");
+# a prev_amp of -0.0 against +0.0 ("zeros"); T = 1, T < C, T = C - 1, C,
+# C + 1; the serial schedule (chunk = T); 130 rows of 34 chunks (a partial
+# CTA of chunks); 1,250 chunks a row (the repair's walk over two windows
+# of 1,024 chunks)
+GATE_EDGE_CASES = (
+    (3, 4000, 1.0, None, None, "bumps"), (3, 4000, -1.0, None, None, "bumps"),
+    (1, 1, 1.0, None, None, "bumps"), (130, 999, -1.0, None, None, "bumps"),
+    (3, 4000, 1.0, 64, 0, "bumps"), (3, 4000, -1.0, 256, 0, "bumps"),
+    (4, 3000, 1.0, 256, 0, "flat"), (4, 5000, 1.0, None, None, "flat"),
+    (3, 4096, 1.0, 256, 0, "late"), (2, 3 * GATE_CHUNK, -1.0, None, 0, "late"),
+    (2, 3 * GATE_CHUNK, 1.0, None, None, "late"),
+    (2, 3000, 1.0, 64, 0, "zeros"), (2, 5000, -1.0, None, None, "zeros"),
+    (2, GATE_CHUNK - 1, 1.0, None, None, "bumps"),
+    (2, GATE_CHUNK, -1.0, None, None, "bumps"),
+    (2, GATE_CHUNK + 1, 1.0, None, 0, "bumps"),
+    (3, 4000, 1.0, 4000, 0, "bumps"), (130, 2117, -1.0, 64, 16, "bumps"),
+    (2, 20000, 1.0, 16, 4, "bumps"))
 
 
-def gate_edge_batch(rng, rows, T):
-    """peak_gate inputs: smooth bumps of rising amplitude a row (row 0 all
-    zero, a NaN in the last row), a threshold of 40."""
+def gate_edge_batch(rng, rows, T, kind="bumps", chunk=None):
+    """peak_gate inputs (sig, thr), a threshold of 40 unless said:
+    "bumps": smooth bumps of rising amplitude a row (row 0 all zero, a NaN
+    in the last row); "flat": each row (but an all-zero row 0) rises once,
+    at a random sample, and stays flat: searching from then on, never an
+    accept, so a chunk whose guessed start missed the rise never merges;
+    "late": a narrow bump peaking 12 samples before each chunk's end (of
+    `chunk`, or GATE_CHUNK samples) on a level of 5: its accept falls 11
+    samples before the end, its marker 23 samples into the next chunk;
+    "zeros": periods
+    of 300 samples (-3, z, -1, then -1) against a threshold of -10, each
+    accepting at prev_sig = z (prev_amp = z): z = -0.0 in even rows, +0.0
+    in odd ones."""
     t = np.arange(T)
-    amp = rng.uniform(100, 900, (rows, 1)) + t / 10.0
-    sig = np.sin(t / rng.uniform(15, 40, (rows, 1))) ** 8 * amp
-    sig += rng.normal(0, 0.01, (rows, T))
-    sig[0] = 0
-    if rows > 1:
-        sig[-1, T // 2] = np.nan
+    thr = np.full((rows, T), 40.0)
+    if kind == "bumps":
+        amp = rng.uniform(100, 900, (rows, 1)) + t / 10.0
+        sig = np.sin(t / rng.uniform(15, 40, (rows, 1))) ** 8 * amp
+        sig += rng.normal(0, 0.01, (rows, T))
+        sig[0] = 0
+        if rows > 1:
+            sig[-1, T // 2] = np.nan
+    elif kind == "flat":
+        start = rng.integers(0, max(T // 2, 1), (rows, 1))
+        sig = np.clip((t - start) / 5.0, 0, 1) * rng.uniform(100, 900,
+                                                             (rows, 1))
+        sig[0] = 0
+    elif kind == "late":
+        c = chunk or GATE_CHUNK
+        sig = np.full((rows, T), 5.0)
+        for b in range(c, T, c):
+            if b >= 17:
+                h = rng.uniform(600, 900, rows)[:, None]
+                sig[:, b - 16:b - 7] += h * (1 - np.abs(np.arange(-4, 5)) / 5)
+    else:
+        sig = np.full((rows, T), -1.0)
+        sig[:, t % 300 == 0] = -3.0
+        sig[:, t % 300 == 1] = 0.0
+        sig[0::2, t % 300 == 1] = -0.0
+        thr[:] = -10.0
     return (torch.from_numpy(sig.astype(np.float32)),
-            torch.full((rows, T), 40.0))
+            torch.from_numpy(thr.astype(np.float32)))
 
 
-def check_gate_case(dev, rows, T, marker, seed=170):
+def _gate_step(st, s, g, nr_slope, atten, marker):
+    """One step of the state machine (peaks.cu step) on numpy float32
+    arrays or scalars: st = (prev_amp, prev_sig, searching, count), g =
+    thr * 1.5; returns (the next state, the output)."""
+    amp, ps, se, cnt = st
+    with np.errstate(invalid="ignore"):
+        confirm = se & (s > g) & (ps > s)
+        accept = confirm & ((amp == 0) | (ps > amp * np.float32(0.5)))
+        rising = ~confirm & (ps < s)
+    amp = np.where(accept, ps, np.where(confirm, amp * atten, amp)
+                   ).astype(np.float32)
+    cnt = np.where(accept, 1, np.where(rising, 0, cnt))
+    cnt = np.where(cnt > 0, cnt + 1, cnt)
+    fire = cnt == nr_slope
+    y = np.where(fire, s if marker == -1 else marker, 0).astype(np.float32)
+    return (amp, s, np.where(accept, False, se | rising),
+            np.where(fire, 0, cnt)), y
+
+
+def _gate_step1(st, s, g, nr_slope, atten, marker):
+    """_gate_step on numpy float32 scalars (the repair walk's re-runs)."""
+    amp, ps, se, cnt = st
+    confirm = se and s > g and ps > s
+    accept = confirm and (amp == 0 or ps > amp * np.float32(0.5))
+    rising = not confirm and ps < s
+    if accept:
+        amp, cnt, se = ps, 1, False
+    elif confirm:
+        amp = amp * atten
+    elif rising:
+        cnt, se = 0, True
+    if cnt > 0:
+        cnt += 1
+    if cnt == nr_slope:
+        return (amp, s, se, 0), s if marker == -1 else marker
+    return (amp, s, se, cnt), np.float32(0)
+
+
+def _state_bits(st, i):
+    amp, ps, se, cnt = (np.asarray(v).reshape(-1)[i] for v in st)
+    return (int(np.float32(amp).view(np.uint32)),
+            int(np.float32(ps).view(np.uint32)), bool(se), int(cnt))
+
+
+def gate_schedule_model(sig, thr, nr_slope, atten, marker, chunk=None,
+                        warmup=None):
+    """peaks.cu's schedule in numpy, as the kernel runs it: chunks of
+    `chunk` samples, each from the state guessed `warmup` samples before
+    it (both clamped to T; None: the defaults), checkpoints every
+    GATE_CKPT samples, then the repair walk a row with states compared by
+    their bits. Returns (out, reruns): reruns[r] = (chunks, samples)
+    re-run in row r, what the kernel reports in peak_gate.last_reruns."""
+    sig = np.asarray(sig, np.float32)
+    g = np.asarray(thr, np.float32) * np.float32(1.5)
+    atten, marker = np.float32(atten), np.float32(marker)
+    rows, T = sig.shape
+    out = np.zeros((rows, T), np.float32)
+    reruns = np.zeros((rows, 2), np.int64)
+    if T == 0:
+        return out, reruns
+    chunk = min(T, GATE_CHUNK if chunk is None else chunk)
+    warm = min(T, GATE_WARMUP if warmup is None else warmup)
+    nk = -(-T // chunk)
+    r_of = np.repeat(np.arange(rows), nk)
+    c0 = np.tile(np.arange(nk), rows) * chunk
+    ln = np.minimum(chunk, T - c0)
+    p0 = c0 - warm
+    st = (np.zeros(rows * nk, np.float32),
+          np.where(p0 >= 1, sig[r_of, np.maximum(p0 - 1, 0)],
+                   np.float32(0)).astype(np.float32),
+          np.zeros(rows * nk, bool), np.zeros(rows * nk, np.int64))
+    ends = tuple(v.copy() for v in st)
+    guess, ckpt = None, {}
+    for tau in range(warm + chunk):      # speculate: every chunk at once
+        o = tau - warm
+        if o == 0:
+            guess = st
+        p = p0 + tau
+        act = (p >= 0) & (o < ln)
+        pc = np.clip(p, 0, T - 1)
+        nxt, y = _gate_step(st, sig[r_of, pc], g[r_of, pc], nr_slope, atten,
+                            marker)
+        st = tuple(np.where(act, a, b) for a, b in zip(nxt, st))
+        if o >= 0:
+            out[r_of[act], pc[act]] = y[act]
+            if (o + 1) % GATE_CKPT == 0:
+                ckpt[o + 1] = st
+            e = act & (o + 1 == ln)
+            for a, b in zip(ends, st):
+                a[e] = b[e]
+    for r in range(rows):                # repair
+        spec, exact = True, None
+        for k in range(1, nk):
+            i = r * nk + k
+            if spec:
+                if _state_bits(guess, i) == _state_bits(ends, i - 1):
+                    continue
+                exact = _state_bits(ends, i - 1)
+            elif exact == _state_bits(guess, i):
+                spec = True
+                continue
+            cur = (np.uint32(exact[0]).view(np.float32),
+                   np.uint32(exact[1]).view(np.float32), exact[2], exact[3])
+            merged = False
+            for off in range(ln[i]):
+                q = c0[i] + off
+                cur, out[r, q] = _gate_step1(cur, sig[r, q], g[r, q],
+                                             nr_slope, atten, marker)
+                reruns[r, 1] += 1
+                bits, o = _state_bits(cur, 0), off + 1
+                if o == ln[i]:
+                    merged = bits == _state_bits(ends, i)
+                elif o % GATE_CKPT == 0 and bits == _state_bits(ckpt[o], i):
+                    merged = True
+                    break
+            exact, spec = bits, merged
+            reruns[r, 0] += 1
+    return out, reruns
+
+
+def check_gate_case(dev, rows, T, marker, chunk=None, warmup=None,
+                    kind="bumps", seed=170):
+    """peak_gate at the schedule (chunk, warmup) against its plain version
+    and the schedule's model against both (on the card also the re-run
+    counts, row by row), one launch counted; returns (out, the model's
+    re-run counts)."""
     sig, thr = (a.to(dev) for a in gate_edge_batch(
-        np.random.default_rng(seed), rows, T))
+        np.random.default_rng(seed), rows, T, kind, chunk))
     before = ck.peak_gate.launches
     atten = 1.0 / (1.0 + 70.0 / 360.0)
-    got = ck.peak_gate(sig, thr, 36, atten, marker)
-    same_floats(got, ck.peak_gate_plain(sig, thr, 36, atten, marker))
-    assert ck.peak_gate.launches - before == int(dev.type == "cuda")
-    return got
+    got = ck.peak_gate(sig, thr, 36, atten, marker, chunk=chunk,
+                       warmup=warmup)
+    want = ck.peak_gate_plain(sig, thr, 36, atten, marker)
+    same_floats(got, want)
+    model, reruns = gate_schedule_model(sig.cpu().numpy(), thr.cpu().numpy(),
+                                        36, atten, marker, chunk, warmup)
+    same_floats(torch.from_numpy(model), want.cpu())
+    cuda = dev.type == "cuda"
+    assert ck.peak_gate.launches - before == int(cuda)
+    if cuda:
+        assert torch.equal(ck.peak_gate.last_reruns.cpu(),
+                           torch.from_numpy(reruns))
+    return got, reruns
 
 
-@pytest.mark.parametrize("rows,T,marker", GATE_EDGE_CASES)
-def test_peak_gate_matches_plain(dev, rows, T, marker):
-    """S4 vs its plain version on GATE_EDGE_CASES; the bumps fire."""
-    got = check_gate_case(dev, rows, T, marker)
-    if T > 1:
+def check_gate_expectations(case, got, reruns):
+    """What each kind of GATE_EDGE_CASES must show: bumps fire (more than
+    once a row and 1,000 samples); flat rows
+    never do; a late bump's marker falls 23 samples into the next chunk;
+    zeros fire, and at a forced schedule the -0.0 row re-runs more samples
+    than the +0.0 one; warmup 0 re-runs chunks wherever a row has more
+    than one."""
+    rows, T, _, chunk, warmup, kind = case
+    got = got.cpu()
+    c = min(T, chunk or GATE_CHUNK)
+    if kind == "bumps" and T > 1:
+        assert int((got != 0).sum()) > rows * T // 1000
+    elif kind == "flat":
+        assert not bool((got != 0).any())
+    elif kind == "late":
+        for b in range(c, T - 23, c):
+            assert bool((got[:, b + 23] != 0).all()), b
+    elif kind == "zeros":
         assert int((got != 0).sum()) > 10
+        if warmup == 0:
+            assert reruns[0, 1] > reruns[1, 1]
+    if warmup == 0 and c < T:
+        assert reruns[:, 0].sum() > 0
+
+
+@pytest.mark.parametrize("case", GATE_EDGE_CASES)
+def test_peak_gate_matches_plain(dev, case):
+    """S4 vs its plain version on GATE_EDGE_CASES at each case's schedule,
+    its re-run counts equal to the schedule model's."""
+    check_gate_expectations(case, *check_gate_case(dev, *case))
+
+
+def test_peak_gate_schedule_constants(dev):
+    """GATE_CHUNK, GATE_WARMUP and GATE_CKPT are peaks.cu's."""
+    assert ck.gate_schedule() == (GATE_CHUNK, GATE_WARMUP, GATE_CKPT)

@@ -155,6 +155,67 @@ def test_iir_apply_types_and_limits():
         tf.iir_apply(x, a, b, mode="fast", device=CPU)
 
 
+def test_iir_scan_from_a_guessed_state_never_merges():
+    """Why S1 stays serial: split in time, it could not keep its bits.
+    The offline detector's threshold low-pass (order 2 at 0.15 Hz, 360 Hz:
+    poles ~2e-3 from the unit circle) over its own input (a synthetic ECG
+    through the 15-25 Hz band-pass, squared, the 3 Hz low-pass), run by
+    S1's plain version from the zero state 1,000, 4,000 or 16,000 samples
+    before t = 20,000, against the run from the row's start: fewer than 1%
+    of the 16,000 samples from t on are bit-equal, and the last differs.
+    (The gate, S4, merges: an accept resets its state.)"""
+    sr = 360.0
+    t = np.arange(40000) / sr
+    ecg = (np.sin(2 * np.pi * 1.1 * t) ** 63 * 900
+           + np.random.default_rng(7).normal(0, 15, t.size) + 50)
+    x = torch.from_numpy(ecg[None].astype(np.float32))
+    designs = [design.create_filter_iir(
+        design.FilterKind.BUTTERWORTH, kind, order, sr, *f) for kind, order,
+        f in ((design.FilterType.BAND_PASS, 1, (15.0, 25.0)),
+              (design.FilterType.LOW_PASS, 1, (3.0,)),
+              (design.FilterType.LOW_PASS, 2, (0.15,)))]
+    v, _ = tf.iir_apply(x, designs[0][1], designs[0][0], mode="scan",
+                        device=CPU)
+    f, _ = tf.iir_apply(v * v, designs[1][1], designs[1][0], mode="scan",
+                        device=CPU)
+    f = f[:, 4000:].contiguous()
+    b, a = designs[2]
+    z = f.new_zeros((1, 2))
+    full = ck.iir_scan(f, a, b, z, z)[0, 20000:].numpy()
+    for lead in (1000, 4000, 16000):
+        part = ck.iir_scan(f[:, 20000 - lead:].contiguous(), a, b, z, z)
+        part = part[0, lead:].numpy()
+        same = full.view(np.uint32) == part.view(np.uint32)
+        assert same.mean() < 0.01 and not same[-1], lead
+
+
+def test_empty_time_axis_matches_jax():
+    """F3: at T = 0, iir_apply (both modes) and fir_apply give y of shape
+    (2, 0) and the state or window jax_filters gives (the zero state, the
+    given window or zeros); a given IIR state passes through (yz as JAX's; xz the true history, which JAX's xz_out reverses
+    at T < p - 1)."""
+    x = np.zeros((2, 0), np.float32)
+    n, d, fir = [1.0, -1.5, 0.7], [0.05, 0.1, 0.05], [0.2, 0.3, 0.5]
+    zi = (np.array([[1, 2], [3, 4]], np.float32),
+          np.array([[5, 6], [7, 8]], np.float32))
+    for mode in ("scan", "assoc"):
+        y, (xz, yz) = tf.iir_apply(x, n, d, mode=mode, device=CPU)
+        yj, (xzj, yzj) = jf.iir_apply(x, n, d, mode=mode)
+        assert y.shape == np.asarray(yj).shape == (2, 0)
+        assert np.array_equal(xz.numpy(), np.asarray(xzj))
+        assert np.array_equal(yz.numpy(), np.asarray(yzj))
+        y, (xz, yz) = tf.iir_apply(x, n, d, zi=zi, mode=mode, device=CPU)
+        _, (_, yzj) = jf.iir_apply(x, n, d, zi=zi, mode=mode)
+        assert y.shape == (2, 0) and np.array_equal(xz.numpy(), zi[0])
+        assert np.array_equal(yz.numpy(), np.asarray(yzj))
+    window = np.arange(6, dtype=np.float32).reshape(2, 3)
+    for w in (None, window):
+        y, wout = tf.fir_apply(x, fir, w, device=CPU)
+        yj, woutj = jf.fir_apply(x, fir, w)
+        assert y.shape == np.asarray(yj).shape == (2, 0)
+        assert np.array_equal(wout.numpy(), np.asarray(woutj))
+
+
 @pytest.mark.parametrize("ks", [1, 5, 64])
 @pytest.mark.parametrize("fresh", [True, False])
 def test_fir_apply_matches_jax_and_host(rng, ks, fresh):

@@ -7,8 +7,11 @@ each process imports its checkout's rspt_tpu_torch and times, at
 chip_smoke.py's shapes (BASELINE config 2's 12 x 34,199 ECG, config 3's
 2^14 cut), the compress and host decompress of the hzr, xdelta_hzr (3
 planes) and Hadamard packers, and decompress(device_decode=True) of
-xdelta_hzr: the median wall of `calls` calls each, after one warm-up
-call, every call ended by a synchronise. Prints each side's median over
+xdelta_hzr, and the batch detectors at chip_smoke phase 16's 12 x 2^20
+float32 (`detect_batch`, and `detect_offline_batch`'s device part:
+`offline_filters` and its three copies to the host): the median wall of
+`calls` calls each, after one warm-up call, every call ended by a
+synchronise. Prints each side's median over
 the rounds with [min, max], the card's name and power limit, and one
 JSON line of the medians. Needs a CUDA card; imports nothing of JAX.
 """
@@ -53,6 +56,20 @@ def child(calls: int) -> None:
             pdd.decompress(comp)
             out[f"{name} device-decode decompress"] = statistics.median(
                 wall_times(lambda: pdd.decompress(comp), calls))
+    from rspt_tpu_torch.analysis import torch_peaks
+    sig, _ = make_ecg(ch, 1 << 20)
+    xs = torch.from_numpy(sig.astype("float32")).cuda()
+
+    def offline_device():
+        moved, _, _, base = torch_peaks.offline_filters(xs, 360.0)
+        moved.cpu(), xs.cpu().numpy().astype("float64"), base.cpu()
+
+    for name, fn in (("detect_batch",
+                      lambda: torch_peaks.detect_batch(xs, 360.0)),
+                     ("detect_offline_batch device part", offline_device)):
+        fn()
+        torch.cuda.synchronize()
+        out[name] = statistics.median(wall_times(fn, calls))
     print(json.dumps(out))
 
 
