@@ -697,6 +697,32 @@ class CountCalls:
             setattr(self.module, n, f)
 
 
+class RecordAssoc:
+    """Within a with block, ck.iir_assoc replaced by a wrapper that keeps
+    each call's inputs and output (``calls``: (args, y), cloned). The
+    wrapper carries the launch count: iir_assoc counts its launches on
+    the module's name, which is then the wrapper's."""
+
+    def __init__(self, ck):
+        self.ck, self.calls = ck, []
+
+    def __enter__(self):
+        self.kernel = kernel = self.ck.iir_assoc
+
+        def record(*a):
+            y = kernel(*a)
+            self.calls.append(([v.clone() if torch.is_tensor(v) else v
+                                for v in a], y.clone()))
+            return y
+        record.launches = kernel.launches
+        self.ck.iir_assoc = record
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.launches = self.ck.iir_assoc.launches
+        self.ck.iir_assoc = self.kernel
+
+
 def check_dct_path(packers, ck, edges, sig, native, ch, dev, n4=4096):
     """Phase 14: the DCT path at BASELINE config 4, the main signal cut
     to its first n4 samples (as bench.py:263-265 cuts the real ECG), at
@@ -1117,8 +1143,9 @@ DET_CUT = (2, 120000)    # the detectors against the host detectors
 MEDIAN_NS = 1000000      # the reference's test_8 (rspt_test.cpp:327-395)
 MEDIAN_WINDOWS = (5, 6, 7, 1500)
 FIR_TAPS = 61
-# S1 and S4 run one thread a row, so their design is bounded by T x the
-# cycles of one step's dependent chain; an estimate from the source (not
+# S1, S4 and S2's carry each run a serial chain on one lane, so their
+# design is bounded by its steps x the cycles of one step's dependent
+# chain; an estimate from the source (not
 # from SASS), at 4 cycles a dependent float or integer operation (the
 # microbenchmarked latency of the FMA and ALU pipes since Volta)
 DEP_LAT = 4
@@ -1159,7 +1186,10 @@ def check_signal_path(ck, edges, dev):
     fir_apply, S4 peak_gate). Each kernel against its plain version on the
     card tests' edge cases; at full width (12 x 1,048,576 float32 of
     make_ecg at 360 Hz) each bit for bit against its plain version: S2
-    (the band-pass from its warm-up state) and S3 on the card, S1 in
+    (the band-pass from its warm-up state in float32 and float64, and each
+    of the 9 calls the two detectors make, at M = 4, 2 and 1, with
+    detect_batch's M = 2 integrator also in float64) and S3 on the card,
+    S1 in
     float32 and float64 and S4 (on detect_batch's signal and threshold)
     on CPU copies (their plain versions take a step of torch ops a
     sample), S1 in float64 also equal to the host runtime's
@@ -1209,6 +1239,11 @@ def check_signal_path(ck, edges, dev):
     err["iir_assoc"] = held(edges, "iir_assoc full width",
                             ck.iir_assoc(*args["iir_assoc"]),
                             ck.iir_assoc_plain(*args["iir_assoc"]))
+    a64 = [v.double() if torch.is_tensor(v) else v
+           for v in args["iir_assoc"]]
+    err["iir_assoc"] = max(err["iir_assoc"], held(
+        edges, "iir_assoc float64 full width", ck.iir_assoc(*a64),
+        ck.iir_assoc_plain(*a64)))
     err["fir_apply"] = held(edges, "fir_apply full width",
                             ck.fir_apply(*args["fir_apply"]),
                             ck.fir_apply_plain(*args["fir_apply"]))
@@ -1237,7 +1272,25 @@ def check_signal_path(ck, edges, dev):
          torch.from_numpy(host))
     # the gate on detect_batch's own signal and threshold at full width
     nr_slope = int(100.0 * SIG_SR / 1000.0)
-    _, sg, th = torch_peaks.detect_batch(x, SIG_SR)
+    with RecordAssoc(ck) as rec:
+        _, sg, th = torch_peaks.detect_batch(x, SIG_SR)
+        _, filt, thr_o, _ = torch_peaks.offline_filters(x, SIG_SR)
+    # every iir_assoc call of both detectors (M = p - 1: detect_batch's
+    # band-pass, integrator and threshold, offline_filters' baseline,
+    # band-pass and integrator forward and backward) bit for bit
+    ms = [len(a[1]) - 1 for a, _ in rec.calls]
+    if ms != [4, 2, 2, 1, 1, 2, 2, 1, 1]:
+        raise AssertionError(f"the detectors' iir_assoc orders: {ms}")
+    for i, (a, y) in enumerate(rec.calls):
+        err["iir_assoc"] = max(err["iir_assoc"], held(
+            edges, f"iir_assoc detectors' call {i} (M = {ms[i]})", y,
+            ck.iir_assoc_plain(*a)))
+    # detect_batch's integrator low-pass (M = 2) in float64
+    b64 = [v.double() if torch.is_tensor(v) else v for v in rec.calls[1][0]]
+    err["iir_assoc"] = max(err["iir_assoc"], held(
+        edges, "iir_assoc float64 M = 2 full width", ck.iir_assoc(*b64),
+        ck.iir_assoc_plain(*b64)))
+    del rec, b64
     gate = (sg, th, nr_slope, 1.0 / (1.0 + 25.0 / SIG_SR), 1.0)
     want, plain_s["peak_gate"] = on_cpu(ck.peak_gate_plain, gate)
     got = ck.peak_gate(*gate)
@@ -1245,7 +1298,6 @@ def check_signal_path(ck, edges, dev):
     err["peak_gate"] = held(edges, "peak_gate full width", got, want)
     # the offline gate (attenuation 70) on offline_filters' signal and
     # threshold, against the kernel's serial schedule (one chunk a row)
-    _, filt, thr_o, _ = torch_peaks.offline_filters(x, SIG_SR)
     gate_o = (filt.contiguous(), thr_o.contiguous(), nr_slope,
               1.0 / (1.0 + 70.0 / SIG_SR), 1.0)
     got = ck.peak_gate(*gate_o)
@@ -1264,8 +1316,10 @@ def check_signal_path(ck, edges, dev):
             f"{k} {c} of {nk} chunks ({100.0 * c / nk:.3f}%), {n} samples"
             for k, (c, n) in reruns.items()))
     log(f"phase 16: at full width ({ch} x {SIG_NS}): iir_assoc ({len(bp_a)} "
-        f"coefficients, tiles of {tf.IIR_TILE}) and fir_apply ({FIR_TAPS} "
-        f"taps) equal to their plain versions; iir_scan ({len(th_a)} "
+        f"coefficients, tiles of {tf.IIR_TILE}) in float32 and float64, "
+        f"the detectors' 9 iir_assoc calls (M {ms}; the second, M = 2, "
+        f"also in float64) and fir_apply "
+        f"({FIR_TAPS} taps) equal to their plain versions; iir_scan ({len(th_a)} "
         f"coefficients) in float32 and float64 and peak_gate (on "
         f"detect_batch's signal and threshold) equal to their plain "
         f"versions on the CPU (iir_scan {plain_s['iir_scan'] / 1e3:.1f} s / "
@@ -1359,7 +1413,8 @@ def time_signal(ck, sp):
     """Phase 4's batch-signal part: each kernel at its path's shape (12 x
     1,048,576 float32), device time from CUDA events around back-to-back
     calls (median of 5 rounds [min, max]), its launches on the detectors'
-    path, its bound (and S1 and S4's serial chain's), its plain version
+    path, its bound (and S1, S2 and S4's serial chain's; S2's three
+    passes by the profiler), its plain version
     (CUDA events around a call; S1 and S4's the wall of phase 16's call on
     the CPU, at the same shape); S3 in turns with torch.nn.functional.conv1d at
     the same shape (cuDNN, TF32 off: not the same order of sums); then the
@@ -1390,10 +1445,14 @@ def time_signal(ck, sp):
     # amp's cycle, a multiply, a compare, accept and a select, is 4), warm
     # + chunk steps a thread (the speculation; the repair walk re-runs
     # little, its count is the row's "reruns")
+    # (S2) its carry, nt steps a row of a multiply and M + 1 adds
     chunk, warm, _ = ck.gate_schedule()
-    steps = {"iir_scan": (T, 1 + m_th), "peak_gate": (warm + chunk, 5)}
+    nt = -(-T // a["iir_assoc"][5])
+    steps = {"iir_scan": (T, 1 + m_th), "peak_gate": (warm + chunk, 5),
+             "iir_assoc": (nt, 2 + m_bp)}
     chain = {k: n_ * v * DEP_LAT / CLOCK_HZ * 1e3
              for k, (n_, v) in steps.items()}
+    on_cpu = ("iir_scan", "peak_gate")   # plain versions timed on the CPU
     spec = {
         "iir_scan": dict(
             fn=lambda: ck.iir_scan(*a["iir_scan"]), n=3,
@@ -1426,7 +1485,7 @@ def time_signal(ck, sp):
                 torch.backends.cudnn.allow_tf32 = prev
         ms = statistics.median(ts)
         # S1 and S4's plain versions: phase 16's wall on the CPU
-        plain_ms = (sp["plain_ms"][name] if name in chain
+        plain_ms = (sp["plain_ms"][name] if name in on_cpu
                     else cuda_ms(r["plain"], reps=1, warm=0))
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / F32_INSTR_PER_S * 1e3
@@ -1443,9 +1502,9 @@ def time_signal(ck, sp):
         if name == "peak_gate":   # chunks and samples re-run, summed
             row["reruns"] = sp["reruns"]
         rows.append(row)
-        if name == "iir_assoc":      # its three kernels, from the profiler
+        if name == "iir_assoc":      # its three passes, from the profiler
             parts = {k: device_ms(r["fn"], reps=10, kernel=k) for k in (
-                "iir_local_kernel", "iir_carry_kernel", "iir_fixup_kernel")}
+                "iir_ends_kernel", "iir_carry_kernel", "iir_final_kernel")}
             log(f"phase 4: iir_assoc's kernels (profiler, medians of 10 "
                 f"calls): { {k: v and round(v, 6) for k, v in parts.items()} }")
         log(f"phase 4: {name} at {rows_n} x {T}: {ms:.6f} ms "
@@ -1457,7 +1516,7 @@ def time_signal(ck, sp):
                f"operations x {DEP_LAT} cycles at {CLOCK_HZ / 1e9} GHz, an "
                f"estimate)" if name in chain else "")
             + f"; plain {plain_ms:.4f} ms"
-            + (" (on the CPU)" if name in chain else " (on the card)")
+            + (" (on the CPU)" if name in on_cpu else " (on the card)")
             + (f"; conv1d {row['library_ms']:.6f} ms [{min(lib_ts):.6f}, "
                f"{max(lib_ts):.6f}] in turns" if lib_ts else ""))
     # walls; detect_offline_batch's two parts apart: its device part

@@ -1,11 +1,11 @@
-"""Design A/B of nine of the port's CUDA kernels on one card.
+"""Design A/B of the port's CUDA kernels on one card.
 
     python3 kernel_ab.py [--rounds 3] [--only hzr_decode.cu,tokenize.cu]
-                         [--baseline DIR]
+                         [--baseline DIR] [--variants NAME,NAME]
 
 Builds variants of ops/csrc/xdelta.cu, hzr_decode.cu, tokenize.cu,
 compact.cu, place_literals.cu, pack_flat.cu, fwht.cu, pack_blocks.cu,
-dct.cu, peaks.cu and iir.cu,
+dct.cu, peaks.cu, iir.cu and fir.cu (--variants keeps the named ones),
 each the committed source with some of its constants (or a line)
 replaced, into one shared library apiece (nvcc, sm_90a, all at once),
 and times each variant at the main path's shapes (the chip_smoke inputs:
@@ -20,8 +20,12 @@ pack_blocks, the main pass 1 for pack_blocks_tokw and BASELINE config
 4's centred rows and their coefficients for dct_forward and
 dct_inverse, chip_smoke phase 16's full-width detect_batch gate for
 peak_gate and its 12 x 2^20 signal through the offline threshold's
-low-pass, float32 and float64, for iir_scan) beside the library call that computes the same function
-where there is one (for the DCT pair an f64 torch.matmul, not exact), in
+low-pass, float32 and float64, for iir_scan; that signal through
+detect_batch's band-pass from its warm-up state, float32 and float64, and
+its threshold low-pass for iir_assoc at tiles of 512, and through phase
+16's 61-tap FIR for fir_apply) beside the library call that computes the
+same function where there is one (for the DCT pair an f64 torch.matmul and
+for the FIR cuDNN's conv1d, neither exact), in
 turns, by torch.profiler device time of the whole call (every kernel
 and memset of it; mean of 30 calls a round, medians over the rounds
 printed).
@@ -33,7 +37,8 @@ field). Variants marked "diag" drop work (their output is not the
 function's) to show what the rest costs; every other variant is first
 checked bit for bit against the plain version (peak_gate and iir_scan:
 against the committed kernel, which chip_smoke holds against the plain
-version at the same shapes). Prints the card's name
+version at the same shapes; iir_assoc and fir_apply against their plain
+versions on the card). Prints the card's name
 and power limit and one JSON line of the medians. Needs a CUDA card and
 nvcc; imports nothing of JAX.
 """
@@ -335,9 +340,17 @@ PEAKS = {
         "    if (sl + kStages - 1 < nslab) fetch(sl + kStages - 1);":
         "    if (sl < 0) fetch(sl + kStages - 1);"}, True),
 }
+# the head of S2's chunk_steps
+_STEPS = "                                            const Coefs<T>& c) {\n"
 # iir_scan (S1) on the offline threshold's low-pass (p = 3) at full width,
 # float32 and float64: slabs of 512 (the default) or 256, u read in blocks
-# of 16 (default) or 8 values, x copied 4 slabs ahead (default) or 2 or 6
+# of 16 (default) or 8 values, x copied 4 slabs ahead (default) or 2 or 6;
+# iir_assoc (S2) at tiles of 512 on detect_batch's band-pass (p = 5, from
+# its warm-up state; float32 and float64) and threshold low-pass (p = 3):
+# 3 chunks a warp in shared memory
+# (default) or 2 or 4, 4 warps a tile CTA (default) or 1 or 2, carry slabs
+# of 128 tiles (default) or 256, chunks of 128 bytes of a tile (default) or
+# 256
 IIR = {
     "slab512_unroll16_ring6": ({}, False),
     "slab256": ({"kSlab = 512;": "kSlab = 256;"}, False),
@@ -348,11 +361,50 @@ IIR = {
     "diag_no_chain": ({
         "for (int k = 0; k < M; ++k) v = sub_rn(v, mul_rn(c.n[k + 1], s[k]));":
         "for (int k = 0; k < 0; ++k) v = s[k];"}, True),
+    "assoc_buf2": ({"kBuf = 3;": "kBuf = 2;"}, False),
+    "assoc_buf4": ({"kBuf = 3;": "kBuf = 4;"}, False),
+    "assoc_warps1": ({"kTileWarps = 4;": "kTileWarps = 1;"}, False),
+    "assoc_warps2": ({"kTileWarps = 4;": "kTileWarps = 2;"}, False),
+    "assoc_carry_slab256": ({"kCarrySlab = 128;": "kCarrySlab = 256;"},
+                            False),
+    # chunks of 256 bytes of a tile (64 floats, 32 doubles)
+    "assoc_chunk256": ({"128 / (int)sizeof(T)": "256 / (int)sizeof(T)"},
+                       False),
+    # the carry's chain lane walks no step (starts stay yz): what the
+    # tile passes and the carry's copies cost without the chain
+    "diag_assoc_no_chain": ({
+        "          carry_slab<T, M, false>(A, s, e, o, kCarrySlab);":
+        "          carry_slab<T, M, true>(A, s, e, o, 0);"}, True),
+    # no fix-up in pass 3: y = y_loc (what the correction costs)
+    "diag_assoc_no_fix": ({"          g[v] = add_rn(y, f);":
+                           "          g[v] = y;"}, True),
+    # no steps in passes 1 and 3: their copies alone
+    "diag_assoc_no_steps": ({_STEPS: _STEPS + "  if (m >= 0) return;\n"},
+                            True),
+}
+# fir_apply (S3) with detect-path shapes: phase 16's 61-tap low-pass at
+# 12 x 2^20 float32, fresh: 16 outputs a thread (the default), 4 or 8; CTAs
+# of 128 threads (default) or 256
+FIR = {
+    "r16": ({}, False),
+    "r4": ({"kR = 16;": "kR = 4;"}, False),
+    "r8": ({"kR = 16;": "kR = 8;"}, False),
+    "t256": ({"kThreads = 128;": "kThreads = 256;"}, False),
+    # no sums: the staging and the stores alone
+    "diag_no_taps": ({"    for (; i0 + kR <= ks; i0 += kR) {":
+                      "    for (i0 = ks; i0 + kR <= ks; i0 += kR) {"}, True),
+    # the sums alone: no copies after each CTA's first tile, no stores
+    "diag_no_copies": ({
+        "    if (rn < rows) fetch(": "    if (rn < 0) fetch(",
+        "    T* yr = y + r * n + t0;\n":
+        "    T* yr = y + r * n + t0;\n"
+        "    if (t0 >= 0) {\n      r = rn;\n      c = cn;\n      continue;\n    }\n"},
+                       True),
 }
 TABLES = {"xdelta.cu": XDELTA, "hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "compact.cu": COMPACT, "place_literals.cu": PLACE,
           "pack_flat.cu": PACK, "fwht.cu": FWHT, "pack_blocks.cu": BLOCKS,
-          "dct.cu": DCT, "peaks.cu": PEAKS, "iir.cu": IIR}
+          "dct.cu": DCT, "peaks.cu": PEAKS, "iir.cu": IIR, "fir.cu": FIR}
 # device_ms's calls a measurement, where 30 would take seconds
 REPS = {"peak_gate": 10, "iir_scan": 3, "iir_scan_f64": 3}
 
@@ -428,7 +480,11 @@ def _bind(cu, lib):
                                              ctypes.c_float, ctypes.c_float,
                                              P]},
             "iir.cu": {"rspt_iir_scan": [P] * 6 + [I, I, ctypes.c_long, I,
-                                                   P]}}[cu]
+                                                   P],
+                       "rspt_iir_assoc": [P] * 10
+                       + [I, I, ctypes.c_long, I, I, P]},
+            "fir.cu": {"rspt_fir_apply": [P] * 4 + [I, ctypes.c_long, I, I,
+                                                    I, P]}}[cu]
     if cu == "peaks.cu" and not hasattr(lib, "rspt_peak_gate_schedule"):
         # a source with one thread a row: no schedule, no scratch
         sigs = {"rspt_peak_gate": [P] * 3 + [I, ctypes.c_long, I,
@@ -464,6 +520,9 @@ def main() -> int:
                     help="comma-separated kernel sources to vary")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="csrc directory of an earlier checkout")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated variant names to build (default "
+                    "all; the baseline is added with --baseline)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is false",
@@ -718,6 +777,52 @@ def main() -> int:
         assert err == 0, err
         return y
 
+    # S2 at tiles of 512 on detect_batch's band-pass (p = 5) from its
+    # warm-up state, float32 and float64, and on its threshold low-pass
+    # (p = 3) from zeros; S3 with phase 16's 61 taps, fresh
+    from rspt_tpu_torch.filters import torch_filters as tf
+    (bp_b, bp_a), _, fir_taps = cs.signal_designs()
+    bz = tf.iir_warmup_state(xs[:, 0], bp_a, bp_b, 4 * int(cs.SIG_SR),
+                             device=dev)
+    assoc = {"iir_assoc": (xs, bp_a, bp_b, bz[0], bz[1].contiguous()),
+             "iir_assoc_f64": (xs64, bp_a, bp_b, bz[0].double(),
+                               bz[1].double().contiguous()),
+             "iir_assoc_m2": (xs, th_a, th_b, z32, z32)}
+    fir_args = (xs, torch.from_numpy(fir_taps.astype(np.float32)).to(dev))
+    ks = fir_args[1].numel()
+    w_conv = fir_args[1].flip(0).reshape(1, 1, ks)
+    xpad = torch.nn.functional.pad(xs, (ks - 1, 0)).reshape(12, 1, -1)
+
+    def iir_assoc(lib, kind):
+        """iir_assoc through lib as its wrapper calls it."""
+        x, a_, b_, xz, yz = assoc[kind]
+        rows, T = x.shape
+        m = len(a_) - 1
+        L = tf.IIR_TILE
+        nt = -(-T // L)
+        al, pw = ck.iir_tables(a_, L, x.dtype, x.device)
+        y = torch.empty_like(x)
+        scratch = torch.empty((2, rows, nt, m), dtype=x.dtype, device=dev)
+        keep, (nh, dh) = ck._coef_args(a_, b_, x.dtype)
+        err = lib.rspt_iir_assoc(
+            x.data_ptr(), xz.data_ptr(), yz.data_ptr(), y.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), al.data_ptr(),
+            pw.data_ptr(), nh, dh, m + 1, rows, T, L,
+            int(x.dtype == torch.float64), stream)
+        assert err == 0, err
+        return y
+
+    def fir(lib):
+        """fir_apply through lib as its wrapper calls it (fresh)."""
+        x, taps = fir_args
+        y = torch.empty_like(x)
+        w = torch.zeros((x.shape[0], ks), dtype=x.dtype, device=dev)
+        err = lib.rspt_fir_apply(x.data_ptr(), w.data_ptr(), taps.data_ptr(),
+                                 y.data_ptr(), x.shape[0], x.shape[1], ks, 1,
+                                 0, stream)
+        assert err == 0, err
+        return y
+
     def decode_view(out):   # what placement reads, and the lane results
         return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])
 
@@ -767,11 +872,20 @@ def main() -> int:
             ("iir_scan", lambda lib: iir_scan(lib, xs, z32),
              bits(ck.iir_scan(xs, th_a, th_b, z32, z32)), bits),
             ("iir_scan_f64", lambda lib: iir_scan(lib, xs64, z64),
-             bits(ck.iir_scan(xs64, th_a, th_b, z64, z64)), bits)]}
+             bits(ck.iir_scan(xs64, th_a, th_b, z64, z64)), bits)] + [
+            # S2 against its plain version on the card
+            (kind, lambda lib, kind=kind: iir_assoc(lib, kind),
+             bits(ck.iir_assoc_plain(*assoc[kind], tf.IIR_TILE)), bits)
+            for kind in assoc],
+        "fir.cu": [("fir_apply", fir,
+                    bits(ck.fir_apply_plain(*fir_args)), bits)]}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        libs = build_variants({cu: TABLES[cu] for cu in only}, Path(tmp),
-                              args.baseline)
+        keep = args.variants and args.variants.split(",")
+        libs = build_variants(
+            {cu: {k: v for k, v in TABLES[cu].items()
+                  if not keep or k in keep} for cu in only},
+            Path(tmp), args.baseline)
         runs = {}   # name: call
         kernel_of = {}  # name: the kernel's name (a substring of it)
         for (cu, name), lib in libs.items():
@@ -781,6 +895,8 @@ def main() -> int:
                 kernel_of[f"{kind}/{name}"] = (
                     "xdelta_swizzle_kernel" if kind.startswith("xdelta")
                     else "iir_scan_kernel" if kind.startswith("iir_scan")
+                    else "fir_kernel" if kind == "fir_apply"
+                    else "iir_carry_kernel" if kind.startswith("iir_assoc")
                     else "gate_speculate" if hasattr(
                         lib, "rspt_peak_gate_schedule")
                     else kind + "_kernel")
@@ -798,6 +914,15 @@ def main() -> int:
         if "place_literals.cu" in only:
             runs["place_literals/library index_put_"] = (
                 lambda: lib_out.index_put_((lit_pos,), lit_val))
+        if "fir.cu" in only:   # not exact: another order of sums
+            def conv():
+                prev = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                try:
+                    return torch.nn.functional.conv1d(xpad, w_conv)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = prev
+            runs["fir_apply/library conv1d (TF32 off)"] = conv
         if "dct.cu" in only:   # not exact: another summation order
             runs["dct_forward/library f64 matmul"] = (
                 lambda: torch.matmul(cen4_64, cos4_64))

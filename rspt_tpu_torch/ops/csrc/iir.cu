@@ -38,33 +38,49 @@
 // bit: u[t] does not depend on y. Bound: T times the chain's latency,
 // not bytes (12 rows use 12 SMs).
 //
-// S2: the same recurrence over tiles of L samples, in three launches.
-//   1. local: a thread a (row, tile) runs the tile's recurrence serially
-//      from a zero state (its feedforward reads the real history) and
-//      writes y_loc and the tile's end state e_k (its last M y_loc, the
-//      newest first);
-//   2. carry: a thread a row walks the tiles: s_0 = yz, s_{k+1}[i] =
-//      (the sum over c, from 0 in order, of A^L[i][c] * s_k[c]) + e_k[i];
-//   3. fix-up: a thread an output: y[kL + j] = y_loc[kL + j] + (the sum
-//      over c, from 0 in order, of P[j][c] * s_k[c]), P[j] = row 0 of
-//      A^(j+1).
+// S2: the same recurrence over tiles of L samples, in three launches,
+// every sum in the plain version's order:
+//   1. tiles: tile k's recurrence from a zero state (its feedforward reads
+//      the real history), leaving e_k, its last M outputs y_loc, the
+//      newest first;
+//   2. carry: s_0 = yz, s_{k+1}[i] = (the sum over c, from 0 in order, of
+//      A^L[i][c] * s_k[c]) + e_k[i], starts[k] = s_k;
+//   3. tiles again: each tile's recurrence recomputed from zero, and
+//      y[kL + j] = y_loc[kL + j] + (the sum over c, from 0 in order, of
+//      P[j][c] * s_k[c]), P[j] = row 0 of A^(j+1).
 // A is the companion matrix of the feedback (row 0 = -n[1:], the
 // subdiagonal 1). The wrapper builds A^L and P from f64 powers, stored in
-// the input's type. The carry pass is a serial chain of T / L steps a row
-// (a second serial pass over the tiles, not a look-back: the plain
-// version's order); the local and fix-up passes spread over the card.
+// the input's type.
+// Passes 1 and 3: a warp takes 32 consecutive tiles of a row, a lane a
+// tile. Each tile's next kC samples (one 128-byte line) come into shared
+// memory by cp.async, the warp's 32 lines in coalesced copies (16 bytes
+// each where x, y, n and L allow it), kBuf - 1 chunks ahead; a tile's row
+// is padded by one 16-byte granule and read 16 bytes at a time, so the 8
+// lanes of a quarter warp read 8 different granules of the banks. Pass 3
+// writes y over the chunk and the warp stores it back coalesced. Recomputing y_loc in pass 3 (x
+// read twice, y written once: 12 B a float sample) moves fewer bytes than
+// storing it in pass 1 and reading it back (16 B, and a fix-up launch);
+// the arithmetic is the same, and so are the bits.
+// Pass 2 is a serial chain of nt steps a row (a second serial pass over
+// the tiles, not a look-back: the plain version's order), a CTA a row:
+// lane 0 walks it out of shared memory with A^L in registers, while the
+// other warps copy the ends in a slab ahead and store the starts a slab
+// behind. Bound: nt steps of a multiply and M + 1 dependent adds, and
+// about M * M + M + 2 instructions a step on that lane.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxP = 8;        // coefficients (order 7)
-constexpr int kChunk = 8;       // samples read ahead a thread (S2)
 constexpr int kThreads = 128;
 constexpr int kSlab = 512;      // samples a slab (S1)
 constexpr int kRing = 6;        // x slabs in shared memory (S1)
 constexpr int kAhead = kRing - 2;  // slabs S1 copies ahead
 constexpr int kUnroll = 16;     // u read ahead by S1's chain lane
 constexpr int kWorkers = kThreads - 32;  // S1's warps 1-3
+constexpr int kTileWarps = 4;   // warps a CTA of S2's passes 1 and 3
+constexpr int kBuf = 3;         // chunks of a warp in shared memory (S2)
+constexpr int kCarrySlab = 128;  // tiles a slab of S2's carry
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -90,49 +106,6 @@ struct Coefs {
   T n[kMaxP];   // feedback, n[0] unused
   T d[kMaxP];   // feedforward
 };
-
-// One step: xh[0 .. M] = x[t], x[t-1], ..., s[0 .. M-1] = y[t-1], ...;
-// returns y[t] and shifts it into s.
-template <typename T, int M>
-__device__ __forceinline__ T step(const T (&xh)[M + 1], T (&s)[M],
-                                  const Coefs<T>& c) {
-  T u = T(0);
-#pragma unroll
-  for (int i = 0; i <= M; ++i) u = add_rn(u, mul_rn(c.d[i], xh[i]));
-  T y = u;
-#pragma unroll
-  for (int i = 0; i < M; ++i) y = sub_rn(y, mul_rn(c.n[i + 1], s[i]));
-#pragma unroll
-  for (int i = M - 1; i > 0; --i) s[i] = s[i - 1];
-  s[0] = y;
-  return y;
-}
-
-// The recurrence over x[t0 .. t1) of one row, y written to y[t0 .. t1).
-// xh[0 .. M-1] hold x[t0-1], x[t0-2], ... on entry; s the y history.
-template <typename T, int M>
-__device__ __forceinline__ void run(const T* __restrict__ x,
-                                    T* __restrict__ y, long t0, long t1,
-                                    T (&xh)[M + 1], T (&s)[M],
-                                    const Coefs<T>& c) {
-  for (long t = t0; t < t1; t += kChunk) {
-    T buf[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) buf[j] = t + j < t1 ? x[t + j] : T(0);
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (t + j < t1) {
-#pragma unroll
-        for (int i = M; i > 0; --i) xh[i] = xh[i - 1];
-        xh[0] = buf[j];
-        buf[j] = step<T, M>(xh, s, c);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      if (t + j < t1) y[t + j] = buf[j];
-  }
-}
 
 // x[t0 - 1 - i] for i = 0 .. M-1 into xh[i]: from x where t0 - 1 - i >= 0,
 // else from the history xz (M values, the newest first).
@@ -261,77 +234,325 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// S2, pass 1: a thread a (row, tile).
+// ---- S2 ----
+
+// M values between registers and shared memory in the widest vectors
+// that M * sizeof(T) bytes allow (the addresses are multiples of them).
 template <typename T, int M>
-__global__ void __launch_bounds__(kThreads)
-    iir_local_kernel(const T* __restrict__ x, const T* __restrict__ xz,
-                     T* __restrict__ y, T* __restrict__ ends, int rows,
-                     long n, int L, int nt, Coefs<T> c) {
-  const long idx = (long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long)rows * nt) return;
-  const long r = idx / nt, k = idx - r * nt;
-  const long t0 = k * L, t1 = t0 + L < n ? t0 + L : n;
-  T xh[M + 1], s[M];
-  load_history<T, M>(x + r * n, xz + r * M, t0, xh);
+__host__ __device__ constexpr int vec_bytes() {
+  return (M * sizeof(T)) % 16 == 0 ? 16 : (M * sizeof(T)) % 8 == 0 ? 8 : 4;
+}
+template <int kBytes> struct Vec { using type = float; };
+template <> struct Vec<8> { using type = float2; };
+template <> struct Vec<16> { using type = float4; };
+template <typename T, typename V>
+union Pack {
+  V v;
+  T t[sizeof(V) / sizeof(T)];
+};
+
+template <typename T, int M>
+__device__ __forceinline__ void get_m(T (&v)[M], const T* p) {
+  using V = typename Vec<vec_bytes<T, M>()>::type;
+  constexpr int kPer = sizeof(V) / sizeof(T);
 #pragma unroll
-  for (int i = 0; i < M; ++i) s[i] = T(0);
-  run<T, M>(x + r * n, y + r * n, t0, t1, xh, s, c);
+  for (int i = 0; i < M / kPer; ++i) {
+    Pack<T, V> u;
+    u.v = reinterpret_cast<const V*>(p)[i];
 #pragma unroll
-  for (int i = 0; i < M; ++i) ends[idx * M + i] = s[i];
+    for (int j = 0; j < kPer; ++j) v[i * kPer + j] = u.t[j];
+  }
 }
 
-// S2, pass 2: a thread a row, serial over its tiles.
 template <typename T, int M>
-__global__ void __launch_bounds__(kThreads)
-    iir_carry_kernel(const T* __restrict__ yz, const T* __restrict__ ends,
-                     const T* __restrict__ al, T* __restrict__ starts,
-                     int rows, int nt) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= rows) return;
-  T a[M][M], s[M];
+__device__ __forceinline__ void put_m(T* p, const T (&v)[M]) {
+  using V = typename Vec<vec_bytes<T, M>()>::type;
+  constexpr int kPer = sizeof(V) / sizeof(T);
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
-    s[i] = yz[(size_t)r * M + i];
+  for (int i = 0; i < M / kPer; ++i) {
+    Pack<T, V> u;
 #pragma unroll
-    for (int j = 0; j < M; ++j) a[i][j] = al[i * M + j];
+    for (int j = 0; j < kPer; ++j) u.t[j] = v[i * kPer + j];
+    reinterpret_cast<V*>(p)[i] = u.v;
   }
-  const size_t base = (size_t)r * nt * M;
-  for (int k = 0; k < nt; ++k) {
+}
+
+template <typename T>
+struct Tile {
+  static constexpr int kC = 128 / (int)sizeof(T);  // samples a chunk: a line
+  static constexpr int kV = 16 / (int)sizeof(T);   // samples a granule
+  static constexpr int kRow = kC + kV;  // a tile's row and a granule of pad
+  static constexpr int kX = 32 * kRow;  // a chunk of 32 tiles
+};
+
+template <typename T>
+struct TileArgs {
+  const T* x;
+  const T* xz;
+  const T* yz;
+  const T* al;
+  const T* pw;
+  T* y;
+  T* ends;
+  T* starts;
+  long n;
+  int L, nt, groups;  // groups: tile-pass CTAs a row
+};
+
+enum Pass { kEnds, kFinal };
+
+template <typename T, int M>
+constexpr int tile_smem() {
+  return kTileWarps * kBuf * (Tile<T>::kX + Tile<T>::kC * M) * (int)sizeof(T);
+}
+template <typename T, int M>
+constexpr int carry_smem() {
+  return 4 * kCarrySlab * M * (int)sizeof(T);
+}
+
+// Steps of one lane's tile over a chunk in its row of shared memory (the
+// first m samples when kPartial), read (and written back) a 16-byte
+// granule at a time: rows 144 bytes apart put the 8 lanes of a quarter
+// warp on 8 different granules of the banks. y_loc = u - n[1] s[0] - ... -
+// n[M] s[M-1], u the feedforward (the sum over i, from 0 in order, of d[i]
+// xh[i]); kEnds leaves y_loc in the state only, kFinal writes y_loc + (the
+// sum over q, from 0 in order, of P[j][q] * st[q]) over x (p: P's rows of
+// the chunk). xh[0 .. M-1]: the last M
+// inputs, the newest first; s: the last M outputs.
+template <typename T, int M, int kPass, bool kPartial>
+__device__ __forceinline__ void chunk_steps(T* row, const T* p, int m,
+                                            T (&xh)[M + 1], T (&s)[M],
+                                            const T (&st)[M],
+                                            const Coefs<T>& c) {
+  constexpr int kC = Tile<T>::kC, kV = Tile<T>::kV;
 #pragma unroll
-    for (int i = 0; i < M; ++i) starts[base + (size_t)k * M + i] = s[i];
-    if (k + 1 == nt) break;
-    T nxt[M];
+  for (int j0 = 0; j0 < kC; j0 += kV) {
+    T g[kV];
+    get_m<T, kV>(g, row + j0);
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      const int j = j0 + v;
+      if (!kPartial || j < m) {
+#pragma unroll
+        for (int i = M; i > 0; --i) xh[i] = xh[i - 1];
+        xh[0] = g[v];
+        T y = T(0);
+#pragma unroll
+        for (int i = 0; i <= M; ++i) y = add_rn(y, mul_rn(c.d[i], xh[i]));
+#pragma unroll
+        for (int i = 0; i < M; ++i) y = sub_rn(y, mul_rn(c.n[i + 1], s[i]));
+#pragma unroll
+        for (int i = M - 1; i > 0; --i) s[i] = s[i - 1];
+        s[0] = y;
+        if (kPass == kFinal) {
+          T pr[M];
+          get_m<T, M>(pr, p + j * M);
+          T f = T(0);
+#pragma unroll
+          for (int q = 0; q < M; ++q) f = add_rn(f, mul_rn(pr[q], st[q]));
+          g[v] = add_rn(y, f);
+        }
+      }
+    }
+    if (kPass == kFinal) put_m<T, kV>(row + j0, g);
+  }
+}
+
+// kCarrySlab tiles of the carry (m when kPartial) on one lane: starts[q]
+// = s, then s = A^L s + e[q]; A^L in registers, e and starts in shared
+// memory. The step after a row's last tile is computed and dropped.
+template <typename T, int M, bool kPartial>
+__device__ __forceinline__ void carry_slab(const T (&A)[M][M], T (&s)[M],
+                                           const T* __restrict__ e,
+                                           T* __restrict__ o, int m) {
+#pragma unroll 8
+  for (int q = 0; q < (kPartial ? m : kCarrySlab); ++q) {
+    put_m<T, M>(o + q * M, s);
+    T en[M], nxt[M];
+    get_m<T, M>(en, e + q * M);
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       T acc = T(0);
 #pragma unroll
-      for (int j = 0; j < M; ++j) acc = add_rn(acc, mul_rn(a[i][j], s[j]));
-      nxt[i] = add_rn(acc, ends[base + (size_t)k * M + i]);
+      for (int j = 0; j < M; ++j) acc = add_rn(acc, mul_rn(A[i][j], s[j]));
+      nxt[i] = add_rn(acc, en[i]);
     }
 #pragma unroll
     for (int i = 0; i < M; ++i) s[i] = nxt[i];
   }
 }
 
-// S2, pass 3: a thread an output (grid-stride).
+// S2, pass 2: a CTA a row (r); lane 0 walks the chain; warps 1-3 copy the
+// ends of slab i + 1 in and store the starts of slab i - 1 while it walks
+// slab i, and one barrier ends the step. smem: carry_smem<T, M>() bytes.
 template <typename T, int M>
-__global__ void __launch_bounds__(kThreads)
-    iir_fixup_kernel(T* __restrict__ y, const T* __restrict__ starts,
-                     const T* __restrict__ pw, int rows, long n, int L,
-                     int nt) {
-  const long total = (long)rows * n;
-  for (long idx = (long)blockIdx.x * kThreads + threadIdx.x; idx < total;
-       idx += (long)gridDim.x * kThreads) {
-    const long r = idx / n, t = idx - r * n;
-    const long k = t / L, j = t - k * L;
-    const T* s = starts + ((size_t)r * nt + k) * M;
-    T f = T(0);
+__global__ void __launch_bounds__(kThreads) iir_carry_kernel(TileArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kS = kCarrySlab * M;
+  const int r = blockIdx.x;
+  T* se = reinterpret_cast<T*>(smem);  // [2][kS]: ends of slabs i, i + 1
+  T* ss = se + 2 * kS;                 // [2][kS]: starts of slabs i, i - 1
+  const int nt = a.nt;
+  const int ns = (nt + kCarrySlab - 1) / kCarrySlab;
+  const T* er = a.ends + (size_t)r * nt * M;
+  T* sr = a.starts + (size_t)r * nt * M;
+  const int tid = threadIdx.x, w = tid - 32, nw = kThreads - 32;
+  auto count = [&](int i) {  // the values of slab i
+    return (nt - i * kCarrySlab < kCarrySlab ? nt - i * kCarrySlab
+                                             : kCarrySlab) * M;
+  };
+  auto load = [&](int i) {
+    if (i < ns) {
+      T* d = se + (i & 1) * kS;
+      const T* src = er + (size_t)i * kS;
+      for (int q = w; q < count(i); q += nw) d[q] = src[q];
+    }
+  };
+  if (tid >= 32) load(0);
+  __syncthreads();
+  T A[M][M], s[M];
+  if (tid == 0) {
 #pragma unroll
-    for (int c = 0; c < M; ++c) f = add_rn(f, mul_rn(pw[j * M + c], s[c]));
-    y[idx] = add_rn(y[idx], f);
+    for (int i = 0; i < M; ++i) {
+      s[i] = a.yz[(size_t)r * M + i];
+#pragma unroll
+      for (int j = 0; j < M; ++j) A[i][j] = a.al[i * M + j];
+    }
+  }
+  for (int i = 0; i <= ns; ++i) {
+    if (tid == 0) {
+      if (i < ns) {
+        T* e = se + (i & 1) * kS;
+        T* o = ss + (i & 1) * kS;
+        if (count(i) == kS)
+          carry_slab<T, M, false>(A, s, e, o, kCarrySlab);
+        else
+          carry_slab<T, M, true>(A, s, e, o, count(i) / M);
+      }
+    } else if (tid >= 32) {
+      load(i + 1);
+      if (i >= 1) {
+        const T* src = ss + ((i - 1) & 1) * kS;
+        T* d = sr + (size_t)(i - 1) * kS;
+        for (int q = w; q < count(i - 1); q += nw) d[q] = src[q];
+      }
+    }
+    __syncthreads();
   }
 }
 
+// S2, passes 1 and 3: a warp takes 32 consecutive tiles of a row, a lane
+// a tile (see the top). CTA b is row b / groups; smem: tile_smem<T, M>()
+// bytes. kVec: 16-byte copies in and out (x, y and pw 16-byte aligned, n
+// and L multiples of a granule), else a value at a time.
+template <typename T, int M, int kPass, bool kVec>
+__device__ __forceinline__ void tiles_pass(const TileArgs<T>& a,
+                                           const Coefs<T>& c) {
+  constexpr int kC = Tile<T>::kC, kV = Tile<T>::kV, kRow = Tile<T>::kRow;
+  constexpr int kX = Tile<T>::kX;
+  constexpr int kE = kVec ? kV : 1;    // values a copy
+  constexpr int kLanes = kC / kE;      // lanes a tile's chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* sx = reinterpret_cast<T*>(smem) + warp * kBuf * (kX + kC * M);
+  T* sp = sx + kBuf * kX;  // P's rows of each chunk (kFinal)
+  const int r = blockIdx.x / a.groups;
+  const long n = a.n;
+  const int L = a.L, nt = a.nt;
+  const int k0 = ((blockIdx.x - r * a.groups) * kTileWarps + warp) * 32;
+  const int k = k0 + lane;
+  const bool live = k < nt;
+  const T* xr = a.x + (size_t)r * n;
+  const long t0 = (long)k * L;
+  const int len = live ? (int)(n - t0 < L ? n - t0 : L) : 0;
+  const int nch = k0 < nt ? (L + kC - 1) / kC : 0;
+  // a lane copies values jl .. jl + kE - 1 of tiles lane / kLanes, + 32 /
+  // kLanes, ... of a chunk: each tile's chunk in coalesced lines
+  const int jl = lane % kLanes * kE;
+
+  auto fetch = [&](int ch) {  // chunk ch of the warp's tiles (and P's rows)
+    if (ch < nch) {
+      T* dst = sx + (ch % kBuf) * kX + jl;
+      const long base = (long)k0 * L + (long)ch * kC + jl;
+      const bool in = ch * kC + jl < L;
+      for (int q = lane / kLanes; q < 32; q += 32 / kLanes) {
+        const long t = base + (long)q * L;
+        const bool ok = in && t < n;
+        rspt::cp_async_zfill<kE * sizeof(T)>(dst + q * kRow,
+                                             xr + (ok ? t : 0), ok);
+      }
+      if (kPass == kFinal) {
+        T* pd = sp + (ch % kBuf) * kC * M;
+        const long p0 = (long)ch * kC * M;
+        for (int i = lane * kE; i < kC * M; i += 32 * kE) {
+          const bool ok = p0 + i < (long)L * M;
+          rspt::cp_async_zfill<kE * sizeof(T)>(pd + i,
+                                               a.pw + (ok ? p0 + i : 0), ok);
+        }
+      }
+    }
+    rspt::cp_async_commit();
+  };
+
+  T xh[M + 1], s[M], st[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) s[i] = xh[i] = st[i] = T(0);
+  xh[M] = T(0);
+  if (live) {
+    load_history<T, M>(xr, a.xz + (size_t)r * M, t0, xh);
+    if (kPass == kFinal) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) st[i] = a.starts[((size_t)r * nt + k) * M + i];
+    }
+  }
+  for (int b = 0; b < kBuf - 1; ++b) fetch(b);
+  for (int ch = 0; ch < nch; ++ch) {
+    fetch(ch + kBuf - 1);  // into the buffer freed at the end of ch - 1
+    rspt::cp_async_wait<kBuf - 1>();
+    __syncwarp();
+    T* buf = sx + (ch % kBuf) * kX;
+    const T* p = sp + (ch % kBuf) * kC * M;
+    if (__all_sync(rspt::kFull, !live || (ch + 1) * kC <= len))
+      chunk_steps<T, M, kPass, false>(buf + lane * kRow, p, kC, xh, s, st, c);
+    else
+      chunk_steps<T, M, kPass, true>(buf + lane * kRow, p, len - ch * kC, xh,
+                                     s, st, c);
+    __syncwarp();
+    if (kPass == kFinal) {  // the chunk's outputs back, coalesced
+      T* yr = a.y + (size_t)r * n;
+      const T* src = buf + jl;
+      const long base = (long)k0 * L + (long)ch * kC + jl;
+      const bool in = ch * kC + jl < L;
+      for (int q = lane / kLanes; q < 32; q += 32 / kLanes) {
+        const long t = base + (long)q * L;
+        if (in && t < n) {
+          if (kVec)
+            *reinterpret_cast<uint4*>(yr + t) =
+                *reinterpret_cast<const uint4*>(src + q * kRow);
+          else
+            yr[t] = src[q * kRow];
+        }
+      }
+      __syncwarp();
+    }
+  }
+  if (kPass == kEnds && live) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) a.ends[((size_t)r * nt + k) * M + i] = s[i];
+  }
+}
+
+// S2's passes 1 (ends) and 3 (final) by name.
+template <typename T, int M, bool kVec>
+__global__ void __launch_bounds__(32 * kTileWarps)
+    iir_ends_kernel(TileArgs<T> a, Coefs<T> c) {
+  tiles_pass<T, M, kEnds, kVec>(a, c);
+}
+template <typename T, int M, bool kVec>
+__global__ void __launch_bounds__(32 * kTileWarps)
+    iir_final_kernel(TileArgs<T> a, Coefs<T> c) {
+  tiles_pass<T, M, kFinal, kVec>(a, c);
+}
 template <typename T>
 Coefs<T> coefs_of(const double* nh, const double* dh, int p) {
   Coefs<T> c{};
@@ -340,10 +561,6 @@ Coefs<T> coefs_of(const double* nh, const double* dh, int p) {
     c.d[i] = (T)dh[i];
   }
   return c;
-}
-
-int blocks_of(long threads) {
-  return (int)((threads + kThreads - 1) / kThreads);
 }
 
 template <typename T, int M>
@@ -356,26 +573,55 @@ int scan_launch(const void* x, const void* xz, const void* yz, void* y,
   return (int)cudaGetLastError();
 }
 
+// S2's three launches. Passes 1 and 3 use more than 48 KB of shared memory
+// and are opted in to it once a device (a bit a device in opted).
+template <typename T, int M, bool kVec>
+int assoc_passes(const TileArgs<T>& a, const Coefs<T>& c, int rows,
+                 cudaStream_t st) {
+  static_assert(carry_smem<T, M>() <= 48 * 1024, "carry needs an opt-in");
+  static unsigned long long opted = 0;
+  const int tiles = 32 * kTileWarps;
+  const int blocks = rows * a.groups;
+  constexpr int kSmem = tile_smem<T, M>();
+  int dev;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err && (dev >= 64 || !(opted >> dev & 1))) {
+    err = (int)cudaFuncSetAttribute(iir_ends_kernel<T, M, kVec>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kSmem);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(
+          iir_final_kernel<T, M, kVec>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (!err && dev < 64) opted |= 1ull << dev;
+  }
+  if (err) return err;
+  iir_ends_kernel<T, M, kVec><<<blocks, tiles, kSmem, st>>>(a, c);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  iir_carry_kernel<T, M><<<rows, kThreads, carry_smem<T, M>(), st>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  iir_final_kernel<T, M, kVec><<<blocks, tiles, kSmem, st>>>(a, c);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int M>
 int assoc_launch(const void* x, const void* xz, const void* yz, void* y,
                  void* ends, void* starts, const void* al, const void* pw,
                  const double* nh, const double* dh, int rows, long n, int L,
                  cudaStream_t st) {
   const int nt = (int)((n + L - 1) / L);
-  iir_local_kernel<T, M><<<blocks_of((long)rows * nt), kThreads, 0, st>>>(
-      (const T*)x, (const T*)xz, (T*)y, (T*)ends, rows, n, L, nt,
-      coefs_of<T>(nh, dh, M + 1));
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  iir_carry_kernel<T, M><<<blocks_of(rows), kThreads, 0, st>>>(
-      (const T*)yz, (const T*)ends, (const T*)al, (T*)starts, rows, nt);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const long fix = blocks_of((long)rows * n);
-  iir_fixup_kernel<T, M><<<(int)(fix < 132L * 16 ? fix : 132L * 16),
-                           kThreads, 0, st>>>(
-      (T*)y, (const T*)starts, (const T*)pw, rows, n, L, nt);
-  return (int)cudaGetLastError();
+  const int tiles = 32 * kTileWarps;
+  const TileArgs<T> a{(const T*)x, (const T*)xz, (const T*)yz, (const T*)al,
+                      (const T*)pw, (T*)y, (T*)ends, (T*)starts, n, L, nt,
+                      (nt + tiles - 1) / tiles};
+  const Coefs<T> c = coefs_of<T>(nh, dh, M + 1);
+  constexpr int kV = Tile<T>::kV;
+  const bool vec = n % kV == 0 && L % kV == 0 &&
+                   (((uintptr_t)x | (uintptr_t)y | (uintptr_t)pw) & 15) == 0;
+  return vec ? assoc_passes<T, M, true>(a, c, rows, st)
+             : assoc_passes<T, M, false>(a, c, rows, st);
 }
 
 // The instantiation for M = p - 1 in 1 .. 7 and the type.
@@ -414,7 +660,7 @@ extern "C" int rspt_iir_scan(const void* x, const void* xz, const void* yz,
 // S2. As rspt_iir_scan, plus L >= 1 (samples a tile), the scratch ends and
 // starts ((rows, ceil(n / L), p - 1) each), al (A^L, (p - 1) x (p - 1))
 // and pw ((L, p - 1): row 0 of A^(j+1) for j = 0 .. L-1), in the type.
-// Three launches; returns the first error.
+// rows * ceil(n / L) < 2^31. Three launches; returns the first error.
 extern "C" int rspt_iir_assoc(const void* x, const void* xz, const void* yz,
                               void* y, void* ends, void* starts,
                               const void* al, const void* pw, const void* nh,

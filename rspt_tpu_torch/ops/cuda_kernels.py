@@ -1551,7 +1551,8 @@ def companion_matrix(n: Sequence[float]) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _iir_tables_host(n: Tuple[float, ...], L: int, dtype: torch.dtype):
+def _iir_tables(n: Tuple[float, ...], L: int, dtype: torch.dtype,
+                device: torch.device):
     A = companion_matrix(n)
     pw = np.empty((L, len(n) - 1))
     row = A[0].copy()
@@ -1559,8 +1560,8 @@ def _iir_tables_host(n: Tuple[float, ...], L: int, dtype: torch.dtype):
         pw[j] = row
         row = row @ A
     al = np.linalg.matrix_power(A, L)
-    return (torch.from_numpy(al).to(dtype).contiguous(),
-            torch.from_numpy(pw).to(dtype).contiguous())
+    return (torch.from_numpy(al).to(dtype).contiguous().to(device),
+            torch.from_numpy(pw).to(dtype).contiguous().to(device))
 
 
 def iir_tables(n: Sequence[float], L: int, dtype: torch.dtype,
@@ -1568,9 +1569,12 @@ def iir_tables(n: Sequence[float], L: int, dtype: torch.dtype,
     """S2's tables for tiles of L samples: (A^L (m, m), P (L, m)) with P[j]
     row 0 of A^(j+1), A the companion matrix of the feedback n (row 0
     −n[1:], the subdiagonal 1; m = p − 1). Powers in float64 on the host,
-    stored in dtype."""
-    al, pw = _iir_tables_host(tuple(float(v) for v in n), int(L), dtype)
-    return al.to(device), pw.to(device)
+    stored in dtype. Cached by (n, L, dtype, device), so a second call
+    makes no copy: a copy from pageable host memory to the card
+    synchronises the stream, and iir_assoc would wait for the card before
+    it launched. Shared tensors: read them, never write them."""
+    return _iir_tables(tuple(float(v) for v in n), int(L), dtype,
+                       torch.device(device))
 
 
 def iir_assoc_plain(x: torch.Tensor, n, d, xz: torch.Tensor,
@@ -1608,11 +1612,13 @@ def iir_assoc_plain(x: torch.Tensor, n, d, xz: torch.Tensor,
 def iir_assoc(x: torch.Tensor, n: Sequence[float], d: Sequence[float],
               xz: torch.Tensor, yz: torch.Tensor, L: int) -> torch.Tensor:
     """S2: iir_scan's filter parallel in T, over tiles of L samples: each
-    tile's recurrence from a zero state (a thread a row and tile), the
-    tiles' start states s_(k+1) = A^L·s_k + e_k by a serial pass a row,
-    then y[kL + j] += (A^(j+1)·s_k)[0] (a thread an output); the tables
-    from iir_tables. Not iir_scan's bits: close to them. One call, three
-    launches (counted as one); a new tensor."""
+    tile's recurrence from a zero state (a lane a tile, a warp 32 tiles),
+    the tiles' start states s_(k+1) = A^L·s_k + e_k by a serial pass a row
+    (a CTA a row), then each tile recomputed with y[kL + j] +=
+    (A^(j+1)·s_k)[0]; the tables from iir_tables, cached on the device
+    (no copy and no stream sync a call). Not iir_scan's bits: close to
+    them. rows · ceil(T / L) < 2^31. One call, three launches (counted as
+    one); a new tensor."""
     cuda = _check_iir_args(x, n, d, xz, yz)
     if L < 1:
         raise ValueError("L must be >= 1")
@@ -1624,6 +1630,8 @@ def iir_assoc(x: torch.Tensor, n: Sequence[float], d: Sequence[float],
     rows, T = x.shape
     m = len(n) - 1
     nt = -(-T // L)
+    if rows * nt >= 2**31:
+        raise ValueError("iir_assoc: rows * ceil(T / L) must be < 2^31")
     al, pw = iir_tables(n, L, x.dtype, x.device)
     scratch = torch.empty((2, rows, nt, m), dtype=x.dtype, device=x.device)
     _keep, (nh, dh) = _coef_args(n, d, x.dtype)
@@ -1659,8 +1667,8 @@ def fir_apply(x: torch.Tensor, taps: torch.Tensor,
     taps ((ks,) of x's type, 1..256): y[t] = the sum over i, from 0 in
     order, of taps[i]·xp[t + i + 1], xp = window then x; window: (rows,
     ks) prior samples, the oldest first, or None: fresh, and then y[t] = 0
-    for t < ks (the reference's warm-up). One launch, a thread an output;
-    a new tensor."""
+    for t < ks (the reference's warm-up). One launch, a thread 16
+    consecutive outputs; a new tensor."""
     if x.dtype not in _FLOATS:
         raise TypeError(f"x: expected float32 or float64, got {x.dtype}")
     _check(x, "x", x.dtype)

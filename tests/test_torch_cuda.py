@@ -1545,9 +1545,16 @@ def iir_edge_batch(rng, rows, T, p, dtype):
 
 
 S1_SLAB = 512   # iir.cu kSlab: the samples of S1's slabs
+S2_CTA_TILES = 128   # iir.cu 32 * kTileWarps: the tiles of an S2 tile CTA
+S2_CARRY_SLAB = 128   # iir.cu kCarrySlab: the tiles of a carry slab
 
 # (rows, T, p, dtype, L): T = 0 and 1, T < L, T on and off a tile's end
 # and S1's slab ends (slab - 1, slab, slab + 1, 3 slab + 7), 13 rows, p 2-8
+# in both types; S2: tile counts off a warp's 32 and a CTA's 128 tiles
+# (34, 70; 129: a CTA of one tile ending the row), a carry slab full,
+# three with a partial last (301 tiles), L off the 128-byte chunk (7, 33,
+# 100) and one sample a tile, one row of 13 samples with L > T; p = 2 and
+# 3 (M = 1 and 2, as the detectors' low-passes) past two carry slabs
 IIR_EDGE_CASES = ((3, 1, 2, "float32", 512), (3, 300, 8, "float64", 512),
                   (4, 5000, 3, "float32", 512), (4, 5000, 5, "float64", 7),
                   (2, 4096, 8, "float32", 256), (13, 1025, 4, "float32", 1),
@@ -1556,7 +1563,19 @@ IIR_EDGE_CASES = ((3, 1, 2, "float32", 512), (3, 300, 8, "float64", 512),
                   (3, S1_SLAB, 8, "float64", 100),
                   (13, S1_SLAB + 1, 2, "float32", 512),
                   (2, 3 * S1_SLAB + 7, 5, "float64", 512),
-                  (13, 3 * S1_SLAB + 7, 3, "float32", 256))
+                  (13, 3 * S1_SLAB + 7, 3, "float32", 256),
+                  (2, 33 * 100 + 5, 5, "float32", 100),
+                  (3, 70 * 100, 6, "float64", 100),
+                  (2, (S2_CTA_TILES + 1) * 64, 5, "float32", 64),
+                  (2, S2_CARRY_SLAB * 16, 4, "float64", 16),
+                  (3, 300 * 7 + 3, 7, "float32", 7),
+                  (2, 3000, 6, "float32", 33), (2, 2500, 3, "float64", 256),
+                  (2, 2500, 4, "float64", 512), (2, 2500, 7, "float64", 33),
+                  (1, 13, 5, "float32", 512), (1, 13, 6, "float64", 512),
+                  (2, 300 * 16 + 5, 2, "float32", 16),
+                  (3, 300 * 16 + 5, 2, "float64", 16),
+                  (2, 300 * 16 + 5, 3, "float32", 16),
+                  (3, 300 * 16 + 5, 3, "float64", 16))
 
 
 def check_iir_case(dev, rows, T, p, dtype, L, seed=150):
@@ -1580,6 +1599,25 @@ def check_iir_case(dev, rows, T, p, dtype, L, seed=150):
 def test_iir_kernels_match_plain(dev, rows, T, p, dtype, L):
     """S1 and S2 vs their plain versions on IIR_EDGE_CASES."""
     check_iir_case(dev, rows, T, p, dtype, L)
+
+
+def test_iir_assoc_tables_stay_on_the_card(dev):
+    """A second iir_assoc call with the same coefficients, L and type
+    builds and copies no table: the device cache hands back the same
+    tensors (a copy from pageable host memory would wait for the card)."""
+    x, n, d, xz, yz = (a.to(dev) if isinstance(a, torch.Tensor) else a
+                       for a in iir_edge_batch(np.random.default_rng(5), 2,
+                                               3000, 5, torch.float32))
+    ck.iir_assoc(x, n, d, xz, yz, 512)
+    tables = ck.iir_tables(n, 512, torch.float32, x.device)
+    info = ck._iir_tables.cache_info()
+    y = ck.iir_assoc(x, n, d, xz, yz, 512)
+    after = ck._iir_tables.cache_info()
+    assert (after.hits, after.misses) == (info.hits + 1, info.misses)
+    assert all(a is b for a, b in
+               zip(ck.iir_tables(n, 512, torch.float32, x.device), tables))
+    assert all(t.device == x.device for t in tables)
+    same_floats(y, ck.iir_assoc_plain(x, n, d, xz, yz, 512))
 
 
 def test_iir_coefficient_limit_raises_on_card(dev):
@@ -1616,13 +1654,21 @@ def test_filters_empty_time_axis_on_card(dev):
     assert [k.launches for k in ck.KERNELS] == before
 
 
+FIR_CTA_OUT = 16 * 128   # fir.cu kR * kThreads: the outputs of a tile
+
 # (rows, T, ks, dtype, fresh): ks 1 and 256, T = 0, T < ks, a window or
-# fresh
+# fresh; ks off kR = 16 (7, 9, 61, 65), T on and off a tile's outputs
 FIR_EDGE_CASES = ((3, 5000, 1, "float32", True), (2, 4097, 256, "float32",
                                                    False),
                   (2, 100, 256, "float64", True), (5, 1, 7, "float32", False),
                   (4, 3000, 65, "float64", False), (3, 0, 3, "float32", True),
-                  (2, 0, 7, "float64", False))
+                  (2, 0, 7, "float64", False),
+                  (3, 5000, 61, "float32", True),
+                  (2, 2 * FIR_CTA_OUT, 9, "float64", False),
+                  (2, FIR_CTA_OUT + 1, 256, "float64", True),
+                  (2, 30, 61, "float32", True),
+                  (2, FIR_CTA_OUT - 1, 1, "float64", True),
+                  (3, 3 * FIR_CTA_OUT + 5, 16, "float32", False))
 
 
 def fir_edge_batch(rng, rows, T, ks, dtype, fresh):

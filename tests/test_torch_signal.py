@@ -123,6 +123,90 @@ def test_assoc_tiles_close_to_scan(rng, L):
     assert np.allclose(ya.numpy(), ys.numpy(), rtol=1e-3, atol=1e-1)
 
 
+def _s2_model(x, n, d, xz, yz, L):
+    """S2 as iir.cu's three passes compute it, in numpy in x's type (every
+    product and sum rounded, never fused), a tile a lane: pass 1 runs each
+    tile's recurrence from the zero state (its feedforward on the real
+    history) and stages its ends, the last m outputs, the newest first;
+    pass 2 walks the carry over the staged ends, s_(k+1)[i] = (sum over c
+    of A^L[i][c]·s_k[c]) + e_k[i], one step more after the last tile
+    (dropped); pass 3 recomputes each tile from zero and adds (sum over c
+    of P[j][c]·s_k[c]) to each output."""
+    dt = x.dtype
+    rows, T = x.shape
+    m = len(n) - 1
+    nt = -(-T // L)
+    tdt = torch.float32 if dt == np.float32 else torch.float64
+    al, pw = (t.numpy() for t in ck.iir_tables(n, L, tdt, torch.device(CPU)))
+    nn = np.asarray(n, np.float64).astype(dt)
+    dd = np.asarray(d, np.float64).astype(dt)
+    # x[t - i] = xp[:, m + t - i]; zeros past T (the last tile's tail is
+    # dropped)
+    xp = np.concatenate([xz[:, ::-1], x, np.zeros((rows, nt * L - T), dt)],
+                        1)
+
+    def tiles(starts=None):
+        s = [np.zeros((rows, nt), dt) for _ in range(m)]
+        y = np.zeros((rows, nt, L), dt)
+        for j in range(L):
+            t = np.arange(nt) * L + j
+            u = np.zeros((rows, nt), dt)
+            for i in range(m + 1):
+                u = u + dd[i] * xp[:, m + t - i]
+            yl = u
+            for i in range(m):
+                yl = yl - nn[i + 1] * s[i]
+            s = [yl] + s[:-1]
+            if starts is not None:
+                f = np.zeros((rows, nt), dt)
+                for c in range(m):
+                    f = f + pw[j, c] * starts[:, :, c]
+                y[:, :, j] = yl + f
+        return np.stack(s, 2), y
+
+    ends, _ = tiles()
+    starts = np.empty((rows, nt, m), dt)
+    cur = yz.copy()
+    for k in range(nt):
+        starts[:, k] = cur
+        nxt = np.empty_like(cur)
+        for i in range(m):
+            acc = np.zeros(rows, dt)
+            for c in range(m):
+                acc = acc + al[i, c] * cur[:, c]
+            nxt[:, i] = acc + ends[:, k, i]
+        cur = nxt
+    return tiles(starts)[1].reshape(rows, nt * L)[:, :T]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("L", [1, 7, 512])
+def test_assoc_passes_keep_the_plain_order(rng, dtype, p, L):
+    """The order S2's kernel keeps: _s2_model (tiles from zero, staged
+    ends, the serial carry, the tiles recomputed with the fix-up) equals
+    iir_assoc_plain bit for bit (NaN equal to NaN) on the detectors'
+    designs at 360 Hz (the integrator's low-pass, m = 2; the band-pass,
+    m = 4), from a nonzero state, with a NaN in the last row and T not a
+    multiple of L."""
+    b, a = design.create_filter_iir(
+        design.FilterKind.BUTTERWORTH,
+        design.FilterType.LOW_PASS if p == 3 else design.FilterType.BAND_PASS,
+        2, 360.0, *((3.0,) if p == 3 else (10.0, 20.0)))
+    assert len(a) == p
+    T = 3 * 512 + 100
+    x = rng.normal(0, 100, (3, T)).astype(dtype)
+    x[-1, T // 2] = np.nan
+    xz = rng.normal(0, 100, (3, p - 1)).astype(dtype)
+    yz = rng.normal(0, 10, (3, p - 1)).astype(dtype)
+    want = ck.iir_assoc_plain(*(torch.from_numpy(v) for v in (x,)), a, b,
+                              torch.from_numpy(xz), torch.from_numpy(yz),
+                              L).numpy()
+    got = _s2_model(x, a, b, xz, yz, L)
+    assert np.isfinite(want[:2]).all()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_iir_tables_are_the_companion_powers():
     """A^L and row 0 of A^(j+1) against numpy's matrix powers."""
     b, a = design.butterworth_bandpass_2nd(360.0, 10.0, 20.0)
@@ -238,6 +322,70 @@ def test_fir_apply_matches_jax_and_host(rng, ks, fresh):
         assert np.allclose(y[r].numpy(), want, rtol=1e-5, atol=1e-4)
         if fresh:
             assert not y[r, :ks].any()
+
+
+def _s3_model(x, taps, window, R=16, threads=128):
+    """S3 as fir.cu sums it, in numpy in x's type: a CTA R · threads
+    outputs of a row, a thread R consecutive ones; each tap in order adds
+    its product to the R sums, the inputs from a window of R values that
+    turns a tap at a time (tap i0 + u reads win[(u + q) % R] for output q,
+    then win[u] takes the input R further on), the last ks % R taps
+    apart."""
+    rows, T = x.shape
+    ks = len(taps)
+    dt = x.dtype
+    w = np.zeros((rows, ks), dt) if window is None else window
+    out = R * threads
+    nb = -(-T // out)
+    xp = np.concatenate([w, x, np.zeros((rows, nb * out - T + R), dt)], 1)
+    base = R * np.arange(threads)
+    y = np.zeros((rows, nb * out), dt)
+    for blk in range(nb):
+        xs = xp[:, blk * out + 1:]     # xs[:, q] = xp[t0 + 1 + q]
+        acc = [np.zeros((rows, threads), dt) for _ in range(R)]
+        win = [xs[:, base + q] for q in range(R)]
+        i0 = 0
+
+        def tap(u):
+            kv = taps[i0 + u]
+            for q in range(R):
+                acc[q] = acc[q] + kv * win[(u + q) % R]
+            win[u] = xs[:, base + i0 + R + u]
+
+        while i0 + R <= ks:
+            for u in range(R):
+                tap(u)
+            i0 += R
+        for u in range(R - 1):
+            if i0 + u < ks:
+                tap(u)
+        for q in range(R):
+            y[:, blk * out + base + q] = acc[q]
+    y = y[:, :T]
+    if window is None:
+        y[:, :ks] = 0
+    return y
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("ks", [1, 61, 256])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_fir_blocked_sums_keep_the_plain_order(rng, dtype, ks, fresh):
+    """The order S3's kernel keeps: _s3_model (R = 16 outputs a thread, a
+    window of inputs turned a tap at a time) equals fir_apply_plain bit
+    for bit, fresh and from a window, over two tiles and a partial third
+    (NaN equal to NaN)."""
+    T = 2 * 2048 + 300
+    x = rng.normal(0, 10, (2, T)).astype(dtype)
+    x[-1, T // 3] = np.nan
+    taps = rng.normal(0, 0.3, ks).astype(dtype)
+    window = None if fresh else rng.normal(0, 10, (2, ks)).astype(dtype)
+    want = ck.fir_apply_plain(
+        torch.from_numpy(x), torch.from_numpy(taps),
+        None if fresh else torch.from_numpy(window)).numpy()
+    got = _s3_model(x, taps, window)
+    assert np.isfinite(want[0]).all()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
