@@ -111,6 +111,23 @@ host stages and wall times of every path (the Hadamard path, encode and
 entropy_streams_blocks with their spread; the DCT walls and its
 table construction). The last two lines are a
 JSON object of the kernels and the result line.
+
+Phase 17, after phase 16's timings: the sharded codec
+(rspt_tpu_torch.parallel) on meshes of 1, 2 and 4 shards of the card
+(and of every card where there are more): the xdelta packer with the
+sharded encoder (its container equal to the unsharded one, K3 and K4
+once on each shard holding a HUFF block), the hzr packer on the 3 x 64
+KiB random input (all COPY: K13a once a shard), the stream encode equal
+to torch_coder.encode (out_capacity too), the decode of the main
+streams equal to gpu_decoder.decode_many (K6 and K7 once on each shard
+holding a block; the hinted rerun too) and the scans over the main
+signal's words equal to torch_ops; a 4-shard hint refused by 2 shards;
+(b) this script re-run as two gloo workers (--gloo-worker RANK PORT) of
+2 shards of the card each: the 2 MiB encode equal to torch_coder.encode
+on both ranks and the scans across them, within 180 s; (c) the
+profiler's device operations of a 4-shard encode and decode; (d) the
+walls of the sharded encode, compress and decode against the unsharded
+calls, in turns, medians of 5 [min, max].
 Exits nonzero, with no result line, when there is no CUDA card or any
 check fails. Imports nothing of JAX or of the JAX package.
 """
@@ -118,6 +135,7 @@ check fails. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -406,9 +424,9 @@ def route_streams(tc, x, words, plane_len, planes):
                                   for j, b in enumerate(copy_rows)])
     tight = payload_bytes(words, plan.total_payload).cpu().numpy().copy()
     tc._or_descriptions(tight, plan.comp_len, plan.desc_bytes)
-    return tc._plane_streams(lengths, nb_per, planes, tight, plan.comp_len,
-                             copy_np, copy_len, plan.is_fill,
-                             x["hist"].cpu().numpy())
+    return tc.plane_streams(lengths, nb_per, planes, tight, plan.comp_len,
+                            copy_np, copy_len, plan.is_fill,
+                            tc.fill_bytes_from_hist(x["hist"].cpu().numpy()))
 
 
 def fibonacci_bytes(nsym, rng):
@@ -1555,6 +1573,273 @@ def time_signal(ck, sp):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: sharding (rspt_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4)     # shards on one card (a device may repeat)
+GLOO_TIMEOUT_S = 180         # the two-process part, start to end
+GLOO_PAYLOAD = 2 * 1024 * 1024   # tools/run_multihost.py's payload
+
+
+def launched_by(ck, fn):
+    """fn's result and the kernel launches of its run (every count set to
+    0 just before, read just after)."""
+    for k in ck.KERNELS:
+        k.launches = 0
+    r = fn()
+    torch.cuda.synchronize()
+    return r, {k.__name__: k.launches for k in ck.KERNELS if k.launches}
+
+
+def shard_meshes(parallel, dev):
+    """Meshes of 1, 2 and 4 shards on the card, and of every visible card
+    when there is more than one."""
+    meshes = {f"{k} x {dev}": parallel.make_mesh([dev] * k)
+              for k in SHARD_COUNTS}
+    if torch.cuda.device_count() > 1:
+        meshes["every card"] = parallel.make_mesh()
+    return meshes
+
+
+def shards_holding(mask, nshards):
+    """Shards whose contiguous run of a padded batch holds a True block."""
+    loc = -(-len(mask) // nshards)
+    return sum(bool(np.any(mask[g * loc:(g + 1) * loc]))
+               for g in range(nshards))
+
+
+def check_shard_path(ck, tc, gd, packers, tops, native, words, comp,
+                     main_streams, s11, rnd, s_rnd, huff, ch, ns, dev):
+    """Phase 17 (a): on each mesh, the main path's packer with the
+    sharded encoder (the flat route: K3 + K4 on each shard holding a
+    HUFF block; the container equal to the unsharded packer's, decoded
+    exactly), the hzr packer on the 3 x 64 KiB random input (all COPY:
+    the compact route, K13a on each shard), the stream encoder (K13a on
+    each shard; out_capacity exact and one byte short), the sharded
+    decoder of the main streams (K6 + K7 on each shard holding a block;
+    equal to gpu_decoder.decode_many, hinted rerun too) and the scans
+    over the main signal's words; a 4-shard hint is refused by a 2-shard
+    decoder. Returns what the timings use."""
+    from rspt_tpu_torch import parallel
+    meshes = shard_meshes(parallel, dev)
+    want_dec = gd.decode_many(main_streams, device=dev, hints=False)
+    raw = np.frombuffer(rnd.tobytes(), np.uint8)
+    p_rnd = packers.new_hzr(4, 1, raw.size // 4)
+    c_rnd = p_rnd.compress(raw)
+    host_words = words.cpu().numpy()
+    out = {"meshes": meshes, "enc": {}, "dec": {}, "packer": {},
+           "hints": {}}
+    for name, mesh in meshes.items():
+        S = mesh.size
+        enc = parallel.ShardedHzrEncoder(mesh)
+        p = packers.new_xdelta_hzr(4, ch, ns, 3, encoder=enc)
+        c, got = launched_by(ck, lambda: p.compress(native))
+        e = shards_holding(huff, S)
+        want = {"xdelta_swizzle": 1, "tokenize_planes": 1,
+                "compact_tokens": e, "pack_flat": e}
+        if c != comp or got != want:
+            raise AssertionError(f"{name}: sharded packer: container equal "
+                                 f"{c == comp}, launches {got}, not {want}")
+        if packers.new_xdelta_hzr(4, ch, ns, 3).decompress(c)[0] != native:
+            raise AssertionError(f"{name}: sharded container: no round trip")
+        pr = packers.new_hzr(4, 1, raw.size // 4, encoder=enc)
+        cr, got_r = launched_by(ck, lambda: pr.compress(raw))
+        if cr != c_rnd or got_r != {"tokenize_planes": 1,
+                                    "pack_blocks": mesh.local}:
+            raise AssertionError(f"{name}: random input: {got_r}, equal "
+                                 f"{cr == c_rnd}")
+        b, ln = tc.split_blocks(rnd)
+        if enc.encode_blocks_flat(b, ln) is not None or tc.assemble_compact(
+                *enc.encode_blocks_compact(b, ln)) != s_rnd:
+            raise AssertionError(f"{name}: all-COPY batch: flat route taken "
+                                 f"or compact route differs")
+        s, got_s = launched_by(ck, lambda: enc.encode(native))
+        if s != s11 or got_s != {"pack_blocks": mesh.local}:
+            raise AssertionError(f"{name}: encode: equal {s == s11}, "
+                                 f"launches {got_s}")
+        if enc.encode(native, len(s11)) != s11:
+            raise AssertionError(f"{name}: encode: exact out_capacity")
+        try:
+            enc.encode(native, len(s11) - 1)
+            raise AssertionError(f"{name}: encode: one byte short fit")
+        except ValueError:
+            pass
+        dec = parallel.ShardedHzrDecoder(mesh)
+        (outs, h), got_d = launched_by(ck, lambda: dec.decode_many(
+            main_streams, hints=False, return_hints=True))
+        held = sum(1 for n in dec.decode_info["blocks"] if n)
+        if outs != want_dec or got_d != {"hzr_decode": held,
+                                         "place_literals": held}:
+            raise AssertionError(f"{name}: decode: equal {outs == want_dec},"
+                                 f" launches {got_d}")
+        if (dec.decode_many(main_streams, hints=h) != want_dec
+                or not dec.decode_info["hinted"]
+                or any(f for fs in dec.decode_info["fp_iters"] for f in fs)):
+            raise AssertionError(f"{name}: hinted decode {dec.decode_info}")
+        fns = parallel.make_sharded_scans(mesh)
+        parts = fns["shard"](host_words)
+        for fn in ("delta_encode", "xor_encode", "delta_decode",
+                   "xor_decode"):
+            equal(f"{name}: sharded {fn}", fns["gather"](fns[fn](parts)),
+                  getattr(tops, fn)(words).cpu())
+        out["enc"][name], out["dec"][name] = enc, dec
+        out["packer"][name], out["hints"][S] = p, h
+        log(f"phase 17: {name} ({S} shards): packer container equal to the "
+            f"unsharded one ({len(c)} B), flat route {got}; random 3 x 64 "
+            f"KiB through new_hzr: compact route {got_r}; encode equal "
+            f"({len(s)} B) {got_s}, out_capacity exact / one short raises; "
+            f"decode equal, blocks a shard {dec.decode_info['blocks']}, "
+            f"{got_d}, hinted rerun 0 sweeps; scans over "
+            f"{host_words.size} words equal")
+    d2 = out["dec"][f"2 x {dev}"]
+    gd._hint_registry.clear()
+    if (d2.decode_many(main_streams, hints=out["hints"][4]) != want_dec
+            or d2.decode_info["hinted"]):
+        raise AssertionError("a 4-shard hint was trusted by 2 shards")
+    log("phase 17: a 4-shard decode's hint given to a 2-shard decoder is "
+        "refused (the fixpoint ran), bytes equal")
+    out["want_dec"] = want_dec
+    return out
+
+
+def kernel_counts(evs, reps):
+    """Device operations of reps calls, a call: the port's kernels by
+    name, then the rest (torch ops, copies, fills) together, then all."""
+    ours, rest = {}, 0
+    for e in evs:
+        m = re.search(r"namespace\)::(\w+_kernel)\(", e.name)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0) + 1 / reps
+        else:
+            rest += 1
+    return ours, rest / reps, len(evs) / reps
+
+
+def time_shard_path(tc, gd, packers, native, main_streams, shard, ch, ns,
+                    dev, smi):
+    """Phase 17 (c) and (d): the profiler's device operations of a
+    4-shard encode and decode, then the walls of the sharded encode,
+    packer compress and decode against the unsharded calls, in turns,
+    medians of 5 [min, max]."""
+    four = f"4 x {dev}"
+    enc4, dec4 = shard["enc"][four], shard["dec"][four]
+    for what, fn in (("encode", lambda: enc4.encode(native)),
+                     ("decode", lambda: dec4.decode_many(main_streams,
+                                                         hints=False))):
+        kern, rest, per = kernel_counts(_device_events(fn, 3), 3)
+        log(f"phase 17 (c): 4-shard {what}: {per:.1f} device operations a "
+            f"call (profiler, 3 calls): the port's kernels {kern}, "
+            f"{rest:.1f} others (torch ops, copies, fills)")
+    p = packers.new_xdelta_hzr(4, ch, ns, 3)
+    calls = {"encode unsharded": lambda: tc.encode(native, device=dev),
+             "compress unsharded": lambda: p.compress(native),
+             "decode unsharded": lambda: gd.decode_many(
+                 main_streams, device=dev, hints=False)}
+    for name in shard["meshes"]:
+        e, d, pk = (shard["enc"][name], shard["dec"][name],
+                    shard["packer"][name])
+        calls[f"encode {name}"] = lambda e=e: e.encode(native)
+        calls[f"compress {name}"] = lambda pk=pk: pk.compress(native)
+        calls[f"decode {name}"] = lambda d=d: d.decode_many(main_streams,
+                                                            hints=False)
+    for fn in calls.values():
+        fn()
+    times = {k: [] for k in calls}
+    for _ in range(5):
+        for k, fn in calls.items():
+            times[k] += wall_times(fn, reps=1)
+    for what in ("encode", "compress", "decode"):
+        log(f"phase 17 (d): {what} walls on {smi}, s, medians of 5 [min, "
+            f"max] in turns: " + "; ".join(
+                f"{k[len(what) + 1:]} {spread(v)}" for k, v in times.items()
+                if k.startswith(what)))
+    log(f"phase 17 (d): stages of the last 4-shard encode "
+        f"{enc4.stage_seconds}, decode {dec4.decode_info['times']}")
+    return times
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_gloo_processes():
+    """Phase 17 (b): this script as two gloo workers of 2 shards each on
+    cuda:0 (4 shards): each encodes the same 2 MiB payload, equal on both
+    ranks to torch_coder.encode, and runs the scans across the
+    processes. A worker that fails or is not done within GLOO_TIMEOUT_S
+    fails the run."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--gloo-worker",
+         str(r), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    end = time.monotonic() + GLOO_TIMEOUT_S
+    results = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=max(1.0, end - time.monotonic()))
+            if p.returncode != 0:
+                raise AssertionError(f"gloo worker rc {p.returncode}: "
+                                     f"{so[-2000:]} {se[-4000:]}")
+            results.append(json.loads(so.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in results:
+        if not (r["encode_equal"] and r["scans_equal"]
+                and r["launches"].get("pack_blocks") == 2):
+            raise AssertionError(f"gloo worker: {r}")
+    log(f"phase 17 (b): two gloo processes x 2 shards of cuda:0: the "
+        f"{GLOO_PAYLOAD} B encode equal to torch_coder.encode on both "
+        f"ranks, scans exact across them: {results}")
+
+
+def gloo_worker(rank: int, port: int) -> int:
+    """One of check_gloo_processes' two workers."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from rspt_tpu_torch import parallel
+    from rspt_tpu_torch.hzr import torch_coder as tc
+    from rspt_tpu_torch.ops import cuda_kernels as ck
+    from rspt_tpu_torch.ops import torch_ops as tops
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=60))
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh([dev] * 2)
+    rng = np.random.default_rng(42)       # the same payload on both ranks
+    data = rng.integers(0, 60, GLOO_PAYLOAD).astype(np.uint8)
+    enc = parallel.ShardedHzrEncoder(mesh)
+    enc.encode(data)
+    t0 = time.perf_counter()
+    stream, launches = launched_by(ck, lambda: enc.encode(data))
+    enc_s = time.perf_counter() - t0
+    want = tc.encode(data, device=dev)
+    fns = parallel.make_sharded_scans(mesh)
+    x = rng.integers(-2**31, 2**31, 4 * 65536).astype(np.int32)
+    x[:2] = [-2**31, 2**31 - 1]
+    parts = fns["shard"](x)
+    coded = fns["xor_encode"](fns["delta_encode"](parts))
+    back = fns["gather"](fns["delta_decode"](fns["xor_decode"](coded)))
+    whole = torch.from_numpy(x).to(dev)
+    scans_ok = (torch.equal(back, torch.from_numpy(x)) and torch.equal(
+        fns["gather"](coded),
+        tops.xor_encode(tops.delta_encode(whole)).cpu()))
+    print(json.dumps(dict(rank=rank, shards=mesh.size,
+                          encode_equal=stream == want, stream_bytes=len(stream),
+                          launches=launches, encode_s=enc_s,
+                          scans_equal=bool(scans_ok))), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2642,6 +2927,16 @@ def main() -> int:
     del stream
     sp = check_signal_path(ck, edges, dev)
     kernels += time_signal(ck, sp)
+    # phase 17: sharding, on 1, 2 and 4 shards of the card and across two
+    # processes
+    del sp
+    torch.cuda.empty_cache()
+    shard = check_shard_path(ck, tc, gd, packers, tops, native, words, comp,
+                             main_streams, s11, rnd, s_rnd, plan.ntok > 0,
+                             ch, ns, dev)
+    check_gloo_processes()
+    time_shard_path(tc, gd, packers, native, main_streams, shard, ch, ns,
+                    dev, smi)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2651,4 +2946,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-worker"]:
+        sys.exit(gloo_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

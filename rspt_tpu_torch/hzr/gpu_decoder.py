@@ -31,7 +31,7 @@ import logging
 import time
 import zlib
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -356,6 +356,68 @@ def lane_out_base(counts: torch.Tensor, lane_live: torch.Tensor,
     return (out_off.long() + excl - excl[block_first.long()]).to(torch.int32)
 
 
+def lane_shape(dev):
+    """The entry shape (nrows, 128) that lane_arrays gives the device
+    blocks ``dev``: what decode hints for them must match."""
+    return len(lane_rows([(d[1], d[2]) for d in dev])[0]), 128
+
+
+@dataclass
+class SpanDecode:
+    """What decode_span did: the span's bytes and the kernel's lane
+    results, on the device."""
+    out: torch.Tensor         # (size,) uint8, the span's bytes
+    entry_out: torch.Tensor   # (nrows, 128) converged segment entries
+    stats: torch.Tensor       # (tiles, 5) hzr_decode's tile stats
+    stats_np: Optional[np.ndarray]   # the stats on the host (sync)
+    lanes: int
+    times: dict               # wall s: lanes, kernel, place
+
+
+def decode_span(dev, base: int, size: int, device, entries=None, out=None,
+                sync: bool = True) -> SpanDecode:
+    """Decode the device blocks ``dev`` (_device_blocks' tuples, in
+    stream order) whose output lies in bytes [base, base + size) of the
+    decoded batch: their lanes (lane_arrays), one hzr_decode (K6), the
+    lanes' output bases and one place_literals (K7) into a (size,)
+    uint8 buffer on ``device`` that starts as ``out`` (the span's host
+    bytes, e.g. the walk's COPY and FILL blocks) or as zeros. entries:
+    trusted segment entries of lane_shape(dev), or None (the fixpoint
+    runs). sync: fetch the tile stats between the kernels and wait for
+    the placement (the stage times then hold the device's); else both
+    launches are only queued."""
+    t0 = time.perf_counter()
+    if base:
+        dev = [d[:3] + (d[3] - base,) + d[4:] for d in dev]
+    la = lane_arrays(dev)
+    if entries is not None:
+        la.entry = entries
+        la.ntc[:, 4] = 1
+
+    def upload(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    t1 = time.perf_counter()
+    emis, counts, entry_out, stats = ck.hzr_decode(
+        *[upload(a) for a in la.kernel_inputs()])
+    out_t = (torch.zeros(size, dtype=torch.uint8, device=device)
+             if out is None else upload(out))
+    lane_live = upload(la.lane_live)
+    stats_np = stats.cpu().numpy() if sync else None
+    t2 = time.perf_counter()
+    out_base = lane_out_base(counts, lane_live, upload(la.out_off),
+                             upload(la.block_first))
+    ck.place_literals(emis, stats[:, 0].contiguous(), out_base,
+                      upload(la.out_limit), lane_live, size, out=out_t)
+    if sync and out_t.is_cuda:
+        torch.cuda.synchronize(out_t.device)
+    t3 = time.perf_counter()
+    return SpanDecode(out=out_t, entry_out=entry_out, stats=stats,
+                      stats_np=stats_np, lanes=lane_live.numel(),
+                      times=dict(lanes=t1 - t0, kernel=t2 - t1,
+                                 place=t3 - t2))
+
+
 # ---------------------------------------------------------------------------
 # Orchestrator
 # ---------------------------------------------------------------------------
@@ -425,37 +487,25 @@ def decode_device(datas, device=None, hints=None, return_hints=False):
                              place=0.0)
         return upload(out), spans, None, info
 
-    la = lane_arrays(dev)
+    shape = lane_shape(dev)
     digest = _hints_digest(digest_parts)
     h_entries = None
     if not _hints_disabled:
-        h_entries = _match_hints(hints, digest, la.entry.shape)
+        h_entries = _match_hints(hints, digest, shape)
         if h_entries is None and hints is not False:
-            h_entries = _registry_hints(digest, la.entry.shape)
-    if h_entries is not None:
-        la.entry = h_entries
-        la.ntc[:, 4] = 1
+            h_entries = _registry_hints(digest, shape)
     t1 = time.perf_counter()
-    emis, counts, entry_out, stats = ck.hzr_decode(
-        *[upload(a) for a in la.kernel_inputs()])
-    out_t = upload(out)
-    lane_live = upload(la.lane_live)
-    stats_np = stats.cpu().numpy()
-    t2 = time.perf_counter()
-    out_base = lane_out_base(counts, lane_live, upload(la.out_off),
-                             upload(la.block_first))
-    ck.place_literals(emis, stats[:, 0].contiguous(), out_base,
-                      upload(la.out_limit), lane_live, out.size, out=out_t)
-    if out_t.is_cuda:
-        torch.cuda.synchronize(out_t.device)
-    t3 = time.perf_counter()
-    info.update(tiles=stats_np.shape[0], lanes=lane_live.numel(),
+    res = decode_span(dev, 0, out.size, device, h_entries, out)
+    out_t, entry_out, stats_np = res.out, res.entry_out, res.stats_np
+    info.update(tiles=stats_np.shape[0], lanes=res.lanes,
                 steps=stats_np[:, 0].tolist(),
                 fp_iters=stats_np[:, 1].tolist(),
                 literals=int(stats_np[:, 2].sum()),
                 hinted=h_entries is not None,
-                times=dict(walk_luts=t1 - t0, kernel=t2 - t1, place=t3 - t2))
-
+                times=dict(walk_luts=t1 - t0 + res.times["lanes"],
+                           kernel=res.times["kernel"],
+                           place=res.times["place"]))
+    t3 = time.perf_counter()
     if h_entries is not None and digest not in _validated_digests:
         # the first hinted decode of a digest is held against the
         # alignment fixpoint's bytes on the same device; a mismatch

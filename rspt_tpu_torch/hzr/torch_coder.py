@@ -223,6 +223,7 @@ class FlatPlan:
     is_fill: np.ndarray      # (nb,) FILL blocks (incl. empty)
     is_copy: np.ndarray      # (nb,) COPY-fallback blocks
     comp_len: np.ndarray     # (nb,) HUFF payload bytes, 0 otherwise
+    total_bits: np.ndarray   # (nb,) int64 description + token bits
     hoff: np.ndarray         # (nb,) payload offsets in the flat buffer
     bases: np.ndarray        # (nb,) int32 compacted token bases
     T: int                   # compacted tokens (group-aligned)
@@ -241,16 +242,21 @@ class FlatPlan:
         return self.total_payload // 4 + 1
 
 
-def flat_plan(hist_np: np.ndarray, lengths_np: np.ndarray) -> FlatPlan:
-    codes, cbits, desc_bytes, desc_bits, is_fill = host_tables(
-        hist_np, lengths_np)
-    _, comp_len, is_huff, is_copy = host_layout(
+def flat_plan(hist_np: np.ndarray, lengths_np: np.ndarray,
+              tables=None) -> FlatPlan:
+    """The plan of a block batch; tables: its host_tables, if the caller
+    has them already."""
+    if tables is None:
+        tables = host_tables(hist_np, lengths_np)
+    codes, cbits, desc_bytes, desc_bits, is_fill = tables
+    total_bits, comp_len, is_huff, is_copy = host_layout(
         hist_np, lengths_np, cbits, desc_bits, is_fill)
     hoff = np.cumsum(comp_len) - comp_len
     bases, T, _, g2b, gfirst = flat_compact_layout(hist_np, is_huff)
     return FlatPlan(
         desc_bytes=desc_bytes, desc_bits=desc_bits, is_fill=is_fill,
-        is_copy=is_copy, comp_len=comp_len, hoff=hoff, bases=bases, T=T,
+        is_copy=is_copy, comp_len=comp_len, total_bits=total_bits,
+        hoff=hoff, bases=bases, T=T,
         ntok=np.where(is_huff, hist_np.sum(1), 0).astype(np.int32),
         bit0=(hoff * 8 + desc_bits).astype(np.int64),
         lut=lut_words(codes, cbits), g2b=g2b, gfirst=gfirst)
@@ -538,9 +544,9 @@ def _finish_streams(st: _Staged, times: dict, wait_key: str = "wait"):
                                   for j, b in enumerate(st.copy_rows)])
     _or_descriptions(tight, plan.comp_len, plan.desc_bytes)
     crcs = np.zeros(len(lengths), np.int64)
-    streams = _plane_streams(lengths, st.nb_per, st.nr_streams, tight,
-                             plan.comp_len, copy_np, copy_len, plan.is_fill,
-                             st.hist_np, crcs)
+    streams = plane_streams(lengths, st.nb_per, st.nr_streams, tight,
+                            plan.comp_len, copy_np, copy_len, plan.is_fill,
+                            fill_bytes_from_hist(st.hist_np), crcs)
     hints = None
     if st.hplan is not None:
         hints = sidecar.finish_hints(st.hplan, entries, crcs, plan.comp_len)
@@ -613,13 +619,12 @@ def _or_descriptions(tight, comp_len, desc_bytes) -> None:
         tight[hoff[i]:hoff[i] + dlen] |= desc_bytes[i, :dlen]
 
 
-def _plane_streams(lengths, nb_per, nr_planes, tight, comp_len, copy_np,
-                   copy_len, is_fill, hist_np, crcs=None) -> List[bytes]:
+def plane_streams(lengths, nb_per, nr_planes, tight, comp_len, copy_np,
+                  copy_len, is_fill, fill_byte, crcs=None) -> List[bytes]:
     """assemble_compact of each plane's nb_per blocks; crcs, if given,
     receives every block's stored CRC32C."""
     hoff = np.cumsum(comp_len) - comp_len
     coff = np.cumsum(copy_len) - copy_len
-    fill_byte = fill_bytes_from_hist(hist_np)
     streams = []
     for k in range(nr_planes):
         s = slice(k * nb_per, (k + 1) * nb_per)
@@ -658,8 +663,9 @@ def entropy_streams_blocks(tokw, bwords, hist_np, plane_len: int,
     ncomp = int(comp_len.sum())
     tight = data[:ncomp]
     _or_descriptions(tight, comp_len, desc_bytes)
-    streams = _plane_streams(lengths, nb_per, nr_planes, tight, comp_len,
-                             data[ncomp:], copy_len, is_fill, hist_np)
+    streams = plane_streams(lengths, nb_per, nr_planes, tight, comp_len,
+                            data[ncomp:], copy_len, is_fill,
+                            fill_bytes_from_hist(hist_np))
     times["assemble"] = time.perf_counter() - t2
     return streams
 

@@ -2,7 +2,8 @@
 tpu.py:1121-1134). Each packer runs on ``device`` (default: the CUDA
 card; raises if there is none; ``device="cpu"`` runs the kernels' plain
 PyTorch versions); device_decode entropy-decodes on the device instead
-of the host. The DCT packer takes no ``device_transform`` flag: on the
+of the host; encoder (parallel.mesh.ShardedHzrEncoder) runs pass 2 over
+a mesh's shards. The DCT packer takes no ``device_transform`` flag: on the
 card its exact transform is the device transform.
 """
 
@@ -15,34 +16,40 @@ __all__ = ["GpuDctPacker", "GpuHadamardPacker", "GpuHzrPacker",
 
 
 def new_hzr(bytes_per_sample: int, nr_channels: int, nr_samples: int,
-            device=None, device_decode: bool = False) -> GpuHzrPacker:
+            device=None, device_decode: bool = False,
+            encoder=None) -> GpuHzrPacker:
     """Lossless 4-plane hzr packer, no preprocessing (method byte 0)."""
     return GpuHzrPacker(bytes_per_sample, nr_channels, nr_samples,
-                        device=device, device_decode=device_decode)
+                        device=device, device_decode=device_decode,
+                        encoder=encoder)
 
 
 def new_xdelta_hzr(bytes_per_sample: int, nr_channels: int, nr_samples: int,
                    nr_bytes_to_encode: int, device=None,
-                   device_decode: bool = False) -> GpuXdeltaHzrPacker:
+                   device_decode: bool = False,
+                   encoder=None) -> GpuXdeltaHzrPacker:
     """Lossless xdelta_hzr packer (method byte 0), starting at
     nr_bytes_to_encode planes and growing as the payloads need."""
     return GpuXdeltaHzrPacker(bytes_per_sample, nr_channels, nr_samples,
                               nr_bytes_to_encode, device=device,
-                              device_decode=device_decode)
+                              device_decode=device_decode, encoder=encoder)
 
 
 def new_dct(bytes_per_sample: int, nr_channels: int, nr_samples: int,
-            device=None, device_decode: bool = False) -> GpuDctPacker:
+            device=None, device_decode: bool = False,
+            encoder=None) -> GpuDctPacker:
     """Lossy DCT packer (method byte 1, 2 planes, quality 128) with the
     reference's exact transform; any nr_samples >= 1."""
     return GpuDctPacker(bytes_per_sample, nr_channels, nr_samples,
-                        device=device, device_decode=device_decode)
+                        device=device, device_decode=device_decode,
+                        encoder=encoder)
 
 
 def new_hadamard(bytes_per_sample: int, nr_channels: int, nr_samples: int,
-                 device=None, device_decode: bool = False
-                 ) -> GpuHadamardPacker:
+                 device=None, device_decode: bool = False,
+                 encoder=None) -> GpuHadamardPacker:
     """Lossy Walsh-Hadamard packer (method byte 2, 3 planes, quality 1);
     raises ValueError unless nr_samples is a power of two."""
     return GpuHadamardPacker(bytes_per_sample, nr_channels, nr_samples,
-                             device=device, device_decode=device_decode)
+                             device=device, device_decode=device_decode,
+                             encoder=encoder)

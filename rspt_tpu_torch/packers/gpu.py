@@ -23,6 +23,12 @@ probes one xdelta_swizzle_batch and one tokenize_planes launch over the
 whole batch, and the entropy stage in waves of 4 payloads whose host
 tables overlap the card's pack of the wave before.
 
+With an ``encoder`` (parallel.mesh.ShardedHzrEncoder), pass 1 runs as
+above on the packer's device, then the planes' block bytes go to the
+host and the encoder's shards take pass 2 (tpu.py:363-391): its flat
+route where it does not decline, else its compact route, then one
+assembly a stream; compress_with_hints gives no hints there.
+
 decompress decodes every plane's hzr stream on the host, all blocks of
 all planes in one call of the port's host runtime (rspt_tpu_torch/
 native), or, with device_decode, all planes' HUFF blocks in one
@@ -119,9 +125,12 @@ class _GpuPackerBase:
     METHOD = 0
 
     def __init__(self, bytes_per_sample: int, nr_channels: int,
-                 nr_samples: int, device=None, device_decode: bool = False):
+                 nr_samples: int, device=None, device_decode: bool = False,
+                 encoder=None):
         self.cfg = PackerConfig(bytes_per_sample, nr_channels, nr_samples)
         self.device = resolve_device(device)
+        # pass 2 over a mesh's shards (parallel.mesh.ShardedHzrEncoder)
+        self._encoder = encoder
         # entropy-decode on the device (hzr_decode + place_literals)
         # instead of the host runtime
         self.device_decode = device_decode
@@ -141,9 +150,30 @@ class _GpuPackerBase:
         tokw, bwords, hist = ck.tokenize_planes(flat, self.nr_planes)
         return hist.cpu().numpy(), tokw, bwords
 
+    def _sharded_streams(self, bwords, nr_streams: int) -> List[bytes]:
+        """nr_streams plane streams of the tokenized planes' blocks
+        through the encoder's shards (tpu.py:363-391): the block bytes to
+        the host, encode_blocks_flat unless it declines, else
+        encode_blocks_compact, then one assembly a stream."""
+        t0 = time.perf_counter()
+        nb_per, lengths = tc.block_layout(self.cfg.plane_len, nr_streams)
+        blocks = bwords.view(torch.uint8).cpu().numpy()
+        res = self._encoder.encode_blocks_flat(blocks, lengths)
+        if res is None:
+            res = self._encoder.encode_blocks_compact(blocks, lengths)
+        t1 = time.perf_counter()
+        streams = tc.plane_streams(res[0], nb_per, nr_streams, *res[1:])
+        self.stage_seconds.update(shards=t1 - t0,
+                                  assemble=time.perf_counter() - t1)
+        return streams
+
     def _encode(self, tokw, bwords, hist_np, header: bytes = b"",
                 want_hints: bool = False):
-        """Container of the tokenized planes: (container, hints)."""
+        """Container of the tokenized planes: (container, hints; None
+        with an encoder)."""
+        if self._encoder is not None:
+            return _container(self.METHOD, header, self._sharded_streams(
+                bwords, self.nr_planes)), None
         streams, hints = tc.entropy_streams(
             tokw, bwords, hist_np.reshape(-1, tc.NUM_SYMBOLS),
             self.cfg.plane_len, self.nr_planes, self.stage_seconds,
@@ -368,7 +398,9 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         4), else one entropy_streams call; a level that only some take
         selects their rows on the device first. compress_many([]) is []
         and touches no device. ``stage_seconds``: pass1 (upload and
-        probes), then tables, pack, wait and assemble."""
+        probes), then tables, pack, wait and assemble. With an encoder,
+        each level's payload x plane streams go through its shards in
+        one call (stage_seconds shards and assemble)."""
         c = self.cfg
         batch = len(srcs)
         if batch == 0:
@@ -409,7 +441,9 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
                 tokw = tokw.index_select(0, rows_d)
                 bwords = bwords.index_select(0, rows_d)
                 hist_np = hist_np[rows]
-            if idx.size == batch and batch > tc.WAVE:
+            if self._encoder is not None:
+                streams = self._sharded_streams(bwords, idx.size * lvl)
+            elif idx.size == batch and batch > tc.WAVE:
                 streams = tc.entropy_streams_pipelined(
                     tokw, bwords, hist_np, c.plane_len, batch, lvl,
                     self.stage_seconds, self._host)
@@ -430,7 +464,8 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         sweep instead of the alignment fixpoint; they are also
         registered with the decoder. Every HUFF block gets hints, COPY
         blocks or not (the JAX packer gives None when a batch has a COPY
-        block); None only when no block is HUFF."""
+        block); None when no block is HUFF, and with an encoder
+        (tpu.py:345-348)."""
         return self._compress(src, True)
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:

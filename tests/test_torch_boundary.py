@@ -29,7 +29,8 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
     """The port's modules import no jax and nothing of rspt_tpu, nor do a
     stream encode (pack_blocks' plain version), a DCT compress, a
     filtered streaming push (compress_many), both batch peak detectors,
-    a FIR and the rolling medians through them."""
+    a FIR, the rolling medians, and a sharded encode and decode on 4 CPU
+    shards through them."""
     code = (
         "import sys\n"
         "import rspt_tpu_torch\n"
@@ -67,6 +68,14 @@ def test_import_loads_neither_jax_nor_rspt_tpu():
         "assert float(analysis.torch_rolling_median_large(x, 40, 8, "
         "device='cpu')[-1]) == float(np.float32(analysis.rolling_median("
         "x.astype(np.float32), 40)[-1]))\n"
+        "from rspt_tpu_torch.parallel import ShardedHzrDecoder, "
+        "ShardedHzrEncoder, make_mesh, make_sharded_scans, mesh, scans\n"
+        "m = make_mesh(['cpu'] * 4)\n"
+        "data = np.random.default_rng(0).integers(0, 9, 150000)"
+        ".astype(np.uint8).tobytes()\n"
+        "st = ShardedHzrEncoder(m).encode(data)\n"
+        "assert st == torch_coder.encode(data, device='cpu')\n"
+        "assert ShardedHzrDecoder(m).decode_many([st]) == [data]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'rspt_tpu' or m.startswith('rspt_tpu.')]\n"
         "assert not bad, bad\n")
@@ -95,8 +104,12 @@ def test_sources_import_neither_jax_nor_rspt_tpu():
 
 def test_default_device_raises_without_card(monkeypatch):
     """No device argument and no card: the factory raises, it does not
-    fall back to the CPU."""
+    fall back to the CPU; so does make_mesh() with no devices named."""
+    from rspt_tpu_torch.parallel import make_mesh
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert make_mesh(["cpu"] * 2).devices == [torch.device("cpu")] * 2
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpack.new_xdelta_hzr(4, 2, 100, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):

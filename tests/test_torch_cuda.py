@@ -16,6 +16,7 @@ from rspt_tpu_torch.hzr import gpu_decoder as gd  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from rspt_tpu_torch.ops import torch_ops as tops  # noqa: E402
+from rspt_tpu_torch import parallel  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1948,3 +1949,98 @@ def test_peak_gate_matches_plain(dev, case):
 def test_peak_gate_schedule_constants(dev):
     """GATE_CHUNK, GATE_WARMUP and GATE_CKPT are peaks.cu's."""
     assert ck.gate_schedule() == (GATE_CHUNK, GATE_WARMUP, GATE_CKPT)
+
+
+# ---------------------------------------------------------------------------
+# Sharding: k shards on one card
+# ---------------------------------------------------------------------------
+
+def _launch_counts():
+    return {k.__name__: k.launches for k in ck.KERNELS}
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in _launch_counts().items()
+            if v != before[k]}
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_sharded_encode_on_card(rng, dev, k):
+    """ShardedHzrEncoder over k shards of the card: encode (the compact
+    route, K13a once a shard), the flat route (K3 and K4 once a shard
+    with a HUFF block; none on a shard of padding) and out_capacity equal
+    the CPU's
+    torch_coder.encode; an all-COPY batch declines the flat route."""
+    data = np.minimum(rng.geometric(0.2, 5 * 65536 - 77) - 1, 255).astype(
+        np.uint8)
+    want = tc.encode(data, device="cpu")
+    enc = parallel.ShardedHzrEncoder(parallel.make_mesh([dev] * k))
+    before = _launch_counts()
+    assert enc.encode(data) == want
+    assert _launched(before) == {"pack_blocks": k}
+    blocks, lengths = tc.split_blocks(data)
+    before = _launch_counts()
+    assert tc.assemble_compact(*enc.encode_blocks_flat(blocks, lengths)) \
+        == want
+    # 5 blocks in runs of loc: the shards past the data hold padding only
+    loc = parallel.pad_blocks(5, k) // k
+    assert _launched(before) == {"compact_tokens": -(-5 // loc),
+                                 "pack_flat": -(-5 // loc)}
+    assert enc.encode(data, len(want)) == want
+    with pytest.raises(ValueError):
+        enc.encode(data, len(want) - 1)
+    rnd = rng.integers(0, 256, 3 * 65536).astype(np.uint8)
+    b, ln = tc.split_blocks(rnd)
+    assert enc.encode_blocks_flat(b, ln) is None
+    assert tc.assemble_compact(*enc.encode_blocks_compact(b, ln)) \
+        == tc.encode(rnd, device="cpu")
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_decode_on_card(rng, dev, k):
+    """ShardedHzrDecoder over k shards of the card equals the payloads and
+    gpu_decoder.decode_many; its hinted rerun too
+    (0 sweeps); a hint of another shard count is refused. K6 and K7
+    launch once on each shard that holds a HUFF block."""
+    datas = [np.minimum(rng.geometric(0.2, n), 255).astype(np.uint8)
+             .tobytes() for n in (200000, 70000, 3)]
+    streams = [tc.encode(d, device="cpu") for d in datas]
+    dec = parallel.ShardedHzrDecoder(parallel.make_mesh([dev] * k))
+    before = _launch_counts()
+    outs, hints = dec.decode_many(streams, return_hints=True)
+    held = sum(1 for n in dec.decode_info["blocks"] if n)
+    assert held >= 2 and _launched(before) == {"hzr_decode": held,
+                                               "place_literals": held}
+    assert outs == datas == gd.decode_many(streams, device=dev)
+    assert dec.decode_many(streams, hints=hints) == datas
+    assert dec.decode_info["hinted"]
+    other = parallel.ShardedHzrDecoder(parallel.make_mesh([dev] * (6 - k)))
+    gd._hint_registry.clear()
+    assert other.decode_many(streams, hints=hints) == datas
+    assert not other.decode_info["hinted"]
+
+
+def test_sharded_scans_on_card(rng, dev):
+    """The scans over 4 shards of the card equal torch_ops over the whole
+    on the CPU, INT32_MIN and INT32_MAX included."""
+    a = rng.integers(-2**31, 2**31, 4 * 5000).astype(np.int32)
+    a[:2] = [-2**31, 2**31 - 1]
+    fns = parallel.make_sharded_scans(parallel.make_mesh([dev] * 4))
+    parts = fns["shard"](a)
+    whole = torch.from_numpy(a)
+    for name in ("delta_encode", "xor_encode", "delta_decode", "xor_decode"):
+        out = fns[name](parts)
+        assert all(o.device.type == "cuda" for o in out)
+        assert torch.equal(fns["gather"](out), getattr(tops, name)(whole))
+
+
+def test_packer_with_encoder_on_card(rng, dev):
+    """new_xdelta_hzr with an encoder of 2 card shards: the container
+    equals the CPU packer's, compress_many too."""
+    ch, ns = 3, 40000
+    native = _sig(rng, ch, ns, 700.0).astype("<i4").tobytes()
+    enc = parallel.ShardedHzrEncoder(parallel.make_mesh([dev] * 2))
+    p = gpack.new_xdelta_hzr(4, ch, ns, 3, device=dev, encoder=enc)
+    q = gpack.new_xdelta_hzr(4, ch, ns, 3, device="cpu")
+    assert p.compress(native) == q.compress(native)
+    assert p.compress_many([native] * 5) == q.compress_many([native] * 5)
