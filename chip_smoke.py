@@ -29,8 +29,13 @@ every chain, xdelta_swizzle also on the main signal's native bytes at
 bps 1-4, on the edges of its tiles, bands, loads and flag
 (tests/test_torch_cuda.py's xdelta_edge_batch) and in 100 calls
 alternating passing and failing inputs (its flag state resets)
-(pack_flat_lanes too; group_windows, place_windows_aligned and windows_place_flat, with both
-windows routes' payload bytes equal to pack_flat's), compact_tokens on
+(pack_flat_lanes too; group_windows, place_windows_aligned and
+windows_place_flat, with both windows routes' payload bytes equal to
+pack_flat's and no super of the main pass 1 on K15's slow path;
+windows_place_flat and place_windows_aligned also on
+tests/test_torch_cuda.py's WINDOWS_EDGE_CASES, each in 3 launches with
+its count of supers on K15's slow path, on X1_EDGE_CASES and on 160
+groups in 10 launches), compact_tokens on
 the edges of its tile split and look-back (tests/test_torch_cuda.py's
 compact_edge_batch), tokenize_planes on the edges of its tiles
 (tokenize_edge_batch, planes 1-4), and pack_flat and pack_flat_lanes on
@@ -394,6 +399,9 @@ def check_chain(ck, tc, name, raw, ns, ch, planes, bps=4, swizzle=True,
     k15 = ck.windows_place_flat(*fused)
     equal(f"{name}/windows_place_flat", k15,
           ck.windows_place_flat_plain(*fused))
+    # the supers K15 sent to its slow path (none without a group)
+    x["k15_slow"] = (int(ck.windows_place_flat.last_slow)
+                     if gl.ng else 0)
     for route, got in (("windows", x1), ("fused", k15)):
         equal(f"{name}/{route} route payload",
               payload_bytes(got, p.total_payload),
@@ -401,6 +409,46 @@ def check_chain(ck, tc, name, raw, ns, ch, planes, bps=4, swizzle=True,
     torch.cuda.synchronize()
     x["groups"] = gl
     return x
+
+
+def check_windows_edges(ck, edges, dev):
+    """K15 and X1 against their plain versions on the card tests' edge
+    inputs: every WINDOWS_EDGE_CASES case in 3 launches, each with the
+    case's count of supers on K15's slow path, and X1 on its windows and
+    glue; every X1_EDGE_CASES case; 160 groups in 10 launches with no
+    super on the slow path. Returns the slow-path counts by case."""
+    slow = {}
+    for case, want in edges.WINDOWS_EDGE_CASES.items():
+        a = tuple(v.to(dev) if torch.is_tensor(v) else v
+                  for v in edges.windows_edge_batch(
+                      np.random.default_rng(140), case))
+        plain = ck.windows_place_flat_plain(*a)
+        for k in range(3):
+            equal(f"windows_place_flat {case}, launch {k}",
+                  ck.windows_place_flat(*a), plain)
+            slow[case] = int(ck.windows_place_flat.last_slow)
+            if slow[case] != want:
+                raise AssertionError(f"windows_place_flat {case}: "
+                                     f"{slow[case]} slow supers, not {want}")
+        *x1, nrows = edges.x1_inputs(a)
+        equal(f"place_windows_aligned {case}",
+              ck.place_windows_aligned(*x1, nrows),
+              ck.place_windows_aligned_plain(*x1, nrows))
+    for case in edges.X1_EDGE_CASES:
+        *x1, nrows = edges.x1_edge_batch(np.random.default_rng(150), case)
+        x1 = [v.to(dev) for v in x1]
+        equal(f"place_windows_aligned x1/{case}",
+              ck.place_windows_aligned(*x1, nrows),
+              ck.place_windows_aligned_plain(*x1, nrows))
+    args, want = edges.windows_many_groups(np.random.default_rng(1234), dev)
+    for k in range(10):
+        equal(f"windows_place_flat 160 groups, launch {k}",
+              ck.windows_place_flat(*args), want)
+        if int(ck.windows_place_flat.last_slow):
+            raise AssertionError("windows_place_flat 160 groups: a super "
+                                 "on the slow path")
+    torch.cuda.synchronize()
+    return slow
 
 
 def payload_bytes(words, n):
@@ -1904,7 +1952,11 @@ def main() -> int:
         f"COPY blocks {int(main_x['plan'].is_copy.sum())}, {main_gl.ng} "
         f"groups, rows {main_gl.nrows_fused} (fused) and "
         f"{main_gl.nrows_windows} (windows)")
+    if main_x["k15_slow"]:
+        raise AssertionError(f"windows_place_flat: {main_x['k15_slow']} "
+                             "supers of the main pass 1 on the slow path")
     chain_groups = {"main": main_gl.ng}
+    chain_slow = {"main": 0}
     rng = np.random.default_rng(7)
     n2 = 65536 + 12345                       # odd tail, two slabs a plane
     edge = rng.integers(-(1 << 23), 1 << 23, n2).astype(np.int32)
@@ -1929,6 +1981,7 @@ def main() -> int:
             cx = check_chain(ck, tc, f"{name}/p{planes}", t, x.size, 1,
                              planes, swizzle=False, tokenize_raw=True)
             chain_groups[f"{name}/p{planes}"] = cx["groups"].ng
+            chain_slow[f"{name}/p{planes}"] = cx["k15_slow"]
     toks = torch.from_numpy(rng.integers(-5, 5, (3, 65536)).astype(
         np.int32)).to(dev)
     tb = torch.tensor([0, 200000, 70000], dtype=torch.int32, device=dev)
@@ -1979,6 +2032,7 @@ def main() -> int:
         cx = check_chain(ck, tc, f"bps{bps}", sig32, ns, ch, bps, bps=bps,
                          swizzle=False)
         chain_groups[f"bps{bps}"] = cx["groups"].ng
+        chain_slow[f"bps{bps}"] = cx["k15_slow"]
         # the growth flag from fewer planes than bps at full size: the
         # ECG, and a wrapping ramp (steps 0..127) whose xdelta values keep
         # their low 8·bps bits in one plane, though not as int32
@@ -2029,6 +2083,7 @@ def main() -> int:
            for c in ("fail_first", "fail_last")):
         raise AssertionError(f"xdelta_swizzle failing cases: {xd_flags}")
     alt = edges.xdelta_alternating(dev)
+    win_slow = check_windows_edges(ck, edges, dev)
     torch.cuda.synchronize()
     if 0 not in chain_groups.values():
         raise AssertionError("no chain without a HUFF block (0 groups)")
@@ -2043,6 +2098,12 @@ def main() -> int:
         f"(bands of {edges.XDELTA_BAND}; flags {xd_flags}) and in "
         f"{len(alt)} calls "
         f"alternating passing and failing inputs (flags {''.join(map(str, alt[:8]))}...)")
+    log(f"phase 2: windows_place_flat bit-exact on the main pass 1's "
+        f"{main_gl.ng} groups with 0 supers on its slow path (slow supers "
+        f"per chain {chain_slow}), on WINDOWS_EDGE_CASES in 3 launches each "
+        f"(slow supers {win_slow}, as the cases state) and on 160 groups "
+        "in 10 launches (0 slow); place_windows_aligned on every case's "
+        f"windows and glue and on X1_EDGE_CASES {list(edges.X1_EDGE_CASES)}")
     log("phase 2: all kernels bit-exact against their plain versions "
         "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
         "tokenize_planes on its tile edges at planes 1-4, "
@@ -2814,6 +2875,15 @@ def main() -> int:
         f"working over {n_huff} HUFF blocks (at most "
         f"{-(-int(plan.ntok.max()) // pf_tile)} tiles a block)")
     kernels = [measure_row(name, r, launches) for name, r in rows.items()]
+    # the supers K15's timed calls sent to its slow path (X1 has none)
+    for k in kernels:
+        if k["name"] == "windows_place_flat":
+            k["slow_supers"] = int(ck.windows_place_flat.last_slow)
+        elif k["name"] == "place_windows_aligned":
+            k["slow_supers"] = None
+    log(f"phase 4: windows_place_flat's slow-path supers in its timed "
+        f"calls: {int(ck.windows_place_flat.last_slow)} of "
+        f"{2 * main_gl.ng}")
     # K1's device operations a call: its kernel and nothing else
     k1_ops = {name: device_ops(rows[name]["fn"])
               for name in ("xdelta_swizzle", "xdelta_swizzle_u8")}

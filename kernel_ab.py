@@ -5,7 +5,8 @@
 
 Builds variants of ops/csrc/xdelta.cu, hzr_decode.cu, tokenize.cu,
 compact.cu, place_literals.cu, pack_flat.cu, fwht.cu, pack_blocks.cu,
-dct.cu, peaks.cu, iir.cu and fir.cu (--variants keeps the named ones),
+dct.cu, peaks.cu, iir.cu, fir.cu and windows.cu (--variants keeps the
+named ones),
 each the committed source with some of its constants (or a line)
 replaced, into one shared library apiece (nvcc, sm_90a, all at once),
 and times each variant at the main path's shapes (the chip_smoke inputs:
@@ -23,14 +24,22 @@ peak_gate and its 12 x 2^20 signal through the offline threshold's
 low-pass, float32 and float64, for iir_scan; that signal through
 detect_batch's band-pass from its warm-up state, float32 and float64, and
 its threshold low-pass for iir_assoc at tiles of 512, and through phase
-16's 61-tap FIR for fir_apply) beside the library call that computes the
+16's 61-tap FIR for fir_apply, its pass 1's 83 windows groups for
+group_windows, place_windows_aligned and windows_place_flat) beside the
+library call that computes the
 same function where there is one (for the DCT pair an f64 torch.matmul and
 for the FIR cuDNN's conv1d, neither exact), in
 turns, by torch.profiler device time of the whole call (every kernel
 and memset of it; mean of 30 calls a round, medians over the rounds
 printed).
 --baseline DIR adds the varied kernels' sources found in DIR (the csrc
-of an earlier checkout) as variant "baseline". pack_flat's
+of an earlier checkout) as variant "baseline", and BASELINE_TABLES'
+variants of it (diagnostic cuts of windows.cu's one-CTA-a-group
+kernels) as
+"baseline_<name>". windows.cu's variants that compute the function, and
+the baseline, are also held against the plain versions on
+tests/test_torch_cuda.py's windows edge cases (the baseline's
+disagreements are printed, not raised). pack_flat's
 two_launches and global_atomics variants put back designs that lost
 this A/B (a first launch of tile sums; a global atomicOr a token
 field). Variants marked "diag" drop work (their output is not the
@@ -401,10 +410,135 @@ FIR = {
         "    if (t0 >= 0) {\n      r = rn;\n      c = cn;\n      continue;\n    }\n"},
                        True),
 }
+# windows.cu at chip_smoke phase 4's shapes (the main pass 1's 83 groups):
+# group_windows (K14), place_windows_aligned (X1) on its windows' glue and
+# windows_place_flat (K15)
+WINDOWS = {
+    "k15_super_tiles_x1_gather": ({}, False),
+    # K15: the slow path inlined into the kernel
+    "slow_inline": ({"__device__ __noinline__ void place_slow(":
+                     "__device__ __forceinline__ void place_slow("}, False),
+    # X1: a block reduction finds the span's first and last nonzero
+    # words, only those two added, the other nonzero words stored
+    "x1_span_stores": ({
+        "  uint32_t u[kX1Per];  // every shifted word read before the first "
+        "add\n": "  uint32_t u[kX1Per];\n  int lo = kX1Words, hi = -1;\n",
+        "    u[j] = sb ? (a << sb) | (p >> (32 - sb)) : a;\n  }\n":
+        "    u[j] = sb ? (a << sb) | (p >> (32 - sb)) : a;\n"
+        "    const int r = k + off >= kX1Words ? k + off - kX1Words : k + off;\n"
+        "    if (u[j]) { lo = min(lo, r); hi = max(hi, r); }\n"
+        "  }\n"
+        "  __shared__ int red[2][kX1Threads / 32];\n"
+        "  for (int o = 16; o; o >>= 1) {\n"
+        "    lo = min(lo, __shfl_xor_sync(rspt::kFull, lo, o));\n"
+        "    hi = max(hi, __shfl_xor_sync(rspt::kFull, hi, o));\n"
+        "  }\n"
+        "  if ((tid & 31) == 0) { red[0][tid >> 5] = lo; red[1][tid >> 5] = hi; }\n"
+        "  __syncthreads();\n"
+        "  for (int w = 0; w < kX1Threads / 32; ++w) {\n"
+        "    lo = min(lo, red[0][w]);\n"
+        "    hi = max(hi, red[1][w]);\n"
+        "  }\n",
+        "    if (gw >= 0 && gw < limit) atomicAdd(out + gw, u[j]);":
+        "    if (gw < 0 || gw >= limit) continue;\n"
+        "    if (gw - base == lo || gw - base == hi) atomicAdd(out + gw, u[j]);\n"
+        "    else out[gw] = u[j];"}, False),
+    # K15: the field check with a branch a token (&&, ||)
+    "field_check_branches": ({
+        "    // without branches: a branch a token costs more than the test\n"
+        "    bad |= is_valid(w) &\n"
+        "           ((cb > 23) | (((e & 0xFFFFFFu) >> min(cb, 24)) != 0) |\n"
+        "            ((((w >> 13) & 16383) >> eb) != 0));\n":
+        "    bad |= is_valid(w) && (cb > 23 || ((e & 0xFFFFFFu) >> min(cb, 24))\n"
+        "                           != 0 || (((w >> 13) & 16383) >> eb) != 0);\n"},
+        False),
+    # K15: the field check in the coding loop, before the scan and the
+    # publish (not beside the look-back)
+    "check_before_scan": ({
+        "    // without branches: a branch a token costs more than the test\n"
+        "    bad |= is_valid(w) &\n"
+        "           ((cb > 23) | (((e & 0xFFFFFFu) >> min(cb, 24)) != 0) |\n"
+        "            ((((w >> 13) & 16383) >> eb) != 0));\n": "",
+        "    sum += live ? (int)(t.e[k] >> 24) + ((w >> 9) & 15) : 0;\n":
+        "    sum += live ? (int)(t.e[k] >> 24) + ((w >> 9) & 15) : 0;\n"
+        "    bad |= live & (((t.e[k] >> 24) > 23) |\n"
+        "                   (((t.e[k] & 0xFFFFFFu) >> min(t.e[k] >> 24, 24u)) != 0) |\n"
+        "                   ((((w >> 13) & 16383) >> ((w >> 9) & 15)) != 0));\n",
+        "  // code the tokens\n  int sum = 0;\n":
+        "  // code the tokens\n  int sum = 0;\n  bool bad = false;\n",
+        "  bool bad = false;\n  int x = bit;\n": "  int x = bit;\n"}, False),
+    # K15: no field or base check (every live super on the direct path)
+    "diag_no_slow_check": ({
+        "    // without branches: a branch a token costs more than the test\n"
+        "    bad |= is_valid(w) &\n"
+        "           ((cb > 23) | (((e & 0xFFFFFFu) >> min(cb, 24)) != 0) |\n"
+        "            ((((w >> 13) & 16383) >> eb) != 0));\n": "",
+        "  if (!in_field || b < 0 || b > (nrows - kAccRows) * 128) {":
+        "  if (false) {"}, True),
+    # K15: no field check (only the base clamp sends a super to the slow
+    # path)
+    "diag_no_field_check": ({
+        "    // without branches: a branch a token costs more than the test\n"
+        "    bad |= is_valid(w) &\n"
+        "           ((cb > 23) | (((e & 0xFFFFFFu) >> min(cb, 24)) != 0) |\n"
+        "            ((((w >> 13) & 16383) >> eb) != 0));\n": ""},
+        True),
+    # K15: the checks kept, the slow path's code gone (a trap instead)
+    "diag_slow_trap": ({
+        "    place_slow(t, sbase, gb, b, smem, out, nrows, sh);":
+        "    __trap();"}, True),
+    # K15: as diag_slow_trap, launched with the direct path's shared
+    # memory only (19.5 KiB, not 56 KiB)
+    "diag_trap_small_smem": ({
+        "    place_slow(t, sbase, gb, b, smem, out, nrows, sh);":
+        "    __trap();",
+        "  windows_place_flat_kernel<<<kTilesPerGroup * ng, kFlatThreads, "
+        "kFlatSmem,":
+        "  windows_place_flat_kernel<<<kTilesPerGroup * ng, kFlatThreads, "
+        "sizeof(uint32_t) * kTileWords,"}, True),
+    # K15: no wait on earlier tiles (every super's carry and group bit 0)
+    "diag_no_lookback": ({"    for (int k = k0 + tid; k < i; k += 32) {":
+                          "    for (int k = i + tid; k < i; k += 32) {"},
+                         True),
+    # K15: no word stores of the direct path
+    "diag_no_stores": ({
+        "    if (k == 0 || k == nw - 1) {\n"
+        "      if (v) atomicAdd(out + w0 + k, v);\n"
+        "    } else {\n"
+        "      out[w0 + k] = v;\n"
+        "    }\n": "    if (v == 0x5a5a5a5au) out[w0 + k] = v;\n"}, True),
+    # X1: no word stores
+    "diag_x1_no_stores": ({
+        "    if (gw >= 0 && gw < limit) atomicAdd(out + gw, u[j]);":
+        "    if (u[j] == 0x5a5a5a5au && gw >= 0) atomicAdd(out + gw, u[j]);"},
+        True),
+}
+# the one-CTA-a-group windows.cu (one 1,024-thread CTA a group for K14
+# and K15, a super for X1), varied this way when --baseline names it
+WINDOWS_GROUP_CTAS = {
+    # K15: no wait on the block's earlier groups (each group's carry 0)
+    "diag_no_lookback": ({
+        "    for (int k = max(gfirst[g], 0) + threadIdx.x; k < g; k += 32) {":
+        "    for (int k = g + threadIdx.x; k < g; k += 32) {"}, True),
+    # K15 and X1: no span stores (place_super's write_span)
+    "diag_no_stores": ({"  if (sh.lo <= sh.hi)\n    write_span(":
+                        "  if (sh.lo <= sh.hi && sh.lo < 0)\n    write_span("},
+                       True),
+    # K15: windows, scan and look-back only, no super placed
+    "diag_no_place": ({"    if (!live) continue;  // the same for every "
+                       "thread": "    if (live >= 0) continue;"}, True),
+    # K15 and X1: no window word added into the accumulator
+    "diag_no_scatter": ({"      atomicAdd(acc + k, v);":
+                         "      if (v == 0x5a5a5a5au) atomicAdd(acc + k, v);"},
+                        True),
+}
 TABLES = {"xdelta.cu": XDELTA, "hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "compact.cu": COMPACT, "place_literals.cu": PLACE,
           "pack_flat.cu": PACK, "fwht.cu": FWHT, "pack_blocks.cu": BLOCKS,
-          "dct.cu": DCT, "peaks.cu": PEAKS, "iir.cu": IIR, "fir.cu": FIR}
+          "dct.cu": DCT, "peaks.cu": PEAKS, "iir.cu": IIR, "fir.cu": FIR,
+          "windows.cu": WINDOWS}
+# variants of the --baseline source, built as "baseline_<name>"
+BASELINE_TABLES = {"windows.cu": WINDOWS_GROUP_CTAS}
 # device_ms's calls a measurement, where 30 would take seconds
 REPS = {"peak_gate": 10, "iir_scan": 3, "iir_scan_f64": 3}
 
@@ -417,10 +551,21 @@ def variant_source(src: str, repl: dict) -> str:
     return src
 
 
+def is_diag(cu: str, name: str) -> bool:
+    """Whether variant `name` of `cu` drops work (its output is not the
+    function's)."""
+    if name == "baseline":
+        return False
+    if name.startswith("baseline_"):
+        return BASELINE_TABLES[cu][name[len("baseline_"):]][1]
+    return TABLES[cu][name][1]
+
+
 def build_variants(kernels, out_dir: Path, baseline=None):
     """{(kernel, variant): ctypes library}, every variant compiled by its
     own nvcc, all started together; with baseline (a csrc directory),
-    its copy of each kernel's source as variant "baseline" too."""
+    its copy of each kernel's source as variant "baseline" too, and
+    BASELINE_TABLES' variants of it as "baseline_<name>"."""
     from rspt_tpu_torch.ops import _build
     nvcc = _build.find_nvcc()
     procs = {}
@@ -430,7 +575,12 @@ def build_variants(kernels, out_dir: Path, baseline=None):
                 for name, (repl, _) in variants.items()]
         if baseline is not None and (baseline / cu).exists():
             # with the headers of its own checkout
-            todo.append(("baseline", (baseline / cu).read_text(), baseline))
+            base = (baseline / cu).read_text()
+            todo.append(("baseline", base, baseline))
+            todo += [(f"baseline_{name}", variant_source(base, repl),
+                      baseline)
+                     for name, (repl, _) in BASELINE_TABLES.get(cu,
+                                                                {}).items()]
         for name, text, include in todo:
             path = out_dir / f"{Path(cu).stem}_{name}.cu"
             path.write_text(text)
@@ -484,7 +634,16 @@ def _bind(cu, lib):
                        "rspt_iir_assoc": [P] * 10
                        + [I, I, ctypes.c_long, I, I, P]},
             "fir.cu": {"rspt_fir_apply": [P] * 4 + [I, ctypes.c_long, I, I,
-                                                    I, P]}}[cu]
+                                                    I, P]},
+            "windows.cu": {
+                "rspt_group_windows": [P] * 7 + [I] + [P],
+                "rspt_place_windows_aligned": [P] * 8 + [I] * 2 + [P],
+                "rspt_windows_place_flat_state": [I],
+                "rspt_windows_place_flat": [P] * 7 + [I] * 2 + [P]}}[cu]
+    if cu == "windows.cu" and not hasattr(lib,
+                                          "rspt_windows_place_flat_state"):
+        # a source with one CTA a group: its state is the caller's
+        del sigs["rspt_windows_place_flat_state"]
     if cu == "peaks.cu" and not hasattr(lib, "rspt_peak_gate_schedule"):
         # a source with one thread a row: no schedule, no scratch
         sigs = {"rspt_peak_gate": [P] * 3 + [I, ctypes.c_long, I,
@@ -823,6 +982,76 @@ def main() -> int:
         assert err == 0, err
         return y
 
+    # the windows kernels on the main pass 1's 83 groups (chip_smoke
+    # phase 4): K14 on its compacted tokens, X1 on their windows' glue
+    # (56-row accumulator), K15 on the tokens
+    gl = tc.group_layout(x["plan"], dev)
+    flat = x["tokc"].reshape(1, -1)
+    glue = ck.windows_glue(*ck.group_windows_plain(flat, gl.lut3), gl.dbg,
+                           gl.wog, gl.gfirst, gl.nrows_windows, ck.AR2)
+    k15 = (x["tokc"].reshape(-1, 128), gl.lut3, gl.dbg, gl.wog, gl.gfirst)
+
+    def group_windows(lib):
+        """K14 through lib as its wrapper calls it."""
+        nc = gl.ng * ck.R_TV
+        outs = (torch.empty((1, nc, 128), **i32),
+                torch.empty((1, nc, 128), **i32), torch.empty((1, nc), **i32),
+                torch.empty((1, nc), **i32), torch.empty((1, gl.ng), **i32))
+        err = lib.rspt_group_windows(flat.data_ptr(), gl.lut3.data_ptr(),
+                                     *[o.data_ptr() for o in outs], gl.ng,
+                                     stream)
+        assert err == 0, err
+        return outs
+
+    def place_aligned(lib, args=glue, nrows=gl.nrows_windows):
+        """X1 through lib as its wrapper calls it (the output's memset
+        included)."""
+        out = torch.zeros((nrows, 128), **i32)
+        err = lib.rspt_place_windows_aligned(
+            *[t.data_ptr() for t in args], out.data_ptr(), args[4].shape[1],
+            nrows, stream)
+        assert err == 0, err
+        return out
+
+    def place_flat(lib, args=k15, ng=gl.ng, nrows=gl.nrows_fused):
+        """K15 through lib as its wrapper calls it (the memsets of the
+        output and the state included)."""
+        if hasattr(lib, "rspt_windows_place_flat_state"):
+            out, state = ck._flat_buffers(nrows, ng, dev, lib)
+        else:   # a source with one CTA a group: two buffers
+            out = torch.zeros((nrows, 128), **i32)
+            state = torch.zeros(ng + 1, **i32)
+        err = lib.rspt_windows_place_flat(
+            *[t.data_ptr() for t in args], out.data_ptr(), state.data_ptr(),
+            ng, nrows, stream)
+        assert err == 0, err
+        return out
+
+    # the card tests' windows edge cases (tests/test_torch_cuda.py):
+    # [(name, call, plain result)]
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_cuda as edges
+    win_edges = []
+    for case in edges.WINDOWS_EDGE_CASES:
+        a = tuple(v.to(dev) if torch.is_tensor(v) else v
+                  for v in edges.windows_edge_batch(
+                      np.random.default_rng(140), case))
+        *x1a, x1n = edges.x1_inputs(a)
+        win_edges += [
+            (f"windows_place_flat {case}",
+             lambda lib, a=a: place_flat(lib, a[:5], a[5], a[6]),
+             ck.windows_place_flat_plain(*a)),
+            (f"place_windows_aligned {case}",
+             lambda lib, x1a=x1a, x1n=x1n: place_aligned(lib, x1a, x1n),
+             ck.place_windows_aligned_plain(*x1a, x1n))]
+    for case in edges.X1_EDGE_CASES:
+        *x1a, x1n = edges.x1_edge_batch(np.random.default_rng(150), case)
+        x1a = [v.to(dev) for v in x1a]
+        win_edges.append((f"place_windows_aligned x1/{case}",
+                          lambda lib, x1a=x1a, x1n=x1n: place_aligned(
+                              lib, x1a, x1n),
+                          ck.place_windows_aligned_plain(*x1a, x1n)))
+
     def decode_view(out):   # what placement reads, and the lane results
         return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])
 
@@ -878,7 +1107,15 @@ def main() -> int:
              bits(ck.iir_assoc_plain(*assoc[kind], tf.IIR_TILE)), bits)
             for kind in assoc],
         "fir.cu": [("fir_apply", fir,
-                    bits(ck.fir_apply_plain(*fir_args)), bits)]}
+                    bits(ck.fir_apply_plain(*fir_args)), bits)],
+        "windows.cu": [
+            ("group_windows", group_windows,
+             ck.group_windows_plain(flat, gl.lut3), None),
+            ("place_windows_aligned", place_aligned,
+             ck.place_windows_aligned_plain(*glue, gl.nrows_windows), None),
+            ("windows_place_flat", place_flat,
+             ck.windows_place_flat_plain(*k15, gl.ng, gl.nrows_fused),
+             None)]}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         keep = args.variants and args.variants.split(",")
@@ -900,11 +1137,25 @@ def main() -> int:
                     else "gate_speculate" if hasattr(
                         lib, "rspt_peak_gate_schedule")
                     else kind + "_kernel")
-                if name == "baseline" or not TABLES[cu][name][1]:
+                if not is_diag(cu, name):
                     got = run()
                     cs.equal(f"{kind}/{name}", view(got) if view else got,
                              want)
                 runs[f"{kind}/{name}"] = run
+            if cu == "windows.cu" and not is_diag(cu, name):
+                # the edge cases: a variant must hold; the baseline's
+                # disagreements are reported
+                differ = []
+                for what, call, want in win_edges:
+                    try:
+                        cs.equal(f"{what}/{name}", call(lib), want)
+                    except AssertionError as err:
+                        if name != "baseline":
+                            raise
+                        differ.append(str(err))
+                print(f"windows.cu edges, {name}: {len(win_edges)} calls, "
+                      f"{len(differ)} differ from the plain versions "
+                      f"{differ}", flush=True)
         if "tokenize.cu" in only:
             runs["tokenize_planes/library bincount (histogram only)"] = (
                 lambda: torch.bincount(sym_idx, minlength=nb * 262))

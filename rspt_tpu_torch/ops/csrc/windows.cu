@@ -34,28 +34,78 @@
 // the exclusive scan of gtot restarted at the block's first group:
 // b = clip((gb >> 5) + cbase[first chunk], 0, (nrows - R) * 128), sb =
 // gb & 31 (X1 takes d, b and sb from windows_glue). On real input no clamp
-// and no wrap fires: they are replicated so that kernel, plain version and
-// TPU kernel agree on every input whose supers share at most edge words.
+// and no wrap fires: they are replicated so that each kernel agrees with
+// its plain version on every input whose supers share at most edge words
+// (X1 on every input), and with the TPU kernel where, besides, no two
+// chunks overlap in an accumulator (the TPU ORs its byte sums).
 //
-// Design. One 1,024-thread block per group, 8 consecutive tokens a thread
-// (16-byte loads), the LUT in shared memory; rspt::block_scan_excl gives
-// each token its group-local bit. The 64 windows (64 KiB) sit in dynamic
-// shared memory and tokens add their words into them with shared atomics:
-// the TPU built them with MXU prefix dots, binary searches and rolls only
-// because it cannot scatter (its sums are of disjoint bits; the atomics
-// add as it does, so even the clamped corner agrees). K14 writes them out
-// once, zeros included. A super's placement builds its accumulator in
-// shared memory the same way (28 KiB for X1), shifts and rotates it in
-// registers, finds its first and last nonzero words by two block
-// reductions, and writes the words strictly between them, which only this
-// super owns, with plain stores (16-byte vectors where aligned; no slack
-// zero word is ever stored), and the two edge words, which a neighbouring
-// super may share, with atomicAdd into the zeroed output. X1 is one block
-// per super. K15's TPU grid ran in order and carried the scan in SMEM; here
-// blocks run in any order, so each takes its group from an atomic ticket
-// (a block then only waits for groups that have started), publishes its
-// bit total as soon as the scan has it, and looks back over the totals of
-// its block's earlier groups (at most 7) before placing.
+// Design, K14 (group_windows). One 1,024-thread block per group, 8
+// consecutive tokens a thread (16-byte loads), the LUT in shared memory;
+// rspt::block_scan_excl gives each token its group-local bit. The 64
+// windows (64 KiB) sit in dynamic shared memory and tokens add their
+// words into them with shared atomics: the TPU built them with MXU prefix
+// dots, binary searches and rolls only because it cannot scatter (its
+// sums are of disjoint bits; the atomics add as it does, so even the
+// clamped corner agrees). K14 writes them out once, zeros included.
+//
+// Design, K15 (windows_place_flat). The windows and the accumulator are
+// the TPU's way to place bits without a scatter; on the card each token's
+// value is placed at its own bit. The work unit is a tile of 4,096 tokens,
+// one super (32 chunks) of one group, a 512-thread CTA: 2 tiles a group,
+// 166 CTAs on the main pass 1's 83 groups, where one 1,024-thread CTA a
+// group walked its 2 supers in series through ~20 barriers. A CTA takes
+// its tile from an atomic ticket, codes its tokens (16-byte loads, the LUT
+// in shared memory), scans their bit counts, publishes the tile's bits + 1
+// (0: not yet) and sums the published bits of the tiles before it: those
+// of its block's earlier groups (gfirst[g] .. g - 1; at most 14 tiles on
+// real input, one warp load) give the carry, the group's earlier tile
+// gives the super's group-local bit. Tickets are drawn in order and every
+// tile publishes before it waits, so a tile waits only on running CTAs
+// (no deadlock), and the result does not depend on the ticket order.
+// With gb = wog * 8 + dbg + carry (int32 arithmetic) and sbase the
+// super's first word, the accumulator path puts every token's value at
+// absolute bit gb + its group-local bit as long as no clamp, wrap or
+// carry fires; that holds when every valid token has cbits <= 23 (at most
+// 38 bits a token: a chunk spans <= 152 window words, a super's chunk
+// offsets stay <= 4,713 of D_CLAMP 5,119, nothing wraps the 6,144-word
+// accumulator), code < 2^cbits and extra < 2^ebits (disjoint fields, so
+// sums are ORs) and 0 <= (gb >> 5) + sbase <= (nrows - 48) * 128 (no base
+// clamp). While warp 0 looks back, every thread tests its tokens against
+// those fields (without branches) and ORs their words into shared memory
+// from the tile's bit 0. A live super (any token with bits) that passes
+// every check is then placed directly: its words shifted up by its first
+// bit & 31 on the way out, the interior ones stored with plain coalesced
+// stores and the first and last, which a neighbouring super may share,
+// added with atomicAdd into the zeroed output. A live super that fails
+// one takes the exact slow path, place_slow: the accumulator code of the
+// one-CTA-a-group design for one super, its 32 windows in shared memory
+// (32 KiB), the 48-row accumulator built by shared atomics (24 KiB),
+// shifted and rotated in registers, its first and last nonzero words
+// found by two block reductions and written as write_span does (edge
+// words by atomicAdd, the words between by plain stores, 16-byte vectors
+// where aligned); state[1] counts those supers. It reuses the direct
+// path's shared memory, so the common case pays only its reservation (56
+// KiB a CTA). kernel_ab.py on the H100, config 2: the field test before
+// the scan instead of beside the look-back 1.05x slower, with a branch a
+// token 1.02-1.05x, the slow path inlined 1.02x.
+//
+// Design, X1 (place_windows_aligned). One 256-thread CTA a live super
+// (several fit an SM). Each accumulator word is a sum of the window words
+// that cover it, mod 2^32, the plain version's sum in any order: chunk c's
+// window word x covers word (st_c + x) mod N (st_c = rc * 128 + t, N = 56
+// * 128; rc >= 56 or < 0 drops the chunk), so thread tid owns the words k
+// = tid (mod 256) and takes from each chunk the one word x = (tid - st_c)
+// mod 256 whose target is in its column: a gather with no atomics and no
+// barrier between chunks, its column in shared memory, each window word
+// read once by coalesced loads (a warp reads 32 neighbouring words; a
+// thread's 32 loads all in flight before its adds). It is exact on every
+// input: non-monotone offsets, dropped chunks, the cyclic wrap and sbits 0
+// or 31 need no other path. The shift by sb takes each word and its
+// predecessor, the rotation by off = b - base indexes the store, and
+// every nonzero word is added into the zeroed output with atomicAdd, so
+// even supers whose spans overlap sum as the plain version does.
+// kernel_ab.py on the H100, config 2: a block reduction for the span's
+// first and last word with plain stores between them 1.2x slower.
 // Bound: bytes. K14: the tokens read once, the LUTs, the windows (2 x 512 B
 // a chunk), cbase, clive and gtot written once. X1: the windows and glue
 // arrays read once, the output words written once. K15: the tokens, LUTs
@@ -64,19 +114,35 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;                // K14's CTA
 constexpr int kItems = 8;
 constexpr int kGroupTok = kThreads * kItems;  // 8,192 tokens a group
 constexpr int kChunks = 64;                   // 128-token chunks a group
 constexpr int kWin = 256;                     // words a chunk window
 constexpr int kSupChunks = 32;                // chunks a super
-constexpr int kSupers = kChunks / kSupChunks;
 constexpr int kLut = 3 * 128;
 constexpr int kDClamp = 40 * 128 - 1;
 constexpr int kAccRows = 48;                  // K5 / K15 accumulator rows
 constexpr int kAlignedRows = 56;              // X1 accumulator rows
 constexpr size_t kWinBytes = sizeof(uint32_t) * kChunks * kWin;  // 64 KiB
 constexpr size_t kAccBytes = sizeof(uint32_t) * kAccRows * 128;
+// K15: a tile is one super
+constexpr int kFlatThreads = 512;
+constexpr int kTileTok = kFlatThreads * kItems;         // 4,096 tokens
+constexpr int kTilesPerGroup = kGroupTok / kTileTok;    // 2
+constexpr int kFastBits = 23 + 15;   // a token's bits on the direct path
+// a tile's words on the direct path, rounded to 16-byte quads
+constexpr int kTileWords = (kTileTok * kFastBits / 32 + 2 + 3) / 4 * 4;
+constexpr size_t kSupWinBytes = sizeof(uint32_t) * kSupChunks * kWin;
+constexpr size_t kFlatSmem = kSupWinBytes + kAccBytes;  // 56 KiB
+static_assert(sizeof(uint32_t) * kTileWords <= kSupWinBytes,
+              "the direct path's words share the slow path's windows");
+// X1
+constexpr int kX1Threads = 256;
+constexpr int kX1Words = kAlignedRows * 128;          // 7,168
+constexpr int kX1Per = kX1Words / kX1Threads;         // 28 a thread
+static_assert(kX1Words % kWin == 0 && kWin == kX1Threads,
+              "a thread's column takes one word of every window");
 
 // The small shared state of one block.
 struct Scratch {
@@ -86,7 +152,7 @@ struct Scratch {
   int st[kSupChunks];   // t = d & 127 of each chunk of the super placed
   int src[kSupChunks];  // rc = d >> 7
   int scan[32];
-  int total, lo, hi, g, carry;
+  int total, lo, hi, g, carry, pre;
 };
 
 // The thread's 8 tokens of a group, their LUT words, and the group-local
@@ -176,52 +242,49 @@ __device__ __forceinline__ void write_span(const uint32_t* acc, int first,
     atomicAdd(out + base + last, acc[last]);
   const int v0 = (first + 4) >> 2;  // first quad wholly after `first`
   const int v1 = max(last >> 2, v0);  // quads [v0, v1) end before `last`
-  for (int j = first + 1 + tid; j < min(4 * v0, last); j += kThreads)
+  for (int j = first + 1 + tid; j < min(4 * v0, last); j += kFlatThreads)
     if (inside(base + j)) out[base + j] = acc[j];
-  for (int q = v0 + tid; q < v1; q += kThreads)
+  for (int q = v0 + tid; q < v1; q += kFlatThreads)
     if (inside(base + 4 * q))
       *reinterpret_cast<uint4*>(out + base + 4 * q) =
           reinterpret_cast<const uint4*>(acc)[q];
-  for (int j = max(4 * v1, first + 1) + tid; j < last; j += kThreads)
+  for (int j = max(4 * v1, first + 1) + tid; j < last; j += kFlatThreads)
     if (inside(base + j)) out[base + j] = acc[j];
 }
 
-// Places one live super through a kRows-row accumulator acc (shared, 16-byte
-// aligned). Chunk c's window word x is (x < 128 ? p0 : p1)[c * stride +
-// (x & 127)]; its t and rc are sh.st[c] and sh.src[c], which the caller
-// wrote before calling (the first barrier here publishes them).
-template <int kRows, bool kAligned>
-__device__ __forceinline__ void place_super(const uint32_t* p0,
-                                            const uint32_t* p1, int stride,
-                                            int sb, int b, uint32_t* acc,
+// K15's slow path: places one live super through the 48-row accumulator
+// acc (shared, 16-byte aligned) from its 32 windows win (shared; chunk
+// c's word x at win[c * kWin + x]). Chunk c's t and rc are sh.st[c] and
+// sh.src[c], which the caller wrote before calling (the first barrier
+// here publishes them).
+__device__ __forceinline__ void place_super(const uint32_t* win, int sb,
+                                            int b, uint32_t* acc,
                                             uint32_t* __restrict__ out,
                                             int nrows, Scratch& sh) {
-  constexpr int kN = kRows * 128;
-  constexpr int kPer = (kN + kThreads - 1) / kThreads;
+  constexpr int kN = kAccRows * 128;
+  constexpr int kPer = (kN + kFlatThreads - 1) / kFlatThreads;
   const int tid = threadIdx.x;
-  for (int q = tid; q < kN / 4; q += kThreads)
+  for (int q = tid; q < kN / 4; q += kFlatThreads)
     reinterpret_cast<uint4*>(acc)[q] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  for (int i = tid; i < kSupChunks * kWin; i += kThreads) {
+  for (int i = tid; i < kSupChunks * kWin; i += kFlatThreads) {
     const int c = i >> 8, x = i & (kWin - 1);
-    const uint32_t v = (x < 128 ? p0 : p1)[c * stride + (x & 127)];
+    const uint32_t v = win[i];
     const int rc = sh.src[c];
-    if (v && rc >= 0 && rc < kRows) {
+    if (v && rc >= 0 && rc < kAccRows) {
       int k = rc * 128 + sh.st[c] + x;  // < 2 * kN
       if (k >= kN) k -= kN;
       atomicAdd(acc + k, v);
     }
   }
   __syncthreads();
-  int row0 = b >> 7;
-  if (kAligned) row0 &= ~7;
-  const int64_t base = (int64_t)row0 * 128;
-  const int off = (int)(b - base);  // < 1,024 <= kN
+  const int64_t base = (int64_t)(b >> 7) * 128;
+  const int off = (int)(b - base);  // < 128
   uint32_t v[kPer];
   int lo = kN, hi = -1;
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
-    const int k = tid + q * kThreads;
+    const int k = tid + q * kFlatThreads;
     v[q] = 0;
     if (k < kN) {
       const uint32_t a = acc[k], p = acc[k ? k - 1 : kN - 1];
@@ -236,7 +299,7 @@ __device__ __forceinline__ void place_super(const uint32_t* p0,
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
-    const int k = tid + q * kThreads;
+    const int k = tid + q * kFlatThreads;
     if (k < kN) acc[k + off >= kN ? k + off - kN : k + off] = v[q];
   }
   // both scans synchronise, so the rotated span is visible after them
@@ -244,7 +307,6 @@ __device__ __forceinline__ void place_super(const uint32_t* p0,
   rspt::block_scan_excl(hi, -1, rspt::OpMax(), false, sh.scan, &sh.hi);
   if (sh.lo <= sh.hi)
     write_span(acc, sh.lo, sh.hi, out, base, (int64_t)nrows * 128);
-  __syncthreads();  // acc and sh are reused by the caller's next super
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -273,7 +335,7 @@ group_windows_kernel(const int32_t* __restrict__ tokc,
   if (threadIdx.x == 0) gtot[g] = sh.total;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kX1Threads)
 place_windows_aligned_kernel(const uint32_t* __restrict__ w0,
                              const uint32_t* __restrict__ w1,
                              const int32_t* __restrict__ drow,
@@ -282,21 +344,82 @@ place_windows_aligned_kernel(const uint32_t* __restrict__ w0,
                              const int32_t* __restrict__ sbits,
                              const int32_t* __restrict__ slive,
                              uint32_t* __restrict__ out, int nrows) {
-  __shared__ __align__(16) uint32_t acc[kAlignedRows * 128];
-  __shared__ Scratch sh;
+  __shared__ uint32_t acc[kX1Words];   // column tid: words tid + 256 j
+  __shared__ int st[kSupChunks];       // chunk c's first word, or -1
   const int s = blockIdx.x;
   if (!slive[s]) return;  // whole block: no barrier skipped
+  const int tid = threadIdx.x;
   const int64_t c0 = (int64_t)s * kSupChunks;
-  if (threadIdx.x < kSupChunks) {
-    sh.st[threadIdx.x] = drow[c0 + threadIdx.x] & 127;
-    sh.src[threadIdx.x] = dlane[c0 + threadIdx.x] >> 7;
+  if (tid < kSupChunks) {
+    const int rc = dlane[c0 + tid] >> 7;
+    st[tid] = rc >= 0 && rc < kAlignedRows
+                  ? rc * 128 + (drow[c0 + tid] & 127) : -1;
   }
-  place_super<kAlignedRows, true>(w0 + c0 * 128, w1 + c0 * 128, 128,
-                                  sbits[s] & 31, wbase[s], acc, out, nrows,
-                                  sh);
+#pragma unroll
+  for (int j = 0; j < kX1Per; ++j) acc[tid + j * kX1Threads] = 0;
+  __syncthreads();
+  // the window word of each chunk whose target lies in this column (a
+  // warp reads 32 neighbouring words of a window), all loads in flight
+  // before the adds
+  uint32_t v[kSupChunks];
+#pragma unroll
+  for (int c = 0; c < kSupChunks; ++c) {
+    const int x = (tid - st[c]) & (kWin - 1);
+    v[c] = st[c] < 0 ? 0u : __ldg((x < 128 ? w0 : w1) + (c0 + c) * 128 +
+                                  (x & 127));
+  }
+#pragma unroll
+  for (int c = 0; c < kSupChunks; ++c) {
+    if (!v[c]) continue;
+    int k = st[c] + ((tid - st[c]) & (kWin - 1));  // = tid (mod 256)
+    if (k >= kX1Words) k -= kX1Words;
+    acc[k] += v[c];
+  }
+  __syncthreads();
+  const int sb = sbits[s] & 31;
+  const int b = wbase[s];
+  const int64_t base = (int64_t)((b >> 7) & ~7) * 128;
+  const int off = (int)(b - base);  // < 1,024
+  uint32_t u[kX1Per];  // every shifted word read before the first add
+#pragma unroll
+  for (int j = 0; j < kX1Per; ++j) {
+    const int k = tid + j * kX1Threads;
+    const uint32_t a = acc[k], p = acc[k ? k - 1 : kX1Words - 1];
+    u[j] = sb ? (a << sb) | (p >> (32 - sb)) : a;
+  }
+  const int64_t limit = (int64_t)nrows * 128;
+#pragma unroll
+  for (int j = 0; j < kX1Per; ++j) {
+    if (!u[j]) continue;
+    const int k = tid + j * kX1Threads;
+    const int64_t gw = base + (k + off >= kX1Words ? k + off - kX1Words
+                                                   : k + off);
+    if (gw >= 0 && gw < limit) atomicAdd(out + gw, u[j]);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K15's slow path for one live super (every thread of the CTA): its 32
+// windows in smem (t.bit: the thread's first token's group-local bit),
+// then place_super through the 48-row accumulator after them. Out of
+// line: the kernel then keeps 40 registers a thread, not 55.
+__device__ __noinline__ void place_slow(Tokens t, int sbase, int gb, int b,
+                                        uint32_t* smem,
+                                        uint32_t* __restrict__ out,
+                                        int nrows, Scratch& sh) {
+  const int tid = threadIdx.x;
+  for (int q = tid; q < kSupChunks * kWin / 4; q += kFlatThreads)
+    reinterpret_cast<uint4*>(smem)[q] = make_uint4(0, 0, 0, 0);
+  fill_windows(smem, sh, t);  // its first barrier orders the zeroing
+  if (tid < kSupChunks) {
+    const int d = min(max(sh.cbase[tid] - sbase, 0), kDClamp);
+    sh.st[tid] = d & 127;
+    sh.src[tid] = d >> 7;
+  }
+  place_super(smem, gb & 31, min(max(b, 0), (nrows - kAccRows) * 128),
+              smem + kSupChunks * kWin, out, nrows, sh);
+}
+
+__global__ void __launch_bounds__(kFlatThreads)
 windows_place_flat_kernel(const int32_t* __restrict__ tokc,
                           const int32_t* __restrict__ lut3,
                           const int32_t* __restrict__ dbg,
@@ -304,48 +427,122 @@ windows_place_flat_kernel(const int32_t* __restrict__ tokc,
                           const int32_t* __restrict__ gfirst,
                           uint32_t* __restrict__ out, int* state, int nrows) {
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* swin = smem;
-  uint32_t* acc = smem + kChunks * kWin;
+  uint32_t* words = smem;  // the direct path's words, from tile bit 0
   __shared__ Scratch sh;
-  if (threadIdx.x == 0) sh.g = atomicAdd(state, 1);
+  const int tid = threadIdx.x;
+  if (tid == 0) sh.g = atomicAdd(state, 1);
+  for (int q = tid; q < kTileWords / 4; q += kFlatThreads)
+    reinterpret_cast<uint4*>(words)[q] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  const int g = sh.g;
-  start_group(lut3 + (int64_t)g * kLut, swin, sh);
+  const int i = sh.g;  // this CTA's tile: super i of the launch
+  const int g = i / kTilesPerGroup;
   Tokens t;
-  code_tokens(tokc + (int64_t)g * kGroupTok, sh, t);
-  // publish the group's bits (+ 1: 0 means not yet) before anything else
-  if (threadIdx.x == 0) atomicExch(state + 1 + g, sh.total + 1);
-  fill_windows(swin, sh, t);
-  if (threadIdx.x < 32) {  // look back over the block's earlier groups
-    int sum = 0;
-    for (int k = max(gfirst[g], 0) + threadIdx.x; k < g; k += 32) {
-      int v;
-      while ((v = *(volatile int*)(state + 1 + k)) == 0) {
-      }
-      sum += v - 1;
-    }
-    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(rspt::kFull, sum, o);
-    if (threadIdx.x == 0) sh.carry = sum;
+  {
+    const int4* p = reinterpret_cast<const int4*>(tokc + (int64_t)i * kTileTok)
+                    + 2 * tid;
+    const int4 a = __ldg(p), c = __ldg(p + 1);
+    t.w[0] = a.x; t.w[1] = a.y; t.w[2] = a.z; t.w[3] = a.w;
+    t.w[4] = c.x; t.w[5] = c.y; t.w[6] = c.z; t.w[7] = c.w;
   }
+  for (int k = tid; k < kLut; k += kFlatThreads)
+    sh.lut[k] = lut3[(int64_t)g * kLut + k];
   __syncthreads();
+  // code the tokens
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int32_t w = t.w[k];
+    const int sym = w & 511;
+    const bool live = is_valid(w);
+    t.e[k] = live ? (uint32_t)sh.lut[sym < 256 ? sym : 256 + (sym & 127)] : 0u;
+    sum += live ? (int)(t.e[k] >> 24) + ((w >> 9) & 15) : 0;
+  }
+  t.sum = sum;
+  const int bit = rspt::block_scan_excl(sum, 0, rspt::OpSum(), false,
+                                        sh.scan, &sh.total);
+  const int total = sh.total;
+  // publish the tile's bits (+ 1: 0 means not yet) before any wait
+  if (tid == 0) atomicExch(state + 2 + i, total + 1);
+  if (tid < 32) {  // look back over the tiles before this one
+    const int gt0 = kTilesPerGroup * g;  // the group's first tile
+    const int k0 = min(kTilesPerGroup * max(gfirst[g], 0), gt0);
+    unsigned carry = 0;
+    int pre = 0;
+    for (int k = k0 + tid; k < i; k += 32) {
+      int v;
+      while ((v = *(volatile int*)(state + 2 + k)) == 0) {
+      }
+      if (k < gt0) {
+        carry += (unsigned)(v - 1);
+      } else {
+        pre += v - 1;
+      }
+    }
+    for (int o = 16; o; o >>= 1) {
+      carry += __shfl_xor_sync(rspt::kFull, carry, o);
+      pre += __shfl_xor_sync(rspt::kFull, pre, o);
+    }
+    if (tid == 0) {
+      sh.carry = (int)carry;
+      sh.pre = pre;
+    }
+  }
+  // while warp 0 looks back: bad, a valid token outside the direct
+  // path's domain, and the super's words from tile bit 0 (a super with a
+  // bad token discards them: no word past the buffer is touched)
+  bool bad = false;
+  int x = bit;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int32_t w = t.w[k];
+    const uint32_t e = t.e[k];
+    const int cb = (int)(e >> 24), eb = (w >> 9) & 15;
+    const int nb = is_valid(w) ? cb + eb : 0;
+    // without branches: a branch a token costs more than the test
+    bad |= is_valid(w) &
+           ((cb > 23) | (((e & 0xFFFFFFu) >> min(cb, 24)) != 0) |
+            ((((w >> 13) & 16383) >> eb) != 0));
+    if (!nb) continue;
+    const uint64_t val = (uint64_t)(t.e[k] & 0xFFFFFFu) |
+                         ((uint64_t)((w >> 13) & 16383) << min(cb, 24));
+    const int s = x & 31, wi = x >> 5;
+    const uint64_t lo = val << s;
+    if (wi + 2 < kTileWords) {
+      if ((uint32_t)lo) atomicOr(words + wi, (uint32_t)lo);
+      if ((uint32_t)(lo >> 32)) atomicOr(words + wi + 1, (uint32_t)(lo >> 32));
+      if (s && (uint32_t)(val >> (64 - s)))
+        atomicOr(words + wi + 2, (uint32_t)(val >> (64 - s)));
+    }
+    x += nb;
+  }
+  const bool in_field = !__syncthreads_or(bad);
+  if (total == 0) return;  // a dead super places nothing (every thread)
+  const int pre = sh.pre;  // the group's bits before this super
   // the group's base bit in int32 arithmetic, as on the TPU
   const int gb = (int)((uint32_t)wog[g] * 8u + (uint32_t)dbg[g] +
                        (uint32_t)sh.carry);
-  for (int s = 0; s < kSupers; ++s) {
-    int live = 0;
-    for (int j = 0; j < kSupChunks; ++j) live |= sh.clive[s * kSupChunks + j];
-    if (!live) continue;  // the same for every thread
-    const int sbase = sh.cbase[s * kSupChunks];
-    if (threadIdx.x < kSupChunks) {
-      const int d = min(max(sh.cbase[s * kSupChunks + threadIdx.x] - sbase, 0),
-                        kDClamp);
-      sh.st[threadIdx.x] = d & 127;
-      sh.src[threadIdx.x] = d >> 7;
+  const int sbase = pre >> 5;
+  const int b = (gb >> 5) + sbase;
+  if (!in_field || b < 0 || b > (nrows - kAccRows) * 128) {
+    if (tid == 0) atomicAdd(state + 1, 1);
+    t.bit = pre + bit;  // group-local
+    place_slow(t, sbase, gb, b, smem, out, nrows, sh);
+    return;
+  }
+  // the direct path: the super's first bit p0 = gb + pre (>= 32 b >= 0);
+  // its words shifted up by p0 & 31 on the way out
+  const int64_t p0 = (int64_t)gb + pre;
+  const int s0 = (int)(p0 & 31);
+  const int nw = (s0 + total + 31) >> 5;
+  const int64_t w0 = p0 >> 5;
+  for (int k = tid; k < nw; k += kFlatThreads) {
+    uint32_t v = words[k];
+    if (s0) v = v << s0 | (k ? words[k - 1] >> (32 - s0) : 0u);
+    if (k == 0 || k == nw - 1) {
+      if (v) atomicAdd(out + w0 + k, v);
+    } else {
+      out[w0 + k] = v;
     }
-    const int b = min(max((gb >> 5) + sbase, 0), (nrows - kAccRows) * 128);
-    const uint32_t* win = swin + s * kSupChunks * kWin;
-    place_super<kAccRows, false>(win, win + 128, kWin, gb & 31, b, acc, out,
-                                 nrows, sh);
   }
 }
 
@@ -379,26 +576,34 @@ extern "C" int rspt_place_windows_aligned(const void* w0, const void* w1,
                                           const void* wbase, const void* sbits,
                                           const void* slive, void* out,
                                           int nsup, int nrows, void* stream) {
-  place_windows_aligned_kernel<<<nsup, kThreads, 0, (cudaStream_t)stream>>>(
+  place_windows_aligned_kernel<<<nsup, kX1Threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)w0, (const uint32_t*)w1, (const int32_t*)drow,
       (const int32_t*)dlane, (const int32_t*)wbase, (const int32_t*)sbits,
       (const int32_t*)slive, (uint32_t*)out, nrows);
   return (int)cudaGetLastError();
 }
 
+// int32 words of the state rspt_windows_place_flat takes for ng groups:
+// the tile ticket, the count of supers placed by the slow path, then one
+// word a tile (its bits + 1 once known).
+extern "C" int rspt_windows_place_flat_state(int ng) {
+  return 2 + kTilesPerGroup * ng;
+}
+
 // tokc: >= ng * 8,192 int32 token words (16-byte aligned); lut3: (ng, 384)
 // int32; dbg, wog, gfirst: ng int32; out: (nrows, 128) int32 zeroed by the
-// caller, nrows >= 48; state: ng + 1 int32 zeroed by the caller (the group
-// ticket, then each group's bits + 1). Returns the first cudaError.
+// caller, nrows >= 48; state: rspt_windows_place_flat_state(ng) int32
+// zeroed by the caller (state[1] gets the slow path's supers). Returns the
+// first cudaError.
 extern "C" int rspt_windows_place_flat(const void* tokc, const void* lut3,
                                        const void* dbg, const void* wog,
                                        const void* gfirst, void* out,
                                        void* state, int ng, int nrows,
                                        void* stream) {
-  const size_t smem = kWinBytes + kAccBytes;
-  const int err = smem_limit(windows_place_flat_kernel, smem);
+  const int err = smem_limit(windows_place_flat_kernel, kFlatSmem);
   if (err) return err;
-  windows_place_flat_kernel<<<ng, kThreads, smem, (cudaStream_t)stream>>>(
+  windows_place_flat_kernel<<<kTilesPerGroup * ng, kFlatThreads, kFlatSmem,
+                              (cudaStream_t)stream>>>(
       (const int32_t*)tokc, (const int32_t*)lut3, (const int32_t*)dbg,
       (const int32_t*)wog, (const int32_t*)gfirst, (uint32_t*)out,
       (int*)state, nrows);

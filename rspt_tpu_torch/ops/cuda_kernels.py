@@ -116,6 +116,7 @@ def _lib() -> ctypes.CDLL:
         "rspt_place_literals": [P] * 6 + [I] * 3 + [P],
         "rspt_group_windows": [P] * 7 + [I] + [P],
         "rspt_place_windows_aligned": [P] * 8 + [I] * 2 + [P],
+        "rspt_windows_place_flat_state": [I],
         "rspt_windows_place_flat": [P] * 7 + [I] * 2 + [P],
         "rspt_iir_scan": [P] * 6 + [I, I, ctypes.c_long, I, P],
         "rspt_iir_assoc": [P] * 10 + [I, I, ctypes.c_long, I, I, P],
@@ -1348,8 +1349,15 @@ def place_windows_aligned(w0: torch.Tensor, w1: torch.Tensor,
     row with a 56-row accumulator (_place_supers with aligned). Inputs
     are windows_glue's with ar = AR2: w0, w1 (1, nc, 128), drow (1, nc,
     1), dlane (1, nc / 32, 32), wbase, sbits, slive (1, nc / 32, 1), all
-    int32; nrows >= 56. Supers whose spans share more than an edge word
-    are not supported (real windows never do)."""
+    int32; nrows >= 56. On the card each accumulator word is gathered
+    from the window words that cover it and every nonzero placed word
+    is added into the zeroed output, so the result is exact on every
+    input, supers whose spans overlap included. K5
+    (super_place_flat_pallas) computes the same words on the glue's
+    arrays where no chunks overlap (it ORs its accumulator's byte sums),
+    rc < 48 (its accumulator has 48 rows, so a window past word 6,143
+    wraps elsewhere), sbits < 32 and wbase lies in [0, (nrows - 48) *
+    128]; outside that the two differ by design."""
     _check(w0, "w0", torch.int32)
     if w0.dim() != 3 or w0.shape[0] != 1 or w0.shape[2] != 128 \
             or w0.shape[1] % SUP_CHUNKS:
@@ -1380,6 +1388,18 @@ def place_windows_aligned(w0: torch.Tensor, w1: torch.Tensor,
 place_windows_aligned.launches = 0
 
 
+def _flat_buffers(nrows: int, ng: int, device, lib=None):
+    """One zeroed int32 buffer: the (nrows, 128) output words, then the
+    state of lib's (default: the port's) windows_place_flat kernel (its
+    tile ticket, its slow-path count and one word a tile): returns (out,
+    state)."""
+    lib = lib or _lib()
+    n = nrows * 128
+    buf = torch.zeros(n + lib.rspt_windows_place_flat_state(ng),
+                      dtype=torch.int32, device=device)
+    return buf[:n].view(nrows, 128), buf[n:]
+
+
 def windows_place_flat_plain(tokc, lut3, dbg, wog, gfirst, ng: int,
                              nrows: int):
     w = group_windows_plain(tokc.reshape(-1)[:ng * GROUP_TOK].reshape(1, -1),
@@ -1400,7 +1420,25 @@ def windows_place_flat(tokc: torch.Tensor, lut3: torch.Tensor,
     accumulator (group_windows → windows_glue(ar=ACC_ROWS) → K5).
     lut3 (ng, 3, 128), dbg, wog, gfirst (ng,) int32 (description bits,
     payload byte offset and first group of each group's block); nrows
-    >= 48. Returns (nrows, 128) int32."""
+    >= 48. Returns (nrows, 128) int32.
+
+    On the card a CTA codes one super (4,096 tokens) and places each
+    value directly at its bit, which equals the accumulator's result
+    while every valid token of the super has cbits <= 23, code <
+    2^cbits and extra < 2^ebits and the super's word base needs no
+    clamp; a live super that fails one goes through the accumulator as
+    the plain version does. windows_place_flat.last_slow is a (1,) int32
+    tensor on the card: the supers of the last call that took that slow
+    path (None after a CPU call or with ng = 0). As in K5, supers whose
+    spans share more than an edge word are not supported (real input
+    never has them), and the card's carry sums groups max(gfirst[g], 0)
+    .. g - 1, the plain version's scan for 0 <= gfirst[g] <= g. Where
+    chunks pile up in the accumulator (a chunk past D_CLAMP or a token
+    past window word 254: more than ~41 or 63.5 bits a token), the plain
+    version and the kernel add the overlapping words, but
+    token_windows_place_flat_pallas ORs its accumulator's byte sums,
+    which is exact for disjoint bits only: such input lies outside the
+    TPU kernel's exact domain (flat_plan's codes have cbits <= 23)."""
     _check(tokc, "tokc", torch.int32)
     if tokc.dim() != 2 or tokc.shape[1] != 128 or tokc.shape[0] < ng * R_TV:
         raise ValueError(f"tokc: need (t_rows >= {ng * R_TV}, 128)")
@@ -1412,24 +1450,25 @@ def windows_place_flat(tokc: torch.Tensor, lut3: torch.Tensor,
     if not ACC_ROWS <= nrows < 2**31 // 128:
         raise ValueError(f"nrows: need {ACC_ROWS} <= nrows < 2^24")
     args = (tokc, lut3, dbg, wog, gfirst)
+    windows_place_flat.last_slow = None
     if not _on_cuda(*args):
         return windows_place_flat_plain(*args, ng, nrows)
     dev = tokc.device
-    out = torch.zeros((nrows, 128), dtype=torch.int32, device=dev)
     if ng == 0:
-        return out
+        return torch.zeros((nrows, 128), dtype=torch.int32, device=dev)
     if not _aligned16(tokc):
         raise ValueError("windows_place_flat: tokc must be 16-byte aligned")
-    # [0]: the group ticket; [1 + g]: group g's bit total + 1 once known
-    state = torch.zeros(ng + 1, dtype=torch.int32, device=dev)
+    out, state = _flat_buffers(nrows, ng, dev)
     _launch("windows_place_flat", _lib().rspt_windows_place_flat,
             *[t.data_ptr() for t in args], out.data_ptr(), state.data_ptr(),
             ng, nrows, device=dev)
     windows_place_flat.launches += 1
+    windows_place_flat.last_slow = state[1:2]
     return out
 
 
 windows_place_flat.launches = 0
+windows_place_flat.last_slow = None
 
 
 # ---------------------------------------------------------------------------

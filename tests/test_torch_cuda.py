@@ -1389,11 +1389,11 @@ def test_windows_routes_launch_their_kernels(rng, dev):
         assert count(lambda: route(copy, eb, 0, gl0))[1:4] == (0, 0, 0)
 
 
-def test_windows_place_flat_many_groups(rng, dev):
-    """windows_place_flat on 160 groups (the batch 16 times over, more
-    groups than the card has SMs): its look-back carry gives the plain
-    version's words, and pack_flat's payload bytes, on every one of
-    several launches."""
+def windows_many_groups(rng, dev):
+    """windows_place_flat's arguments on the card for 160 groups (the
+    windows batch 16 times over, more groups than the card has SMs) and
+    the plain version's words, checked against pack_flat's payload
+    bytes."""
     tokw, _, _, _, hist = _windows_batch(rng, dev)
     _, lengths = tc.block_layout(65536 + 3000, 3)
     big = tokw.repeat(16, 1).contiguous()
@@ -1411,8 +1411,244 @@ def test_windows_place_flat_many_groups(rng, dev):
     n = bplan.total_payload
     assert np.array_equal(want.cpu().numpy().reshape(-1).view(np.uint8)[:n],
                           words.cpu().numpy().view(np.uint8)[:n])
-    for _ in range(5):
+    return args, want
+
+
+def test_windows_place_flat_many_groups(rng, dev):
+    """windows_place_flat on 160 groups (the batch 16 times over, more
+    groups than the card has SMs): its look-back carry gives the plain
+    version's words, and pack_flat's payload bytes, on every one of 10
+    launches, with no super on the slow path."""
+    args, want = windows_many_groups(rng, dev)
+    for _ in range(10):
         assert torch.equal(ck.windows_place_flat(*args), want)
+        assert int(ck.windows_place_flat.last_slow) == 0
+
+
+# windows_place_flat (K15) places a live super (4,096 tokens, one CTA)
+# directly at its bits unless a valid token has cbits > 23, code >=
+# 2^cbits or extra >= 2^ebits, or the super's word base needs the clamp;
+# each case: the supers it sends to that exact slow path, which
+# tests/test_torch_windows.py's model of the kernel counts the same. X1
+# runs on each case's windows and glue too.
+WINDOWS_EDGE_CASES = {
+    "extra_out_of_field": 1,   # one token's extra past its ebits
+    "code_out_of_field": 1,    # one LUT code past its cbits
+    "cbits_27_31": 2,          # ebits 15: chunks past D_CLAMP in a super
+    "cbits_49_63": 2,          # ebits 15: tokens past loc 254 in a chunk
+    "base_clamp_low": 1,       # a negative dbg: the base below word 0
+    "base_clamp_high": 1,      # a short nrows: the base past the top
+    "one_token": 0,            # one group, one valid token (its last)
+    "all_dead": 0,             # no token with bits, codes past cbits 0
+    "many_groups": 0,          # 20 groups of one block: 38 tiles back
+}
+
+
+def _window_groups(rng, ng, cbits=(1, 12), ebits=(0, 3), extra=True,
+                   nsym=250):
+    """ng groups of valid tokens (sym < nsym, ebits in the range, extra
+    < 2^ebits, or 0) and their LUTs (cbits in the range, code <
+    2^min(cbits, 24); entries 261-383 zero): (tok (ng, 8192), lut (ng,
+    384)) int64."""
+    cb = rng.integers(cbits[0], cbits[1] + 1, (ng, 384))
+    code = rng.integers(0, 1 << 24, (ng, 384)) & ((1 << np.minimum(cb, 24))
+                                                   - 1)
+    lut = code | (cb << 24)
+    lut[:, 261:] = 0
+    eb = rng.integers(ebits[0], ebits[1] + 1, (ng, ck.GROUP_TOK))
+    ex = rng.integers(0, 1 << 14, (ng, ck.GROUP_TOK)) & ((1 << eb) - 1)
+    if not extra:
+        ex[:] = 0
+    tok = (rng.integers(0, nsym, (ng, ck.GROUP_TOK)) | (eb << 9) | (ex << 13)
+           | (1 << 27))
+    return tok, lut
+
+
+def window_bits(tok, lut):
+    """Each token's bits (0 for an invalid one): (ng, 8192) int64."""
+    sym = tok & 511
+    idx = np.where(sym < 256, sym, 256 + (sym & 127))
+    e = np.take_along_axis(lut & 0xFFFFFFFF, idx, 1)
+    return np.where((tok >> 27) & 1 == 1, (e >> 24) + ((tok >> 9) & 15), 0)
+
+
+def window_layout(tok, lut, blocks, dbg=None, gap=64, nrows=None):
+    """K15's inputs for groups tok/lut in blocks of the given group
+    counts: each block's payload at a byte offset past the previous
+    one's end plus gap bytes, dbg[b] description bits (random < 300 by
+    default); nrows: the payload words + 2 and 48 rows, rounded up to 8
+    (torch_coder.group_layout's fused rows) unless given. Returns
+    (tokc (ng * 64, 128), lut3 (ng, 3, 128), dbg, wog, gfirst (ng,)),
+    int32 CPU tensors, ng and nrows."""
+    ng = tok.shape[0]
+    if dbg is None:
+        dbg = np.random.default_rng(ng).integers(0, 300, len(blocks))
+    gtot = window_bits(tok, lut).sum(1)
+    wog, gdbg, gfirst = (np.zeros(ng, np.int64) for _ in range(3))
+    g = off = 0
+    for b, n in enumerate(blocks):
+        wog[g:g + n], gdbg[g:g + n], gfirst[g:g + n] = off, dbg[b], g
+        off += -(-(int(dbg[b]) + int(gtot[g:g + n].sum())) // 8) + gap
+        g += n
+    assert g == ng
+    if nrows is None:
+        nrows = -(-(-(-(off // 4 + 2) // 128) + 48) // 8) * 8
+
+    def t(a, *shape):
+        return torch.from_numpy(np.asarray(a).astype(np.int32).reshape(shape))
+
+    return (t(tok, ng * 64, 128), t(lut, ng, 3, 128), t(gdbg, ng),
+            t(wog, ng), t(gfirst, ng), ng, nrows)
+
+
+def windows_edge_batch(rng, case):
+    """windows_place_flat's arguments for a WINDOWS_EDGE_CASES case (CPU
+    tensors). Supers whose placement is clamped or piles chunks up stay
+    clear of every other super's span."""
+    if case == "extra_out_of_field":
+        tok, lut = _window_groups(rng, 3)
+        # tile 1's token 2,000: extra 100 with ebits 2
+        tok[0, 4096 + 2000] = 7 | (2 << 9) | (100 << 13) | (1 << 27)
+        return window_layout(tok, lut, [2, 1])
+    if case == "code_out_of_field":
+        tok, lut = _window_groups(rng, 3)
+        lut[1, 255] = 9 | (3 << 24)          # code 9 with cbits 3
+        tok[1, 1234] = 255 | (1 << 27)       # the only sym 255: tile 2
+        return window_layout(tok, lut, [2, 1])
+    if case in ("cbits_27_31", "cbits_49_63"):
+        lo = 27 if case == "cbits_27_31" else 49
+        wide, wlut = _window_groups(rng, 1, cbits=(lo, lo + 4 + 10 * (
+            lo == 49)), ebits=(15, 15), extra=lo == 27)
+        tok, lut = _window_groups(rng, 1)
+        return window_layout(np.concatenate([wide, tok]),
+                             np.concatenate([wlut, lut]), [1, 1])
+    if case == "base_clamp_low":
+        tok, lut = _window_groups(rng, 2)
+        tok[0, 4096:] &= ~(1 << 27)          # super 1 dead
+        # gb = -2,085: (gb >> 5) = -66 words, clamped to 0
+        return window_layout(tok, lut, [1, 1], dbg=np.array([-2085, 37]),
+                             gap=1024)
+    if case == "base_clamp_high":
+        tok, lut = _window_groups(rng, 2)
+        tok[1, 4096:] &= ~(1 << 27)          # super 3 dead
+        a = window_layout(tok[:1], lut[:1], [1])
+        top = (a[-1] - 48) * 128             # the clamp of nrows rows
+        dbg = np.array([int(a[2][0]), 5])
+        b = window_layout(tok, lut, [1, 1], dbg=dbg, nrows=a[-1])
+        b[3][1] = 4 * (top + 300)            # group 1 above the clamp
+        return b
+    if case == "one_token":
+        tok, lut = _window_groups(rng, 1)
+        tok[0, :-1] &= ~(1 << 27)
+        lut[0, 5] = 45 | (6 << 24)
+        tok[0, -1] = 5 | (3 << 9) | (5 << 13) | (1 << 27)   # 9 bits
+        return window_layout(tok, lut, [1])
+    if case == "all_dead":
+        tok, lut = _window_groups(rng, 2, cbits=(0, 0), ebits=(0, 0))
+        lut[:, :261] |= rng.integers(1, 1 << 24, (2, 261))  # past cbits 0
+        tok[:, ::3] &= ~(1 << 27)
+        return window_layout(tok, lut, [1, 1])
+    if case == "many_groups":
+        tok, lut = _window_groups(rng, 20)
+        return window_layout(tok, lut, [20])
+    raise ValueError(case)
+
+
+def x1_inputs(args):
+    """place_windows_aligned's arguments for windows_place_flat's: its
+    windows (group_windows' plain version) and windows_glue's 56-row
+    arrays at nrows + 8 (group_layout's windows rows)."""
+    tokc, lut3, dbg, wog, gfirst, ng, nrows = args
+    w = ck.group_windows_plain(tokc.reshape(1, -1)[:, :ng * ck.GROUP_TOK],
+                               lut3)
+    return (*ck.windows_glue(*w, dbg, wog, gfirst, nrows + 8, ck.AR2),
+            nrows + 8)
+
+
+# place_windows_aligned's own edges, on the windows of 3 groups (6
+# supers), each live super's span in its own 8,192 words
+X1_EDGE_CASES = ("nonmonotone", "dropped_chunks", "wrap", "t_apart",
+                 "sbits_0", "sbits_31", "sbits_past_31", "wbase_edges",
+                 "dead_supers")
+
+
+def x1_edge_batch(rng, case):
+    """place_windows_aligned's arguments for an X1_EDGE_CASES case: the
+    windows of 3 groups with the glue's arrays replaced. Super s's span
+    lies in words [8,192 (s + 1), + 7,168) (its base rounds down to a
+    multiple of 1,024 words), so no two share a word."""
+    tok, lut = _window_groups(rng, 3)
+    tokc, lut3, dbg, wog, gfirst, ng, _ = window_layout(tok, lut, [2, 1])
+    w0, w1, *_ = ck.group_windows_plain(tokc.reshape(1, -1), lut3)
+    nsup = ng * 2
+    nc = nsup * 32
+    nrows = (nsup + 2) * 64
+    d = np.minimum(np.arange(32) * 150, ck.D_CLAMP)[None].repeat(nsup, 0)
+    t = d.copy()
+    wbase = 8192 * np.arange(1, nsup + 1) + rng.integers(0, 1024, nsup)
+    sbits = rng.integers(0, 32, nsup)
+    slive = np.ones(nsup, np.int64)
+    if case == "nonmonotone":
+        d = rng.integers(0, 56 * 128, (nsup, 32))
+        t = d
+    elif case == "dropped_chunks":   # rc >= 56 or < 0: the chunk dropped
+        d[:, ::5] = 56 * 128 + rng.integers(0, 5000, (nsup, 7))
+        d[:, 1::7] = -rng.integers(1, 5000, (nsup, 5))
+        t = rng.integers(-1000, 1000, (nsup, 32))
+    elif case == "wrap":   # windows past word 7,167 wrap to word 0
+        d = 55 * 128 + rng.integers(0, 128, (nsup, 32))
+        d[:, :8] = np.arange(8) * 40
+        t = d
+    elif case == "t_apart":   # t (drow) and rc (dlane) from other offsets
+        t = rng.integers(0, 1 << 20, (nsup, 32))
+    elif case == "sbits_0":
+        sbits[:] = 0
+    elif case == "sbits_31":
+        sbits[:] = 31
+    elif case == "sbits_past_31":   # the kernel reads sbits & 31
+        sbits += 32 * rng.integers(1, 4, nsup)
+    elif case == "wbase_edges":   # spans cut at word 0 and at the top
+        wbase[0] = -3000
+        wbase[-1] = (nrows - 56) * 128 + 4000
+    elif case == "dead_supers":
+        slive[1::2] = 0
+    else:
+        raise ValueError(case)
+
+    def i32(a, *shape):
+        return torch.from_numpy(np.asarray(a).astype(np.int32).reshape(shape))
+
+    return (w0, w1, i32(t, 1, nc, 1), i32(d, 1, nsup, 32),
+            i32(wbase, 1, nsup, 1), i32(sbits, 1, nsup, 1),
+            i32(slive, 1, nsup, 1), nrows)
+
+
+@pytest.mark.parametrize("case", list(WINDOWS_EDGE_CASES))
+def test_windows_edges_match_plain(dev, case):
+    """windows_place_flat on each WINDOWS_EDGE_CASES case equals its plain
+    version, with the case's supers on the slow path, in 3 launches; X1
+    on the case's windows and glue equals its plain version."""
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a
+                 for a in windows_edge_batch(np.random.default_rng(140),
+                                             case))
+    want = ck.windows_place_flat_plain(*args)
+    for _ in range(3):
+        assert torch.equal(ck.windows_place_flat(*args), want)
+        assert int(ck.windows_place_flat.last_slow) == \
+            WINDOWS_EDGE_CASES[case]
+    *x1, nrows = x1_inputs(args)
+    assert torch.equal(ck.place_windows_aligned(*x1, nrows),
+                       ck.place_windows_aligned_plain(*x1, nrows))
+
+
+@pytest.mark.parametrize("case", X1_EDGE_CASES)
+def test_place_windows_aligned_edges_match_plain(dev, case):
+    """place_windows_aligned on each X1_EDGE_CASES case equals its plain
+    version."""
+    *args, nrows = x1_edge_batch(np.random.default_rng(150), case)
+    args = [a.to(dev) for a in args]
+    assert torch.equal(ck.place_windows_aligned(*args, nrows),
+                       ck.place_windows_aligned_plain(*args, nrows))
 
 
 # dct_forward / dct_inverse: a CTA takes 32 outputs i of 4 channels and

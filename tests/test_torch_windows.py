@@ -26,6 +26,8 @@ from rspt_tpu.hzr import jax_coder  # noqa: E402
 from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from test_torch_cuda import (WINDOWS_EDGE_CASES, X1_EDGE_CASES,  # noqa: E402
+                             windows_edge_batch, x1_edge_batch, x1_inputs)
 
 B = 65536
 
@@ -255,3 +257,293 @@ def test_window_wrappers_validate_inputs(batch):
     with pytest.raises(ValueError):
         ck.compact_tokens(batch["tokw"], batch["bases"][1:],
                           batch["plan"].T)
+
+
+# ---------------------------------------------------------------------------
+# Models of the card's designs (ops/csrc/windows.cu) against the plain
+# versions, and the plain versions against the JAX kernels, on the batch
+# and on tests/test_torch_cuda.py's edge inputs
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+TILE = 4096                  # K15's tile: one super, a CTA
+X1_WORDS = ck.AR2 * 128      # X1's accumulator words
+
+
+def _written(n, writes):
+    """The words an output of n words holds after the kernels' writes,
+    (super, words, values, add) each: a plain store, or an atomic add
+    into the zeroed output. Words outside [0, n) are dropped. Asserts the
+    kernels' domain, in which the result does not depend on the order of
+    the CTAs: a word stored by one super is written by no other."""
+    sup, wd, val, add = (np.concatenate([np.broadcast_to(np.asarray(w[k]),
+                                                         np.shape(w[1]))
+                                         for w in writes])
+                         if writes else np.zeros(0, np.int64)
+                         for k in range(4))
+    keep = (wd >= 0) & (wd < n)
+    sup, wd, val, add = (a[keep] for a in (sup, wd, val, add))
+    out = np.zeros(n, np.int64)
+    stored = wd[~add.astype(bool)]
+    assert np.unique(stored).size == stored.size, "a word stored twice"
+    shared = np.isin(wd, stored)
+    for w in np.unique(wd[shared]):
+        assert np.unique(sup[wd == w]).size == 1, f"word {w}: two supers"
+    out[stored] = val[~add.astype(bool)]
+    np.add.at(out, wd[add.astype(bool)], val[add.astype(bool)])
+    return (out & M32).astype(np.uint32).view(np.int32)
+
+
+def _contributions(bit, val):
+    """A value's three word contributions from bit `bit`: (word, value)
+    arrays of the c0, c1, c2 of windows.cu (val uint64)."""
+    s = (bit & 31).astype(np.uint64)
+    wi = bit >> 5
+    vlo, vhi = val & np.uint64(M32), val >> np.uint64(32)
+    m = np.uint64(M32)
+    c0 = (vlo << s) & m
+    c1 = np.where(s > 0, vlo >> (np.uint64(32) - s), 0) | ((vhi << s) & m)
+    c2 = np.where(s > 0, vhi >> (np.uint64(32) - s), 0)
+    return [(wi + k, c.astype(np.uint64)) for k, c in enumerate((c0, c1,
+                                                                c2))]
+
+
+def _wrap32(v: int) -> int:
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def k15_model(tokc, lut3, dbg, wog, gfirst, ng, nrows):
+    """windows_place_flat as windows.cu's kernel computes it, in numpy.
+    A tile of 4,096 tokens (one super) a CTA: its tokens coded and
+    scanned; its bits published; its carry summed from the published
+    bits of the tiles of its block's earlier groups (groups max(gfirst,
+    0) .. g - 1), its group-local bit from the group's earlier tile; gb =
+    wog * 8 + dbg + carry in int32. A dead super (no token with bits)
+    places nothing. A live super whose valid tokens all have cbits <=
+    23, code < 2^cbits and extra < 2^ebits and whose base (gb >> 5) +
+    sbase lies in [0, (nrows - 48) * 128] is placed at its bits: its
+    words ORed from its first bit (the fields' bits disjoint: OR equals
+    the sum), the first and last added, the rest stored. Any other live
+    super takes the slow path: its 32 windows (sums), the 48-row
+    accumulator (sums), the cyclic shift by gb & 31, the rotation to the
+    clamped base, its first and last nonzero words added and the words
+    between stored. Returns ((nrows, 128) int32 words, slow supers)."""
+    nt = 2 * ng
+    tok = tokc.numpy().reshape(-1)[:ng * ck.GROUP_TOK].astype(np.int64)
+    tok = tok.reshape(nt, TILE)
+    lut = lut3.numpy().reshape(ng, 384).astype(np.int64) & M32
+    sym = tok & 511
+    valid = ((tok >> 27) & 1) == 1
+    eb, ex = (tok >> 9) & 15, (tok >> 13) & 16383
+    idx = np.where(sym < 256, sym, 256 + (sym & 127))
+    e = np.where(valid, lut[(np.arange(nt) // 2)[:, None], idx], 0)
+    cb, code = e >> 24, e & 0xFFFFFF
+    nb = np.where(valid, cb + eb, 0)
+    bad = valid & ((cb > 23) | ((code >> np.minimum(cb, 24)) != 0)
+                   | ((ex >> eb) != 0))
+    assert (cb < 64).all()
+    val = (code.astype(np.uint64)
+           | (ex.astype(np.uint64) << cb.astype(np.uint64)))
+    total = nb.sum(1)
+    excl = np.cumsum(nb, 1) - nb        # tile-local
+    dbg, wog, gfirst = (a.numpy().astype(np.int64) for a in (dbg, wog,
+                                                              gfirst))
+    top = (nrows - ck.ACC_ROWS) * 128
+    n_acc = ck.ACC_ROWS * 128
+    writes, slow = [], 0
+    for i in range(nt):
+        g = i // 2
+        gt0 = 2 * g
+        carry = int(total[min(2 * max(int(gfirst[g]), 0), gt0):gt0].sum())
+        pre = int(total[gt0:i].sum())
+        gb = _wrap32(int(wog[g]) * 8 + int(dbg[g]) + carry)
+        if total[i] == 0:
+            continue
+        sbase = pre >> 5
+        b = (gb >> 5) + sbase
+        live = nb[i] > 0
+        if not bad[i].any() and 0 <= b <= top:
+            p0 = gb + pre
+            nw = (p0 % 32 + int(total[i]) + 31) >> 5
+            cs = _contributions(p0 % 32 + excl[i][live], val[i][live])
+            orw = np.zeros(nw + 2, np.uint64)
+            sums = np.zeros(nw + 2, np.uint64)
+            for w, c in cs:
+                np.bitwise_or.at(orw, w, c)
+                np.add.at(sums, w, c)
+            assert (orw == sums).all() and not orw[nw:].any()
+            k = np.arange(nw)
+            edge = (k == 0) | (k == nw - 1)
+            put = ~edge | (orw[:nw] != 0)
+            writes.append((i, (p0 >> 5) + k[put],
+                           orw[:nw][put].astype(np.int64), edge[put]))
+            continue
+        slow += 1
+        bitg = pre + excl[i]
+        chunk = np.arange(TILE) // 128
+        cbase = bitg[::128] >> 5
+        loc = np.minimum((bitg >> 5) - cbase[chunk], ck.WIN - 2)
+        win = np.zeros((32, ck.WIN), np.int64)
+        for k, (_, c) in enumerate(_contributions(bitg, val[i])):
+            put = valid[i] & (loc + k < ck.WIN) & (c != 0)
+            np.add.at(win, (chunk[put], loc[put] + k), c[put].astype(np.int64))
+        win &= M32
+        d = np.clip(cbase - sbase, 0, ck.D_CLAMP)
+        kk = ((d >> 7) * 128 + (d & 127))[:, None] + np.arange(ck.WIN)
+        acc = np.zeros(n_acc, np.int64)
+        np.add.at(acc, kk % n_acc, win)
+        acc &= M32
+        sb = gb & 31
+        acc = ((acc << sb) & M32) | (np.roll(acc, 1) >> (32 - sb))
+        bc = min(max(b, 0), top)
+        base = (bc >> 7) * 128
+        rot = np.zeros(n_acc, np.int64)
+        rot[(np.arange(n_acc) + bc - base) % n_acc] = acc
+        nz = np.flatnonzero(rot)
+        if nz.size:
+            j = np.arange(nz[0], nz[-1] + 1)
+            writes.append((i, base + j, rot[j], (j == nz[0]) | (j == nz[-1])))
+    return _written(nrows * 128, writes).reshape(nrows, 128), slow
+
+
+def x1_model(w0, w1, drow, dlane, wbase, sbits, slive, nrows):
+    """place_windows_aligned as windows.cu's kernel computes it, in
+    numpy: a 256-thread CTA a live super; thread tid owns the
+    accumulator words k = tid (mod 256) and takes from each chunk c with
+    0 <= rc < 56 (rc = dlane >> 7) the one window word x = (tid - st_c)
+    mod 256, st_c = rc * 128 + (drow & 127), adding it into word (st_c +
+    x) mod 7,168, which lies in its column; each word is then shifted by
+    sb with its predecessor (cyclic), rotated by off = wbase - base (base
+    the row rounded down to a multiple of 8) and, if nonzero, added into
+    the zeroed output. Returns (nrows, 128) int32."""
+    nsup = wbase.numel()
+    win = (torch.cat([w0[0], w1[0]], 1).numpy().astype(np.int64) & M32)
+    win = win.reshape(nsup, 32, ck.WIN)
+    drow, dlane, wbase, sbits, slive = (
+        a.numpy().astype(np.int64).reshape(nsup, -1)
+        for a in (drow, dlane, wbase, sbits, slive))
+    tid = np.arange(256)[:, None]
+    chunk = np.arange(32)[None, :]
+    writes = []
+    for s in range(nsup):
+        if not slive[s, 0]:
+            continue
+        rc = dlane[s] >> 7
+        st = np.where((rc >= 0) & (rc < ck.AR2), rc * 128 + (drow[s] & 127),
+                      -1)[None, :]
+        x = (tid - st) & (ck.WIN - 1)
+        k = (st + x) % X1_WORDS
+        ok = np.broadcast_to(st >= 0, k.shape)
+        assert (k % 256 == tid)[ok].all()
+        acc = np.zeros(X1_WORDS, np.int64)
+        np.add.at(acc, k[ok], np.broadcast_to(win[s][chunk, x], k.shape)[ok])
+        acc &= M32
+        sb = int(sbits[s, 0]) & 31
+        u = ((acc << sb) & M32) | (np.roll(acc, 1) >> (32 - sb))
+        b = int(wbase[s, 0])
+        base = ((b >> 7) & ~7) * 128
+        r = (np.arange(X1_WORDS) + b - base) % X1_WORDS
+        nz = u != 0
+        writes.append((s, base + r[nz], u[nz], True))
+    return torch.from_numpy(_written(nrows * 128, writes).reshape(nrows,
+                                                                  128))
+
+
+def test_k15_model_equals_plain_on_batch(batch):
+    """The K15 design's order (k15_model) gives windows_place_flat_plain's
+    words on the batch (10 groups, 20 tiles), with no super on the slow
+    path; tolerance 0."""
+    gl = batch["gl"]
+    args = (batch["tokc"].reshape(-1, 128), gl.lut3, gl.dbg, gl.wog,
+            gl.gfirst, gl.ng, gl.nrows_fused)
+    got, slow = k15_model(*args)
+    assert slow == 0
+    np.testing.assert_array_equal(got, ck.windows_place_flat_plain(
+        *args).numpy())
+
+
+@pytest.mark.parametrize("case", list(WINDOWS_EDGE_CASES))
+def test_k15_model_equals_plain_on_edges(case):
+    """k15_model equals windows_place_flat_plain on every
+    WINDOWS_EDGE_CASES case, with the case's supers on the slow path;
+    tolerance 0."""
+    args = windows_edge_batch(np.random.default_rng(140), case)
+    got, slow = k15_model(*args)
+    assert slow == WINDOWS_EDGE_CASES[case]
+    np.testing.assert_array_equal(got, ck.windows_place_flat_plain(
+        *args).numpy())
+
+
+def test_x1_model_equals_plain_on_batch(batch):
+    """The X1 design's order (x1_model: the column gather and the
+    register shift) gives place_windows_aligned_plain's words on the
+    batch's windows and glue; tolerance 0."""
+    gl = batch["gl"]
+    w = ck.group_windows(batch["tokc"].reshape(1, -1), gl.lut3)
+    args = ck.windows_glue(*w, gl.dbg, gl.wog, gl.gfirst, gl.nrows_windows,
+                           ck.AR2)
+    assert torch.equal(x1_model(*args, gl.nrows_windows),
+                       ck.place_windows_aligned_plain(*args,
+                                                      gl.nrows_windows))
+
+
+@pytest.mark.parametrize("case", list(WINDOWS_EDGE_CASES) + [
+    "x1/" + c for c in X1_EDGE_CASES])
+def test_x1_model_equals_plain_on_edges(case):
+    """x1_model equals place_windows_aligned_plain on each
+    WINDOWS_EDGE_CASES case's windows and glue and on each
+    X1_EDGE_CASES case; tolerance 0."""
+    if case.startswith("x1/"):
+        *args, nrows = x1_edge_batch(np.random.default_rng(150), case[3:])
+    else:
+        *args, nrows = x1_inputs(windows_edge_batch(
+            np.random.default_rng(140), case))
+    assert torch.equal(x1_model(*args, nrows),
+                       ck.place_windows_aligned_plain(*args, nrows))
+
+
+# The edge cases the JAX kernels compute exactly. On the others chunks
+# pile up in the accumulator (cbits 27-31: past D_CLAMP; 49-63: past loc
+# 254 and D_CLAMP, so overlapping words), and the TPU kernels OR their
+# accumulator's byte sums, exact for disjoint bits only, where the plain
+# versions and the card add; X1's own cases also feed
+# super_place_flat_pallas what it does not take: rc of 48-55 or a cyclic
+# wrap (its accumulator has 48 rows), sbits past 31, wbase outside its
+# pre-clamped range, overlapping windows.
+WINDOWS_JAX_CASES = [c for c in WINDOWS_EDGE_CASES
+                     if not c.startswith("cbits_")]
+X1_JAX_CASES = ("sbits_0", "sbits_31", "dead_supers")
+
+
+@pytest.mark.parametrize("case", WINDOWS_JAX_CASES)
+def test_windows_place_flat_plain_vs_pallas_on_edges(case):
+    """windows_place_flat's plain version equals
+    token_windows_place_flat_pallas in interpret mode on the JAX-able
+    WINDOWS_EDGE_CASES cases (out-of-field extras and codes, both base
+    clamps, one token, dead supers, 20 groups of a block); tolerance
+    0."""
+    tokc, lut3, dbg, wog, gfirst, ng, nrows = windows_edge_batch(
+        np.random.default_rng(140), case)
+    want = pk.token_windows_place_flat_pallas(
+        *(jnp.asarray(a.numpy()) for a in (tokc, lut3, dbg, wog, gfirst)),
+        ng=ng, nrows=nrows, interpret=True)
+    np.testing.assert_array_equal(ck.windows_place_flat_plain(
+        tokc, lut3, dbg, wog, gfirst, ng, nrows).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", WINDOWS_JAX_CASES + [
+    "x1/" + c for c in X1_JAX_CASES])
+def test_place_windows_aligned_plain_vs_super_place_on_edges(case):
+    """X1's placement (place_windows_aligned's plain version) equals
+    super_place_flat_pallas in interpret mode on the same aligned-row
+    inputs, as test_place_windows_aligned_vs_super_place holds it, on the
+    JAX-able edge cases; tolerance 0."""
+    if case.startswith("x1/"):
+        *args, nrows = x1_edge_batch(np.random.default_rng(150), case[3:])
+    else:
+        *args, nrows = x1_inputs(windows_edge_batch(
+            np.random.default_rng(140), case))
+    want = pk.super_place_flat_pallas(
+        *(jnp.asarray(a.numpy()) for a in args), nrows, interpret=True)
+    np.testing.assert_array_equal(ck.place_windows_aligned_plain(
+        *args, nrows).numpy(), np.asarray(want))
