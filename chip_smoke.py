@@ -35,7 +35,8 @@ pack_flat's and no super of the main pass 1 on K15's slow path;
 windows_place_flat and place_windows_aligned also on
 tests/test_torch_cuda.py's WINDOWS_EDGE_CASES, each in 3 launches with
 its count of supers on K15's slow path, on X1_EDGE_CASES and on 160
-groups in 10 launches), compact_tokens on
+groups in 10 launches; group_windows on the same cases' groups, on
+K14_EDGE_CASES and on the 160 groups), compact_tokens on
 the edges of its tile split and look-back (tests/test_torch_cuda.py's
 compact_edge_batch), tokenize_planes on the edges of its tiles
 (tokenize_edge_batch, planes 1-4), and pack_flat and pack_flat_lanes on
@@ -411,17 +412,33 @@ def check_chain(ck, tc, name, raw, ns, ch, planes, bps=4, swizzle=True,
     return x
 
 
+def check_group_windows(ck, args, what, launches):
+    """group_windows against its plain version in `launches` launches."""
+    plain = ck.group_windows_plain(*args)
+    for k in range(launches):
+        equal(f"group_windows {what}, launch {k}", ck.group_windows(*args),
+              plain)
+
+
 def check_windows_edges(ck, edges, dev):
-    """K15 and X1 against their plain versions on the card tests' edge
-    inputs: every WINDOWS_EDGE_CASES case in 3 launches, each with the
-    case's count of supers on K15's slow path, and X1 on its windows and
-    glue; every X1_EDGE_CASES case; 160 groups in 10 launches with no
-    super on the slow path. Returns the slow-path counts by case."""
+    """K14, K15 and X1 against their plain versions on the card tests'
+    edge inputs: every WINDOWS_EDGE_CASES case in 3 launches, each with
+    the case's count of supers on K15's slow path, K14 on its groups and
+    X1 on its windows and glue; every K14_EDGE_CASES case in 3 launches;
+    every X1_EDGE_CASES case; 160 groups in 10 launches of K14 and of K15
+    (no super on the slow path). Returns the slow-path counts by case."""
+    if ck._lib().rspt_group_windows_tile() != edges.K14_TILE:
+        raise AssertionError("group_windows: the library's tile is not "
+                             "the tests' K14_TILE")
     slow = {}
+    for case in edges.K14_EDGE_CASES:
+        check_group_windows(ck, [v.to(dev) for v in edges.k14_edge_batch(
+            np.random.default_rng(160), case)], f"k14/{case}", 3)
     for case, want in edges.WINDOWS_EDGE_CASES.items():
         a = tuple(v.to(dev) if torch.is_tensor(v) else v
                   for v in edges.windows_edge_batch(
                       np.random.default_rng(140), case))
+        check_group_windows(ck, edges.group_windows_args(a), case, 3)
         plain = ck.windows_place_flat_plain(*a)
         for k in range(3):
             equal(f"windows_place_flat {case}, launch {k}",
@@ -441,6 +458,7 @@ def check_windows_edges(ck, edges, dev):
               ck.place_windows_aligned(*x1, nrows),
               ck.place_windows_aligned_plain(*x1, nrows))
     args, want = edges.windows_many_groups(np.random.default_rng(1234), dev)
+    check_group_windows(ck, edges.group_windows_args(args), "160 groups", 10)
     for k in range(10):
         equal(f"windows_place_flat 160 groups, launch {k}",
               ck.windows_place_flat(*args), want)
@@ -2102,8 +2120,12 @@ def main() -> int:
         f"{main_gl.ng} groups with 0 supers on its slow path (slow supers "
         f"per chain {chain_slow}), on WINDOWS_EDGE_CASES in 3 launches each "
         f"(slow supers {win_slow}, as the cases state) and on 160 groups "
-        "in 10 launches (0 slow); place_windows_aligned on every case's "
-        f"windows and glue and on X1_EDGE_CASES {list(edges.X1_EDGE_CASES)}")
+        "in 10 launches (0 slow); group_windows (tiles of "
+        f"{edges.K14_TILE} tokens) on the same cases' groups, on "
+        f"K14_EDGE_CASES {list(edges.K14_EDGE_CASES)} in 3 launches each and "
+        "on the 160 groups in 10 launches; place_windows_aligned on every "
+        f"case's windows and glue and on X1_EDGE_CASES "
+        f"{list(edges.X1_EDGE_CASES)}")
     log("phase 2: all kernels bit-exact against their plain versions "
         "(edge: runs > 16,662, odd tail, all-zero and all-literal slabs, "
         "tokenize_planes on its tile edges at planes 1-4, "
@@ -2892,10 +2914,20 @@ def main() -> int:
            or per > 1 for kinds, per in k1_ops.values()):
         raise AssertionError(f"xdelta_swizzle: {k1_ops}: not one kernel "
                              "a call")
+    # K14: one device operation a call, its kernel (no memset)
+    k14_ops = device_ops(rows["group_windows"]["fn"])
+    k14_tile = lib.rspt_group_windows_tile()
+    log(f"phase 4: group_windows: device operations of 30 calls (names, a "
+        f"call) {k14_ops}; {main_gl.ng} groups in tiles of {k14_tile} "
+        f"tokens, {main_gl.ng * ck.GROUP_TOK // k14_tile} CTAs")
+    if (len(k14_ops[0]) != 1 or "group_windows_kernel" not in k14_ops[0][0]
+            or k14_ops[1] > 1):
+        raise AssertionError(f"group_windows: {k14_ops}: not one kernel a "
+                             "call")
     # the kernels redesigned last: device times of the whole call,
     # medians of 5 rounds, beside their rounds
     for name in ("xdelta_swizzle", "xdelta_swizzle_u8", "fwht",
-                 "pack_blocks", "pack_blocks_tokw"):
+                 "pack_blocks", "pack_blocks_tokw", "group_windows"):
         r = rows[name]
         ts = [device_ms(r["fn"]) or cuda_ms(r["fn"]) for _ in range(5)]
         row = next(k for k in kernels if k["name"] == name)

@@ -34,12 +34,12 @@ and memset of it; mean of 30 calls a round, medians over the rounds
 printed).
 --baseline DIR adds the varied kernels' sources found in DIR (the csrc
 of an earlier checkout) as variant "baseline", and BASELINE_TABLES'
-variants of it (diagnostic cuts of windows.cu's one-CTA-a-group
-kernels) as
-"baseline_<name>". windows.cu's variants that compute the function, and
-the baseline, are also held against the plain versions on
-tests/test_torch_cuda.py's windows edge cases (the baseline's
-disagreements are printed, not raised). pack_flat's
+variants of it (diagnostic cuts of the K14 of a windows.cu that takes
+one CTA a group) as "baseline_<name>". windows.cu's variants that
+compute the function, and the baseline, are also held against the plain
+versions on tests/test_torch_cuda.py's windows edge cases, K14's own
+cases and 160 groups (the baseline's disagreements are printed, not
+raised). pack_flat's
 two_launches and global_atomics variants put back designs that lost
 this A/B (a first launch of tile sums; a global atomicOr a token
 field). Variants marked "diag" drop work (their output is not the
@@ -413,8 +413,145 @@ FIR = {
 # windows.cu at chip_smoke phase 4's shapes (the main pass 1's 83 groups):
 # group_windows (K14), place_windows_aligned (X1) on its windows' glue and
 # windows_place_flat (K15)
+# K14: its windows' write-out cut (both sources store them so)
+_K14_NO_WRITEOUT = {
+    "    *reinterpret_cast<uint4*>(dst) = reinterpret_cast<const uint4*>("
+    "swin)[q];":
+    "    const uint4 v = reinterpret_cast<const uint4*>(swin)[q];\n"
+    "    if (v.x == 0x5a5a5a5au) *reinterpret_cast<uint4*>(dst) = v;"}
+# K14's cluster parts: its launch (cluster dims, rank, the barrier's
+# init and first arrive) and its signals (the wait, the pushes of the
+# tile's bits, the wait for the lower tiles', the prefix)
+_K14_NO_CLUSTER = {
+    "__global__ void __cluster_dims__(kGwTiles, 1, 1) "
+    "__launch_bounds__(kGwThreads)":
+    "__global__ void __launch_bounds__(kGwThreads)",
+    "  cg::cluster_group cluster = cg::this_cluster();\n": "",
+    "  const int g = blockIdx.x / kGwTiles, j = (int)cluster.block_rank();":
+    "  const int g = blockIdx.x / kGwTiles, j = blockIdx.x % kGwTiles;"}
+_K14_INIT = ("  if (tid == 0) init_arrivals(&pushed, max(j, 1));\n"
+             "  cluster_arrive_relaxed();\n")
+_K14_SIGNALS = (
+    "  cluster_wait();\n"
+    "  if (tid > j && tid < kGwTiles) push_bits(&lower[j], &pushed, tid, "
+    "total);\n"
+    "  if (j > 0) wait_arrivals(&pushed);\n"
+    "  int prefix = 0;\n"
+    "  for (int r = 0; r < j; ++r) prefix += lower[r];\n")
 WINDOWS = {
     "k15_super_tiles_x1_gather": ({}, False),
+    # K14: tiles of 1,024 and 4,096 tokens (clusters of 8 and 2 CTAs of
+    # 128 and 512 threads; committed: 4 of 256 threads, 2,048 tokens)
+    "k14_tile1024": ({"kGwThreads = 256;": "kGwThreads = 128;"}, False),
+    "k14_tile4096": ({"kGwThreads = 256;": "kGwThreads = 512;"}, False),
+    # K14 with one cluster barrier: each tile leaves its bits in its own
+    # shared memory, the barrier publishes them, each tile reads its lower
+    # ranks' (distributed shared memory), and a second barrier, split
+    # around the rest, keeps every CTA until the reads are done
+    "k14_cluster_sync": ({
+        "  __shared__ __align__(8) uint64_t pushed;  // their pushes\n": "",
+        _K14_INIT: "",
+        _K14_SIGNALS:
+        "  if (tid == 0) lower[0] = total;\n"
+        "  cluster.sync();\n"
+        "  int prefix = 0;\n"
+        "  for (int r = 0; r < j; ++r) prefix += *cluster.map_shared_rank("
+        "&lower[0], r);\n"
+        '  asm volatile("barrier.cluster.arrive.release.aligned;" ::: '
+        '"memory");\n',
+        "    *reinterpret_cast<uint4*>(dst) = reinterpret_cast<const uint4*>("
+        "swin)[q];\n  }\n}":
+        "    *reinterpret_cast<uint4*>(dst) = reinterpret_cast<const uint4*>("
+        "swin)[q];\n  }\n"
+        '  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: '
+        '"memory");\n}'}, False),
+    # K14 without the cluster: each tile sums the bits of its group's
+    # earlier tokens itself (read again from L2, 2 quads a thread a tile)
+    "k14_recompute_prefix": ({
+        **_K14_NO_CLUSTER,
+        _K14_INIT: "",
+        " + 2 * tid;\n  const int4 a = __ldg(p), c = __ldg(p + 1);\n":
+        " + 2 * tid;\n  const int4 a = __ldg(p), c = __ldg(p + 1);\n"
+        "  const int4* grp = reinterpret_cast<const int4*>(\n"
+        "      tokc + (int64_t)g * kGroupTok);\n"
+        "  int4 pre[2 * (kGwTiles - 1)];\n"
+        "#pragma unroll\n"
+        "  for (int q = 0; q < 2 * (kGwTiles - 1); ++q)\n"
+        "    pre[q] = q < 2 * j ? __ldg(grp + q * kGwThreads + tid)\n"
+        "                       : make_int4(0, 0, 0, 0);\n",
+        "  __syncthreads();\n  const int32_t w[kItems]":
+        "  if (tid == 0) lower[0] = 0;\n  __syncthreads();\n"
+        "  const int32_t w[kItems]",
+        _K14_SIGNALS:
+        "  int psum = 0;\n"
+        "#pragma unroll\n"
+        "  for (int q = 0; q < 2 * (kGwTiles - 1); ++q) {\n"
+        "    const int32_t v[4] = {pre[q].x, pre[q].y, pre[q].z, pre[q].w};\n"
+        "#pragma unroll\n"
+        "    for (int k = 0; k < 4; ++k) psum += token_bits(v[k], "
+        "lut_word(lut, v[k]));\n"
+        "  }\n"
+        "  for (int o = 16; o; o >>= 1) psum += __shfl_xor_sync(rspt::kFull, "
+        "psum, o);\n"
+        "  if (lane == 0) atomicAdd(&lower[0], psum);\n"
+        "  __syncthreads();\n"
+        "  const int prefix = lower[0];\n"}, False),
+    # K14: a thread's words summed in registers, 4 words from its first
+    # valid token's (selects; a word past them added at once), then one
+    # shared atomic a nonzero word
+    "k14_register_words": ({
+        "#pragma unroll\n"
+        "  for (int k = 0; k < kItems; ++k) {\n"
+        "    if (!is_valid(w[k])) continue;\n"
+        "    add_token(win, w[k], e[k], bit, base);\n"
+        "    bit += token_bits(w[k], e[k]);\n"
+        "  }\n":
+        "  int b0 = -1;\n"
+        "  uint32_t acc0 = 0, acc1 = 0, acc2 = 0, acc3 = 0;\n"
+        "#pragma unroll\n"
+        "  for (int k = 0; k < kItems; ++k) {\n"
+        "    if (!is_valid(w[k])) continue;\n"
+        "    const uint32_t cb = e[k] >> 24;\n"
+        "    const uint64_t val = (uint64_t)(e[k] & 0xFFFFFFu) |\n"
+        "                         ((uint64_t)((w[k] >> 13) & 16383) << cb);\n"
+        "    const int s = bit & 31;\n"
+        "    const int loc = min((bit >> 5) - base, kWin - 2);\n"
+        "    const uint64_t lo = val << s;\n"
+        "    const uint32_t c0 = (uint32_t)lo, c1 = (uint32_t)(lo >> 32);\n"
+        "    const uint32_t c2 = s ? (uint32_t)(val >> (64 - s)) : 0u;\n"
+        "    if (b0 < 0) b0 = loc;\n"
+        "    const int d = loc - b0;\n"
+        "    acc0 += d == 0 ? c0 : 0u;\n"
+        "    acc1 += d == 0 ? c1 : d == 1 ? c0 : 0u;\n"
+        "    acc2 += d == 0 ? c2 : d == 1 ? c1 : d == 2 ? c0 : 0u;\n"
+        "    acc3 += d == 1 ? c2 : d == 2 ? c1 : d == 3 ? c0 : 0u;\n"
+        "    if (d >= 2) {\n"
+        "      if (d >= 4 && c0) atomicAdd(win + loc, c0);\n"
+        "      if (d >= 3 && c1) atomicAdd(win + loc + 1, c1);\n"
+        "      if (c2 && loc + 2 < kWin) atomicAdd(win + loc + 2, c2);\n"
+        "    }\n"
+        "    bit += token_bits(w[k], e[k]);\n"
+        "  }\n"
+        "  if (b0 >= 0) {\n"
+        "    if (acc0) atomicAdd(win + b0, acc0);\n"
+        "    if (acc1) atomicAdd(win + b0 + 1, acc1);\n"
+        "    if (acc2 && b0 + 2 < kWin) atomicAdd(win + b0 + 2, acc2);\n"
+        "    if (acc3 && b0 + 3 < kWin) atomicAdd(win + b0 + 3, acc3);\n"
+        "  }\n"}, False),
+    # K14: no shared atomics (the windows stay zero)
+    "diag_k14_no_atomics": ({"    add_token(win, w[k], e[k], bit, base);":
+                             "    if (bit < 0) add_token(win, w[k], e[k], "
+                             "bit, base);"}, True),
+    # K14: no window stores (cbase, clive and gtot still written)
+    "diag_k14_no_writeout": (_K14_NO_WRITEOUT, True),
+    # K14: the cluster launch alone (no barrier, push or prefix)
+    "diag_k14_cluster_launch": ({_K14_INIT: "",
+                                 _K14_SIGNALS: "  const int prefix = 0;\n"},
+                                True),
+    # K14: no cluster at all (every tile from bit 0)
+    "diag_k14_no_cluster": ({**_K14_NO_CLUSTER, _K14_INIT: "",
+                             _K14_SIGNALS: "  const int prefix = 0;\n"},
+                            True),
     # K15: the slow path inlined into the kernel
     "slow_inline": ({"__device__ __noinline__ void place_slow(":
                      "__device__ __forceinline__ void place_slow("}, False),
@@ -513,24 +650,21 @@ WINDOWS = {
         "    if (u[j] == 0x5a5a5a5au && gw >= 0) atomicAdd(out + gw, u[j]);"},
         True),
 }
-# the one-CTA-a-group windows.cu (one 1,024-thread CTA a group for K14
-# and K15, a super for X1), varied this way when --baseline names it
-WINDOWS_GROUP_CTAS = {
-    # K15: no wait on the block's earlier groups (each group's carry 0)
-    "diag_no_lookback": ({
-        "    for (int k = max(gfirst[g], 0) + threadIdx.x; k < g; k += 32) {":
-        "    for (int k = g + threadIdx.x; k < g; k += 32) {"}, True),
-    # K15 and X1: no span stores (place_super's write_span)
-    "diag_no_stores": ({"  if (sh.lo <= sh.hi)\n    write_span(":
-                        "  if (sh.lo <= sh.hi && sh.lo < 0)\n    write_span("},
-                       True),
-    # K15: windows, scan and look-back only, no super placed
-    "diag_no_place": ({"    if (!live) continue;  // the same for every "
-                       "thread": "    if (live >= 0) continue;"}, True),
-    # K15 and X1: no window word added into the accumulator
-    "diag_no_scatter": ({"      atomicAdd(acc + k, v);":
-                         "      if (v == 0x5a5a5a5au) atomicAdd(acc + k, v);"},
-                        True),
+# the windows.cu whose K14 takes one 1,024-thread CTA a group (its 64
+# windows in 64 KiB of shared memory), varied this way when --baseline
+# names it
+WINDOWS_GROUP_K14 = {
+    # K14 (and K15's slow path): no shared atomics into the windows
+    "diag_k14_no_atomics": ({
+        "    if (c0) atomicAdd(win + loc, c0);":
+        "    if (c0 && bit < 0) atomicAdd(win + loc, c0);",
+        "    if (c1) atomicAdd(win + loc + 1, c1);":
+        "    if (c1 && bit < 0) atomicAdd(win + loc + 1, c1);",
+        "    if (c2 && loc + 2 < kWin) atomicAdd(win + loc + 2, c2);":
+        "    if (c2 && loc + 2 < kWin && bit < 0) atomicAdd(win + loc + 2, "
+        "c2);"}, True),
+    # K14: no window stores
+    "diag_k14_no_writeout": (_K14_NO_WRITEOUT, True),
 }
 TABLES = {"xdelta.cu": XDELTA, "hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "compact.cu": COMPACT, "place_literals.cu": PLACE,
@@ -538,7 +672,7 @@ TABLES = {"xdelta.cu": XDELTA, "hzr_decode.cu": DECODE, "tokenize.cu": TOKENIZE,
           "dct.cu": DCT, "peaks.cu": PEAKS, "iir.cu": IIR, "fir.cu": FIR,
           "windows.cu": WINDOWS}
 # variants of the --baseline source, built as "baseline_<name>"
-BASELINE_TABLES = {"windows.cu": WINDOWS_GROUP_CTAS}
+BASELINE_TABLES = {"windows.cu": WINDOWS_GROUP_K14}
 # device_ms's calls a measurement, where 30 would take seconds
 REPS = {"peak_gate": 10, "iir_scan": 3, "iir_scan_f64": 3}
 
@@ -991,14 +1125,15 @@ def main() -> int:
                            gl.wog, gl.gfirst, gl.nrows_windows, ck.AR2)
     k15 = (x["tokc"].reshape(-1, 128), gl.lut3, gl.dbg, gl.wog, gl.gfirst)
 
-    def group_windows(lib):
+    def group_windows(lib, tokc=flat, lut3=gl.lut3):
         """K14 through lib as its wrapper calls it."""
-        nc = gl.ng * ck.R_TV
+        ng = lut3.shape[0]
+        nc = ng * ck.R_TV
         outs = (torch.empty((1, nc, 128), **i32),
                 torch.empty((1, nc, 128), **i32), torch.empty((1, nc), **i32),
-                torch.empty((1, nc), **i32), torch.empty((1, gl.ng), **i32))
-        err = lib.rspt_group_windows(flat.data_ptr(), gl.lut3.data_ptr(),
-                                     *[o.data_ptr() for o in outs], gl.ng,
+                torch.empty((1, nc), **i32), torch.empty((1, ng), **i32))
+        err = lib.rspt_group_windows(tokc.data_ptr(), lut3.data_ptr(),
+                                     *[o.data_ptr() for o in outs], ng,
                                      stream)
         assert err == 0, err
         return outs
@@ -1037,7 +1172,11 @@ def main() -> int:
                   for v in edges.windows_edge_batch(
                       np.random.default_rng(140), case))
         *x1a, x1n = edges.x1_inputs(a)
+        ga = edges.group_windows_args(a)
         win_edges += [
+            (f"group_windows {case}",
+             lambda lib, ga=ga: group_windows(lib, *ga),
+             ck.group_windows_plain(*ga)),
             (f"windows_place_flat {case}",
              lambda lib, a=a: place_flat(lib, a[:5], a[5], a[6]),
              ck.windows_place_flat_plain(*a)),
@@ -1051,6 +1190,18 @@ def main() -> int:
                           lambda lib, x1a=x1a, x1n=x1n: place_aligned(
                               lib, x1a, x1n),
                           ck.place_windows_aligned_plain(*x1a, x1n)))
+
+    for case in edges.K14_EDGE_CASES:
+        ga = [v.to(dev) for v in edges.k14_edge_batch(
+            np.random.default_rng(160), case)]
+        win_edges.append((f"group_windows k14/{case}",
+                          lambda lib, ga=ga: group_windows(lib, *ga),
+                          ck.group_windows_plain(*ga)))
+    ga = edges.group_windows_args(edges.windows_many_groups(
+        np.random.default_rng(1234), dev)[0])
+    win_edges.append(("group_windows 160 groups",
+                      lambda lib, ga=ga: group_windows(lib, *ga),
+                      ck.group_windows_plain(*ga)))
 
     def decode_view(out):   # what placement reads, and the lane results
         return (gd.valid_emissions(out[0], out[3][:, 0]), *out[1:])

@@ -39,14 +39,36 @@
 // (X1 on every input), and with the TPU kernel where, besides, no two
 // chunks overlap in an accumulator (the TPU ORs its byte sums).
 //
-// Design, K14 (group_windows). One 1,024-thread block per group, 8
-// consecutive tokens a thread (16-byte loads), the LUT in shared memory;
-// rspt::block_scan_excl gives each token its group-local bit. The 64
-// windows (64 KiB) sit in dynamic shared memory and tokens add their
-// words into them with shared atomics: the TPU built them with MXU prefix
-// dots, binary searches and rolls only because it cannot scatter (its
-// sums are of disjoint bits; the atomics add as it does, so even the
-// clamped corner agrees). K14 writes them out once, zeros included.
+// Design, K14 (group_windows). A chunk's window depends only on its own
+// tokens and on the group-local bit of its first token, so the work unit
+// is a tile of 2,048 tokens (16 chunks) of one group, a 256-thread CTA,
+// and a group's 4 tiles form a thread-block cluster: 332 CTAs on the main
+// pass 1's 83 groups (several a SM), where one 1,024-thread CTA a group
+// left 49 of 132 SMs idle and wrote its 64 KiB in a last serial phase. A
+// thread takes 8 consecutive tokens (16-byte loads, 16 threads a chunk)
+// and codes them from the LUT in shared memory; one barrier gives each
+// warp the scan totals of the others. Each tile then pushes its bits into
+// the shared memory of the group's higher tiles (distributed shared
+// memory) and arrives on their mbarriers; a tile waits only for its lower
+// ones (tile 0 never), and CTAs of a cluster run together: no ticket,
+// state, memset or spin on global memory, one device operation a call.
+// The one cluster barrier, arrived at the start and waited on before the
+// first push, only orders the mbarriers' init. A chunk's base word and
+// liveness come from its half warp by shuffle and ballot. The 16 windows
+// (16 KiB) sit in shared memory and tokens add their words into them with
+// shared atomics: the TPU built them with MXU prefix dots, binary
+// searches and rolls only because it cannot scatter (its sums are of
+// disjoint bits; the atomics add as it does mod 2^32, so out-of-field
+// values, cbits up to 63 and the clamped corner agree, and no input needs
+// another path). The tile writes its windows out once, zeros included, a
+// warp a 512-byte window half; cbase and clive by the tile that holds the
+// chunk, gtot by the group's last tile. kernel_ab.py on the H100, config
+// 2, against this design: one cluster barrier and remote reads instead of
+// the pushes 1.04x slower, each tile recounting its group's earlier
+// tokens (no cluster) 1.24x, tiles of 4,096 tokens 1.17x, of 1,024 1.02x,
+// a thread's words summed in registers first 0.98x (within the noise),
+// windows 264 or 272 words apart the same;
+// the cluster's launch alone costs 0.35 µs, the pushes and the wait 0.6.
 //
 // Design, K15 (windows_place_flat). The windows and the accumulator are
 // the TPU's way to place bits without a scatter; on the card each token's
@@ -110,13 +132,16 @@
 // a chunk), cbase, clive and gtot written once. X1: the windows and glue
 // arrays read once, the output words written once. K15: the tokens, LUTs
 // and group arrays read once, the output words written once.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;                // K14's CTA
-constexpr int kItems = 8;
-constexpr int kGroupTok = kThreads * kItems;  // 8,192 tokens a group
+constexpr int kItems = 8;                     // tokens a thread
+constexpr int kGroupTok = 8192;               // tokens a group
 constexpr int kChunks = 64;                   // 128-token chunks a group
 constexpr int kWin = 256;                     // words a chunk window
 constexpr int kSupChunks = 32;                // chunks a super
@@ -124,8 +149,14 @@ constexpr int kLut = 3 * 128;
 constexpr int kDClamp = 40 * 128 - 1;
 constexpr int kAccRows = 48;                  // K5 / K15 accumulator rows
 constexpr int kAlignedRows = 56;              // X1 accumulator rows
-constexpr size_t kWinBytes = sizeof(uint32_t) * kChunks * kWin;  // 64 KiB
 constexpr size_t kAccBytes = sizeof(uint32_t) * kAccRows * 128;
+// K14: a tile of a group a CTA
+constexpr int kGwThreads = 256;
+constexpr int kGwTile = kGwThreads * kItems;          // 2,048 tokens
+constexpr int kGwTiles = kGroupTok / kGwTile;         // 4 a group
+constexpr int kGwChunks = kGwTile / 128;              // 16 windows
+static_assert(kGroupTok % kGwTile == 0 && kGwThreads % 32 == 0 &&
+              kGwTiles <= 8, "whole tiles of whole warps, a portable cluster");
 // K15: a tile is one super
 constexpr int kFlatThreads = 512;
 constexpr int kTileTok = kFlatThreads * kItems;         // 4,096 tokens
@@ -166,35 +197,34 @@ struct Tokens {
 
 __device__ __forceinline__ bool is_valid(int32_t w) { return (w >> 27) & 1; }
 
-// Loads the group's LUT, zeroes its windows and liveness flags.
-__device__ __forceinline__ void start_group(const int32_t* __restrict__ lut,
-                                            uint32_t* swin, Scratch& sh) {
-  for (int k = threadIdx.x; k < kLut; k += kThreads) sh.lut[k] = lut[k];
-  for (int q = threadIdx.x; q < kChunks * kWin / 4; q += kThreads)
-    reinterpret_cast<uint4*>(swin)[q] = make_uint4(0, 0, 0, 0);
-  if (threadIdx.x < kChunks) sh.clive[threadIdx.x] = 0;
-  __syncthreads();
+// A token's LUT word (0 for an invalid token) and its bits.
+__device__ __forceinline__ uint32_t lut_word(const int32_t* lut, int32_t w) {
+  const int sym = w & 511;
+  return is_valid(w) ? (uint32_t)lut[sym < 256 ? sym : 256 + (sym & 127)]
+                     : 0u;
 }
 
-// Codes the thread's tokens and scans their bit counts; sh.total gets the
-// group's bits.
-__device__ __forceinline__ void code_tokens(const int32_t* __restrict__ toks,
-                                            Scratch& sh, Tokens& t) {
-  const int4* p = reinterpret_cast<const int4*>(toks) + 2 * threadIdx.x;
-  const int4 a = __ldg(p), c = __ldg(p + 1);
-  t.w[0] = a.x; t.w[1] = a.y; t.w[2] = a.z; t.w[3] = a.w;
-  t.w[4] = c.x; t.w[5] = c.y; t.w[6] = c.z; t.w[7] = c.w;
-  int sum = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int sym = t.w[k] & 511;
-    const bool live = is_valid(t.w[k]);
-    t.e[k] = live ? (uint32_t)sh.lut[sym < 256 ? sym : 256 + (sym & 127)] : 0u;
-    sum += live ? (int)(t.e[k] >> 24) + ((t.w[k] >> 9) & 15) : 0;
-  }
-  t.sum = sum;
-  t.bit = rspt::block_scan_excl(sum, 0, rspt::OpSum(), false, sh.scan,
-                                &sh.total);
+__device__ __forceinline__ int token_bits(int32_t w, uint32_t e) {
+  return is_valid(w) ? (int)(e >> 24) + ((w >> 9) & 15) : 0;
+}
+
+// Adds the words of valid token w (LUT word e) into its chunk's window
+// win, whose word 0 is group word cbase: its value from group-local bit
+// `bit`, as three words at min(bit >> 5 - cbase, 254) and the next two
+// (index 256 dropped).
+__device__ __forceinline__ void add_token(uint32_t* win, int32_t w,
+                                          uint32_t e, int bit, int cbase) {
+  const uint32_t cb = e >> 24;
+  const uint64_t val = (uint64_t)(e & 0xFFFFFFu) |
+                       ((uint64_t)((w >> 13) & 16383) << cb);
+  const int s = bit & 31;
+  const int loc = min((bit >> 5) - cbase, kWin - 2);
+  const uint64_t lo = val << s;
+  const uint32_t c0 = (uint32_t)lo, c1 = (uint32_t)(lo >> 32);
+  const uint32_t c2 = s ? (uint32_t)(val >> (64 - s)) : 0u;
+  if (c0) atomicAdd(win + loc, c0);
+  if (c1) atomicAdd(win + loc + 1, c1);
+  if (c2 && loc + 2 < kWin) atomicAdd(win + loc + 2, c2);
 }
 
 // Records each chunk's cbase and clive and adds every token's words into
@@ -212,18 +242,8 @@ __device__ __forceinline__ void fill_windows(uint32_t* swin, Scratch& sh,
   for (int k = 0; k < kItems; ++k) {
     const int32_t w = t.w[k];
     if (!is_valid(w)) continue;
-    const uint32_t cb = t.e[k] >> 24;
-    const uint64_t val = (uint64_t)(t.e[k] & 0xFFFFFFu) |
-                         ((uint64_t)((w >> 13) & 16383) << cb);
-    const int s = bit & 31;
-    const int loc = min((bit >> 5) - cbase, kWin - 2);
-    const uint64_t lo = val << s;
-    const uint32_t c0 = (uint32_t)lo, c1 = (uint32_t)(lo >> 32);
-    const uint32_t c2 = s ? (uint32_t)(val >> (64 - s)) : 0u;
-    if (c0) atomicAdd(win + loc, c0);
-    if (c1) atomicAdd(win + loc + 1, c1);
-    if (c2 && loc + 2 < kWin) atomicAdd(win + loc + 2, c2);
-    bit += (int)cb + ((w >> 9) & 15);
+    add_token(win, w, t.e[k], bit, cbase);
+    bit += token_bits(w, t.e[k]);
   }
   __syncthreads();
 }
@@ -309,30 +329,131 @@ __device__ __forceinline__ void place_super(const uint32_t* win, int sb,
     write_span(acc, sh.lo, sh.hi, out, base, (int64_t)nrows * 128);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K14's signals between the tiles of a cluster (sm_90): an mbarrier in
+// each tile's shared memory counts the group's lower tiles that have
+// pushed their bits into it.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// One thread: an mbarrier expecting n >= 1 arrivals, visible to the
+// cluster once the cluster barrier that follows has completed.
+__device__ __forceinline__ void init_arrivals(uint64_t* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(n) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Stores v into CTA `rank`'s copy of *slot, then arrives on its copy of
+// *bar (release at cluster scope: the store is seen before the arrival).
+__device__ __forceinline__ void push_bits(int* slot, uint64_t* bar, int rank,
+                                          int v) {
+  unsigned s, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(s) : "r"(smem_u32(slot)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(b) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(s), "r"(v)
+               : "memory");
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               ::"r"(b) : "memory");
+}
+
+// Waits until *bar's first phase has completed (acquire at cluster scope).
+__device__ __forceinline__ void wait_arrivals(uint64_t* bar) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)) : "memory");
+  }
+}
+
+__global__ void __cluster_dims__(kGwTiles, 1, 1) __launch_bounds__(kGwThreads)
 group_windows_kernel(const int32_t* __restrict__ tokc,
                      const int32_t* __restrict__ lut3,
                      int32_t* __restrict__ w0, int32_t* __restrict__ w1,
                      int32_t* __restrict__ cbase, int32_t* __restrict__ clive,
                      int32_t* __restrict__ gtot) {
-  extern __shared__ __align__(16) uint32_t swin[];
-  __shared__ Scratch sh;
-  const int g = blockIdx.x;
-  start_group(lut3 + (int64_t)g * kLut, swin, sh);
-  Tokens t;
-  code_tokens(tokc + (int64_t)g * kGroupTok, sh, t);
-  fill_windows(swin, sh, t);
-  const int64_t row0 = (int64_t)g * kChunks;
-  for (int q = threadIdx.x; q < kChunks * kWin / 4; q += kThreads) {
-    const int c = q >> 6, x = (q & 63) * 4;  // 64 quads a window
-    int32_t* dst = (x < 128 ? w0 : w1) + (row0 + c) * 128 + (x & 127);
+  __shared__ __align__(16) uint32_t swin[kGwChunks * kWin];  // 16 KiB
+  __shared__ int32_t lut[kLut];
+  __shared__ int wsum[kGwThreads / 32];
+  __shared__ int lower[kGwTiles];  // the group's lower tiles' bits
+  __shared__ __align__(8) uint64_t pushed;  // their pushes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g = blockIdx.x / kGwTiles, j = (int)cluster.block_rank();
+  if (tid == 0) init_arrivals(&pushed, max(j, 1));
+  cluster_arrive_relaxed();
+  // the thread's 8 consecutive tokens (16 threads a 128-token chunk)
+  const int4* p = reinterpret_cast<const int4*>(
+                      tokc + (int64_t)g * kGroupTok + j * kGwTile) + 2 * tid;
+  const int4 a = __ldg(p), c = __ldg(p + 1);
+  for (int k = tid; k < kLut; k += kGwThreads)
+    lut[k] = lut3[(int64_t)g * kLut + k];
+  for (int q = tid; q < kGwChunks * kWin / 4; q += kGwThreads)
+    reinterpret_cast<uint4*>(swin)[q] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const int32_t w[kItems] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+  uint32_t e[kItems];
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    e[k] = lut_word(lut, w[k]);
+    sum += token_bits(w[k], e[k]);
+  }
+  const int incl = rspt::warp_scan_incl(sum, rspt::OpSum(), false);
+  if (lane == 31) wsum[wid] = incl;
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int k = 0; k < kGwThreads / 32; ++k) {
+    before += k < wid ? wsum[k] : 0;
+    total += wsum[k];
+  }
+  // the tile's group-local bit: each tile pushes its bits into the
+  // shared memory of the group's higher tiles (lane r to rank r, once
+  // every tile's barrier is initialised) and waits for its lower ones'
+  cluster_wait();
+  if (tid > j && tid < kGwTiles) push_bits(&lower[j], &pushed, tid, total);
+  if (j > 0) wait_arrivals(&pushed);
+  int prefix = 0;
+  for (int r = 0; r < j; ++r) prefix += lower[r];
+  // the group-local bit of the thread's first token; the chunk's base
+  // word and liveness from its 16 threads (a half warp)
+  int bit = prefix + before + incl - sum;
+  const int half = lane & 16;
+  const int base = __shfl_sync(rspt::kFull, bit >> 5, half);
+  const unsigned live = __ballot_sync(rspt::kFull, sum > 0) >> half & 0xFFFFu;
+  uint32_t* win = swin + (tid >> 4) * kWin;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (!is_valid(w[k])) continue;
+    add_token(win, w[k], e[k], bit, base);
+    bit += token_bits(w[k], e[k]);
+  }
+  const int64_t row0 = (int64_t)g * kChunks + j * kGwChunks;
+  if ((tid & 15) == 0) {
+    cbase[row0 + (tid >> 4)] = base;
+    clive[row0 + (tid >> 4)] = live != 0;
+  }
+  if (j == kGwTiles - 1 && tid == 0) gtot[g] = prefix + total;
+  __syncthreads();
+  for (int q = tid; q < kGwChunks * kWin / 4; q += kGwThreads) {
+    const int ch = q >> 6, x = (q & 63) * 4;  // 64 quads a window
+    int32_t* dst = (x < 128 ? w0 : w1) + (row0 + ch) * 128 + (x & 127);
     *reinterpret_cast<uint4*>(dst) = reinterpret_cast<const uint4*>(swin)[q];
   }
-  if (threadIdx.x < kChunks) {
-    cbase[row0 + threadIdx.x] = sh.cbase[threadIdx.x];
-    clive[row0 + threadIdx.x] = sh.clive[threadIdx.x];
-  }
-  if (threadIdx.x == 0) gtot[g] = sh.total;
 }
 
 __global__ void __launch_bounds__(kX1Threads)
@@ -560,13 +681,15 @@ int smem_limit(Kernel kernel, size_t smem) {
 extern "C" int rspt_group_windows(const void* tokc, const void* lut3, void* w0,
                                   void* w1, void* cbase, void* clive,
                                   void* gtot, int ng, void* stream) {
-  const int err = smem_limit(group_windows_kernel, kWinBytes);
-  if (err) return err;
-  group_windows_kernel<<<ng, kThreads, kWinBytes, (cudaStream_t)stream>>>(
+  group_windows_kernel<<<kGwTiles * ng, kGwThreads, 0,
+                         (cudaStream_t)stream>>>(
       (const int32_t*)tokc, (const int32_t*)lut3, (int32_t*)w0, (int32_t*)w1,
       (int32_t*)cbase, (int32_t*)clive, (int32_t*)gtot);
   return (int)cudaGetLastError();
 }
+
+// Tokens of a group_windows tile (a CTA).
+extern "C" int rspt_group_windows_tile() { return kGwTile; }
 
 // w0, w1: (nsup * 32, 128) int32; drow: nsup * 32 int32; dlane: (nsup,
 // 32) int32; wbase, sbits, slive: nsup int32; out: (nrows, 128) int32,

@@ -1554,13 +1554,64 @@ def windows_edge_batch(rng, case):
     raise ValueError(case)
 
 
+def group_windows_args(args):
+    """group_windows' arguments for windows_place_flat's (a
+    WINDOWS_EDGE_CASES case, or windows_many_groups' batch): the groups'
+    tokens as one (1, ng * 8192) row and their LUTs."""
+    tokc, lut3, *_ = args
+    return tokc.reshape(1, -1)[:, :lut3.shape[0] * ck.GROUP_TOK], lut3
+
+
+# group_windows (K14) takes a tile of K14_TILE tokens a CTA
+# (windows.cu's kGwTile, rspt_group_windows_tile()), its group-local bit
+# from the bits of its group's earlier tokens. Its own edges: one group;
+# tile prefixes ending at bit 0 and at bit 31 of a word; a group whose
+# chunks are all dead but its last.
+K14_TILE = 2048
+K14_EDGE_CASES = ("one_group", "prefix_bit_0_31", "dead_but_last")
+
+
+def k14_edge_batch(rng, case):
+    """group_windows' arguments for a K14_EDGE_CASES case: (tokc (1, ng *
+    8192), lut3 (ng, 3, 128)) int32 CPU tensors."""
+    if case == "one_group":
+        tok, lut = _window_groups(rng, 1)
+    elif case == "prefix_bit_0_31":
+        # at each tile edge k * K14_TILE of 2 groups in turn, the group's
+        # bits before it = 0 (mod 32), then 31: the 3 tokens before the
+        # edge get ebits summing to what is missing
+        tok, lut = _window_groups(rng, 2)
+        edges = [(g, k * K14_TILE) for g in range(2)
+                 for k in range(1, ck.GROUP_TOK // K14_TILE)]
+        for n, (g, e) in enumerate(edges):
+            want = 31 * (n % 2)
+            tok[g, e - 3:e] &= ~np.int64((15 << 9) | (16383 << 13))
+            d = (want - int(window_bits(tok[g:g + 1, :e], lut[g:g + 1])
+                            .sum())) % 32
+            for i, eb in enumerate((min(d, 15), min(max(d - 15, 0), 15),
+                                    max(d - 30, 0))):
+                tok[g, e - 3 + i] |= (eb << 9) | (int(
+                    rng.integers(0, 1 << eb)) << 13)
+            got = int(window_bits(tok[g:g + 1, :e], lut[g:g + 1]).sum())
+            assert got % 32 == want and got > 0
+    elif case == "dead_but_last":
+        tok, lut = _window_groups(rng, 2)
+        tok[1, :-128] &= ~(1 << 27)          # group 1: chunks 0-62 dead
+        tok[1, -128:] = (rng.integers(0, 250, 128) | (2 << 9) | (3 << 13)
+                         | (1 << 27))
+    else:
+        raise ValueError(case)
+    ng = tok.shape[0]
+    return (torch.from_numpy(tok.astype(np.int32).reshape(1, -1)),
+            torch.from_numpy(lut.astype(np.int32).reshape(ng, 3, 128)))
+
+
 def x1_inputs(args):
     """place_windows_aligned's arguments for windows_place_flat's: its
     windows (group_windows' plain version) and windows_glue's 56-row
     arrays at nrows + 8 (group_layout's windows rows)."""
-    tokc, lut3, dbg, wog, gfirst, ng, nrows = args
-    w = ck.group_windows_plain(tokc.reshape(1, -1)[:, :ng * ck.GROUP_TOK],
-                               lut3)
+    _, _, dbg, wog, gfirst, _, nrows = args
+    w = ck.group_windows_plain(*group_windows_args(args))
     return (*ck.windows_glue(*w, dbg, wog, gfirst, nrows + 8, ck.AR2),
             nrows + 8)
 
@@ -1639,6 +1690,50 @@ def test_windows_edges_match_plain(dev, case):
     *x1, nrows = x1_inputs(args)
     assert torch.equal(ck.place_windows_aligned(*x1, nrows),
                        ck.place_windows_aligned_plain(*x1, nrows))
+
+
+def _same_windows(got, want):
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", list(WINDOWS_EDGE_CASES) + [
+    "k14/" + c for c in K14_EDGE_CASES])
+def test_group_windows_edges_match_plain(dev, case):
+    """group_windows on each WINDOWS_EDGE_CASES case's groups and on each
+    K14_EDGE_CASES case equals its plain version in 3 launches; the
+    library's tile is K14_TILE tokens."""
+    assert ck._lib().rspt_group_windows_tile() == K14_TILE
+    if case.startswith("k14/"):
+        args = k14_edge_batch(np.random.default_rng(160), case[4:])
+    else:
+        args = group_windows_args(windows_edge_batch(
+            np.random.default_rng(140), case))
+    args = [a.to(dev) for a in args]
+    want = ck.group_windows_plain(*args)
+    for _ in range(3):
+        _same_windows(ck.group_windows(*args), want)
+
+
+def test_group_windows_many_groups(rng, dev):
+    """group_windows on 160 groups (more tiles than the card has SMs)
+    equals its plain version on every one of 10 launches."""
+    args = group_windows_args(windows_many_groups(rng, dev)[0])
+    assert args[1].shape[0] == 160
+    want = ck.group_windows_plain(*args)
+    for _ in range(10):
+        _same_windows(ck.group_windows(*args), want)
+
+
+def test_group_windows_one_group(rng, dev):
+    """group_windows on one group (ng = 1): the first group of the
+    windows batch's pass 1 with its LUT."""
+    tokw, plan, bases, gl, _ = _windows_batch(rng, dev)
+    tokc = ck.compact_tokens(tokw, bases, plan.T)
+    args = (tokc[:ck.GROUP_TOK].reshape(1, -1).contiguous(),
+            gl.lut3[:1].contiguous())
+    _same_windows(ck.group_windows(*args), ck.group_windows_plain(*args))
 
 
 @pytest.mark.parametrize("case", X1_EDGE_CASES)

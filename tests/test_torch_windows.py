@@ -26,8 +26,11 @@ from rspt_tpu.hzr import jax_coder  # noqa: E402
 from rspt_tpu.ops import pallas_kernels as pk  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from test_torch_cuda import (WINDOWS_EDGE_CASES, X1_EDGE_CASES,  # noqa: E402
-                             windows_edge_batch, x1_edge_batch, x1_inputs)
+from test_torch_cuda import (K14_EDGE_CASES, K14_TILE,  # noqa: E402
+                             WINDOWS_EDGE_CASES, X1_EDGE_CASES,
+                             group_windows_args, k14_edge_batch,
+                             window_bits, windows_edge_batch, x1_edge_batch,
+                             x1_inputs)
 
 B = 65536
 
@@ -312,6 +315,60 @@ def _wrap32(v: int) -> int:
     return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
+def k14_model(tokc, lut3, tile=K14_TILE):
+    """group_windows as windows.cu's kernel computes it, in numpy. A tile
+    of `tile` tokens (tile / 128 chunks) a CTA, a group's tiles a
+    cluster: each tile codes its tokens and scans their bits, and its
+    group-local bit is the sum of the bits of the group's lower tiles
+    (what each tile leaves in its shared memory); a chunk's base word is
+    its first token's bit >> 5, its liveness whether any token has bits;
+    each valid token's three words are added mod 2^32 into its chunk's
+    window at min(bit >> 5 - base, 254) and the next two (index 256
+    dropped); gtot comes from the group's last tile, its prefix plus its
+    own bits. Returns (w0, w1, cbase, clive, gtot) shaped as
+    group_windows returns them, int32."""
+    ng = lut3.shape[0]
+    nt = ck.GROUP_TOK // tile
+    tok = tokc.numpy().reshape(ng, nt, tile).astype(np.int64)
+    lut = lut3.numpy().reshape(ng, 384).astype(np.int64)
+    nct = tile // 128
+    chunk = np.arange(tile) // 128
+    win = np.zeros((ng * ck.R_TV, ck.WIN), np.int64)
+    cbase, clive = (np.zeros(ng * ck.R_TV, np.int64) for _ in range(2))
+    gtot = np.zeros(ng, np.int64)
+    for g in range(ng):
+        nb_t = window_bits(tok[g], np.broadcast_to(lut[g], (nt, 384)))
+        tile_bits = nb_t.sum(1)           # each tile's, in its cluster
+        for j in range(nt):
+            prefix = int(tile_bits[:j].sum())
+            own, nb = tok[g, j], nb_t[j]
+            valid = ((own >> 27) & 1) == 1
+            sym = own & 511
+            e = lut[g, np.where(sym < 256, sym, 256 + (sym & 127))] & M32
+            cb = e >> 24
+            assert (cb[valid] < 64).all()
+            val = ((e & 0xFFFFFF).astype(np.uint64)
+                   | (((own >> 13) & 16383).astype(np.uint64)
+                      << np.where(valid, cb, 0).astype(np.uint64)))
+            bit = prefix + np.cumsum(nb) - nb
+            base = bit[::128] >> 5
+            loc = np.minimum((bit >> 5) - base[chunk], ck.WIN - 2)
+            row = g * ck.R_TV + j * nct + chunk
+            for x, c in _contributions(loc * 32 + (bit & 31), val):
+                keep = valid & (x < ck.WIN)
+                np.add.at(win, (row[keep], x[keep]), c[keep].astype(np.int64))
+            cbase[row[::128]] = base
+            clive[row[::128]] = (nb.reshape(nct, 128) > 0).any(1)
+        gtot[g] = tile_bits[:-1].sum() + tile_bits[-1]
+    win = (win & M32).astype(np.uint32).view(np.int32)
+    nc = ng * ck.R_TV
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+                 for a in (win[:, :128].reshape(1, nc, 128),
+                           win[:, 128:].reshape(1, nc, 128),
+                           cbase.reshape(1, nc), clive.reshape(1, nc),
+                           gtot.reshape(1, ng)))
+
+
 def k15_model(tokc, lut3, dbg, wog, gfirst, ng, nrows):
     """windows_place_flat as windows.cu's kernel computes it, in numpy.
     A tile of 4,096 tokens (one super) a CTA: its tokens coded and
@@ -547,3 +604,69 @@ def test_place_windows_aligned_plain_vs_super_place_on_edges(case):
         *(jnp.asarray(a.numpy()) for a in args), nrows, interpret=True)
     np.testing.assert_array_equal(ck.place_windows_aligned_plain(
         *args, nrows).numpy(), np.asarray(want))
+
+
+def _same_windows(got, want):
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def _k14_case(case):
+    """group_windows' arguments for a WINDOWS_EDGE_CASES case's groups or
+    a "k14/" K14_EDGE_CASES case."""
+    if case.startswith("k14/"):
+        return k14_edge_batch(np.random.default_rng(160), case[4:])
+    return group_windows_args(windows_edge_batch(np.random.default_rng(140),
+                                                 case))
+
+
+@pytest.mark.parametrize("tile", [K14_TILE, 1024, 4096])
+def test_k14_model_equals_plain_on_batch(batch, tile):
+    """The K14 design's order (k14_model: tiles, each tile's prefix from
+    its cluster's lower tiles, window sums mod 2^32) gives
+    group_windows_plain's five arrays on the batch (10 groups) at the
+    kernel's tile and at the other tile sizes kernel_ab.py times;
+    tolerance 0."""
+    args = (batch["tokc"].reshape(1, -1), batch["gl"].lut3)
+    _same_windows(k14_model(*args, tile), ck.group_windows_plain(*args))
+
+
+@pytest.mark.parametrize("case", list(WINDOWS_EDGE_CASES) + [
+    "k14/" + c for c in K14_EDGE_CASES])
+def test_k14_model_equals_plain_on_edges(case):
+    """k14_model equals group_windows_plain on every WINDOWS_EDGE_CASES
+    case's groups (cbits_49_63: tokens past loc 254, words dropped) and
+    on the K14_EDGE_CASES cases (one group; tile prefixes ending at bit 0
+    and bit 31 of a word; all chunks dead but the last); tolerance 0."""
+    args = _k14_case(case)
+    _same_windows(k14_model(*args), ck.group_windows_plain(*args))
+
+
+def test_k14_edge_cases_hold_what_they_name():
+    """The K14 cases hold their edges: prefixes at the tile edges of
+    0 and 31 (mod 32), the dead group's live last chunk alone."""
+    tok, lut = k14_edge_batch(np.random.default_rng(160), "prefix_bit_0_31")
+    tok = tok.numpy().reshape(2, ck.GROUP_TOK).astype(np.int64)
+    bits = np.cumsum(window_bits(tok, lut.numpy().reshape(2, 384)
+                                 .astype(np.int64)), 1)
+    ends = bits[:, K14_TILE - 1::K14_TILE][:, :-1].reshape(-1)
+    assert (ends % 32 == np.arange(ends.size) % 2 * 31).all()
+    _, _, _, clive, gtot = ck.group_windows_plain(*k14_edge_batch(
+        np.random.default_rng(160), "dead_but_last"))
+    assert clive[0, ck.R_TV:].tolist() == [0] * 63 + [1]
+    assert int(gtot[0, 1]) > 0
+
+
+# group_windows' plain version against the TPU kernel: every edge case
+# (its sums mod 2^32 are the plain version's, past cbits 32 included, as
+# the MXU prefix of nbits <= 78 is exact)
+@pytest.mark.parametrize("case", list(WINDOWS_EDGE_CASES) + [
+    "k14/" + c for c in K14_EDGE_CASES])
+def test_group_windows_plain_vs_pallas_on_edges(case):
+    """group_windows_plain equals token_group_windows_grouped_pallas in
+    interpret mode on the edge cases; tolerance 0."""
+    tokc, lut3 = _k14_case(case)
+    want = pk.token_group_windows_grouped_pallas(
+        jnp.asarray(tokc.numpy()), jnp.asarray(lut3.numpy()), interpret=True)
+    _same_windows(ck.group_windows_plain(tokc, lut3), want)
