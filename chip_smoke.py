@@ -134,6 +134,21 @@ on both ranks and the scans across them, within 180 s; (c) the
 profiler's device operations of a 4-shard encode and decode; (d) the
 walls of the sharded encode, compress and decode against the unsharded
 calls, in turns, medians of 5 [min, max].
+
+Phase 18, after phase 17: the LZ4 plane backend (plane_backend 'lz4'
+and 'lz4hc') on the main signal (xdelta at 3 planes: one xdelta_swizzle
+a compress and no tokenize_planes; compress_many of 4 payloads one
+xdelta_swizzle_batch, equal to sequential compress calls; a
+device_decode packer decoding a mixed LZ4 / hzr batch), the Hadamard
+packer at config 3 (fwht), the DCT packer at config 4 at bps 3
+(dct_forward, dct_inverse) and the Hadamard packer at one sample (no
+fwht launch; the hzr containers 52 and 58 B): every container equal to
+the device="cpu" packer's, every decode (host, device_decode,
+decompress_many) equal to the CPU's, the plain versions never called,
+the profiler's device operations holding the path's kernels; then the
+walls of compress (with its LZ4 host stage), decompress and
+decompress(device_decode) beside the hzr packer's, in turns, medians of
+5 [min, max], and the CRs.
 Exits nonzero, with no result line, when there is no CUDA card or any
 check fails. Imports nothing of JAX or of the JAX package.
 """
@@ -302,10 +317,10 @@ def wall_s(fn, reps=3):
     return statistics.median(wall_times(fn, reps))
 
 
-def spread(times):
+def spread(times, digits=4):
     """median [min, max] of a list of times, for a log line."""
-    return (f"{statistics.median(times):.4f} [{min(times):.4f}, "
-            f"{max(times):.4f}]")
+    return (f"{statistics.median(times):.{digits}f} [{min(times):.{digits}f}, "
+            f"{max(times):.{digits}f}]")
 
 
 def hadamard_input(native, ch, dev, n3=2 ** 14):
@@ -1866,6 +1881,180 @@ def check_gloo_processes():
         f"ranks, scans exact across them: {results}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the LZ4 plane backend ('lz4', 'lz4hc') on every packer
+# ---------------------------------------------------------------------------
+
+LZ4_BACKENDS = ("lz4", "lz4hc")
+LZ4_PLAIN = ("xdelta_swizzle_plain", "xdelta_swizzle_batch_plain",
+             "tokenize_planes_plain", "fwht_plain", "dct_forward_plain",
+             "dct_inverse_plain")
+
+
+def lz4_route(ck, name, make, nat, want_launches, kernel_names, dev):
+    """One packer of the LZ4 route on the card: its compress (launch
+    counts read just after, every count set to 0 just before) and its
+    decompress, the device_decode packer's decompress and
+    decompress_many of 2, the plain versions never called; the container
+    equal to the device="cpu" packer's, every decode equal to the CPU
+    packer's; the profiler's device operations of 3 compress +
+    decompress calls hold kernel_names and no tokenize kernel. Returns
+    the container."""
+    p, pd = make(), make(device_decode=True)
+    with CountCalls(ck, LZ4_PLAIN) as plain:
+        comp, got_c = launched_by(ck, lambda: p.compress(nat))
+        rec, got_d = launched_by(ck, lambda: p.decompress(comp)[0])
+        rec_dd = pd.decompress(comp)[0]
+        rec_many = pd.decompress_many([comp, comp])
+        torch.cuda.synchronize()
+    cpu = make(device="cpu")
+    cpu_comp = cpu.compress(nat)
+    want = cpu.decompress(cpu_comp)[0]
+    if comp != cpu_comp or not comp[0] & 0x40:
+        raise AssertionError(f"{name}: card and CPU containers differ")
+    if not rec == rec_dd == want or rec_many != [want] * 2:
+        raise AssertionError(f"{name}: a decode differs from the CPU's")
+    if (got_c, got_d) != want_launches or any(plain.calls.values()):
+        raise AssertionError(f"{name}: launches {got_c} / {got_d}, not "
+                             f"{want_launches}; plain {plain.calls}")
+    names = device_op_names(lambda: p.decompress(p.compress(nat)), reps=3)
+    ran = [k for k in kernel_names if any(k in o for o in names)]
+    if ran != list(kernel_names) or any("tokenize" in o for o in names):
+        raise AssertionError(f"{name}: the profiler saw {names}")
+    ours = [m.group(1) for m in (re.search(r"namespace\)::(\w+_kernel)", o)
+                                 for o in names) if m]
+    log(f"phase 18: {name}: {len(nat)} B -> {len(comp)} B, container equal "
+        f"to the CPU's; decompress, with device_decode and decompress_many "
+        f"of 2 equal to the CPU's; launches compress {got_c}, decompress "
+        f"{got_d}; no plain version called; device operations of a "
+        f"compress and a decompress: {len(names)} kinds, the port's "
+        f"kernels among them {ours}")
+    return comp
+
+
+def check_lz4_path(packers, ck, sig, native, comp, ch, ns, dev, smi,
+                   n3=2 ** 14, n4=4096):
+    """Phase 18: the LZ4 plane backend, both encoders ('lz4' greedy,
+    'lz4hc' hash chains), on the card. The main signal (12 x 34,199, bps
+    4, xdelta at 3 planes): a compress is one xdelta_swizzle and no
+    tokenize_planes, a decompress no kernel; compress_many of 4 payloads
+    one xdelta_swizzle_batch, equal to sequential compress calls; the
+    device_decode packer decodes a batch of LZ4 and hzr containers. The
+    Hadamard packer at config 3 (2^14 samples: fwht on compress and on
+    decompress), the DCT packer at config 4 (4,096 samples at bps 3:
+    dct_forward, dct_inverse) and the Hadamard packer at one sample (no
+    fwht launch), each against its device="cpu" packer. Then the walls
+    of compress, its LZ4 host stage, decompress and decompress with
+    device_decode beside the hzr packer's, in turns, medians of 5 [min,
+    max], and each CR beside the hzr container's."""
+    from rspt_tpu_torch.utils import metrics
+    nat3 = native[:n3 * ch * 4]
+    nat4 = to_native(np.ascontiguousarray(sig[:, :n4]) >> 8, 3)
+    one = {c: native[:4 * c] for c in (1, 3)}
+    rolled = [to_native(np.roll(sig, 977 * k, axis=1), 4) for k in range(4)]
+    crs = {}
+    for be in LZ4_BACKENDS:
+        def xd(be=be, **kw):
+            return packers.new_xdelta_hzr(4, ch, ns, 3, plane_backend=be,
+                                          **kw)
+        c_lz = lz4_route(ck, f"xdelta {be}", xd, native,
+                         ({"xdelta_swizzle": 1}, {}),
+                         ("xdelta_swizzle_kernel",), dev)
+        pm = xd()
+        many, got = launched_by(ck, lambda: pm.compress_many(rolled))
+        seq = xd()
+        if many != [seq.compress(r) for r in rolled] or got != {
+                "xdelta_swizzle_batch": 1}:
+            raise AssertionError(f"{be}: compress_many of 4: launches {got},"
+                                 f" equal to sequential {many == seq}")
+        pdd = packers.new_xdelta_hzr(4, ch, ns, 3, device_decode=True)
+        mixed = pdd.decompress_many([c_lz, comp, c_lz])
+        if mixed != [native] * 3 or not pdd.decode_info["tiles"]:
+            raise AssertionError(f"{be}: a mixed LZ4 / hzr batch")
+        log(f"phase 18: xdelta {be}: compress_many of 4 payloads {got}, "
+            f"equal to 4 compress calls, stages {pm.stage_seconds}; an hzr "
+            f"device_decode packer decodes [lz4, hzr, lz4] exactly")
+
+        def had(be=be, **kw):
+            return packers.new_hadamard(4, ch, n3, plane_backend=be, **kw)
+        lz4_route(ck, f"Hadamard 2^14 {be}", had, nat3,
+                  ({"fwht": 1}, {"fwht": 1}), ("fwht_kernel",), dev)
+
+        def dct(be=be, **kw):
+            return packers.new_dct(3, ch, n4, plane_backend=be, **kw)
+        lz4_route(ck, f"DCT 4,096 bps 3 {be}", dct, nat4,
+                  ({"dct_forward": 1}, {"dct_inverse": 1}),
+                  ("dct_forward_kernel", "dct_inverse_kernel"), dev)
+        for c in (1, 3):
+            def had1(be=be, c=c, **kw):
+                return packers.new_hadamard(4, c, 1, plane_backend=be, **kw)
+            lz4_route(ck, f"Hadamard n = 1, {c} channels, {be}", had1,
+                      one[c], ({}, {}), (), dev)
+    for c in (1, 3):
+        h1, ch1 = packers.new_hadamard(4, c, 1), packers.new_hadamard(
+            4, c, 1, device="cpu")
+        c1, got = launched_by(ck, lambda: h1.compress(one[c]))
+        rec1, got_d = launched_by(ck, lambda: h1.decompress(c1)[0])
+        if (c1 != ch1.compress(one[c]) or len(c1) != {1: 52, 3: 58}[c]
+                or rec1 != ch1.decompress(c1)[0] or "fwht" in got
+                or got_d):
+            raise AssertionError(f"Hadamard n = 1 hzr, {c} channels: "
+                                 f"{len(c1)} B, launches {got} / {got_d}")
+        log(f"phase 18: Hadamard n = 1 hzr, {c} channels: {len(c1)} B equal "
+            f"to the CPU's, decoded; launches {got} / {got_d} (no fwht)")
+    for name, nat, mk in (
+            ("xdelta", native,
+             lambda **kw: packers.new_xdelta_hzr(4, ch, ns, 3, **kw)),
+            ("Hadamard 2^14", nat3,
+             lambda **kw: packers.new_hadamard(4, ch, n3, **kw)),
+            ("DCT 4,096 bps 3", nat4,
+             lambda **kw: packers.new_dct(3, ch, n4, **kw))):
+        crs[name] = {be: metrics.compression_ratio(
+            len(nat), len(mk(plane_backend=be).compress(nat)))
+            for be in ("hzr", *LZ4_BACKENDS)}
+    log("phase 18: CR hzr / lz4 / lz4hc: " + "; ".join(
+        f"{k} " + " / ".join(f"{v:.4f}" for v in r.values())
+        for k, r in crs.items()))
+    time_lz4_path(packers, native, ch, ns, smi)
+
+
+def time_lz4_path(packers, native, ch, ns, smi):
+    """Phase 18's walls on the main signal: compress (with its LZ4 host
+    stage), decompress on the host path and with device_decode, for the
+    hzr, lz4 and lz4hc packers in turns, medians of 5 [min, max]."""
+    pk = {be: packers.new_xdelta_hzr(4, ch, ns, 3, plane_backend=be)
+          for be in ("hzr", *LZ4_BACKENDS)}
+    pdd = packers.new_xdelta_hzr(4, ch, ns, 3, device_decode=True)
+    comps = {be: p.compress(native) for be, p in pk.items()}
+    walls = {f"{w} {be}": [] for w in ("compress", "lz4 stage", "fetch "
+                                       "stage", "decompress",
+                                       "device_decode") for be in pk}
+    stages = {}
+    for be in pk:
+        pdd.decompress(comps[be])
+    for _ in range(5):
+        for be, p in pk.items():
+            walls[f"compress {be}"] += wall_times(
+                lambda: p.compress(native), reps=1)
+            stages[be] = dict(p.stage_seconds)
+            walls[f"lz4 stage {be}"].append(p.stage_seconds.get("lz4", 0.0))
+            walls[f"fetch stage {be}"].append(
+                p.stage_seconds.get("fetch", 0.0))
+            walls[f"decompress {be}"] += wall_times(
+                lambda: p.decompress(comps[be]), reps=1)
+            walls[f"device_decode {be}"] += wall_times(
+                lambda: pdd.decompress(comps[be]), reps=1)
+    for w in ("compress", "lz4 stage", "fetch stage", "decompress",
+              "device_decode"):
+        log(f"phase 18: {w} walls on {smi}, s, medians of 5 [min, max] in "
+            f"turns: " + "; ".join(
+                f"{be} {spread(walls[f'{w} {be}'], 6)}" for be in pk
+                if w not in ("lz4 stage", "fetch stage") or be != "hzr"))
+    log(f"phase 18: stages of the last compress: {stages}; of the last "
+        f"decompress: lz4 {pk['lz4'].stage_seconds}, hzr "
+        f"{pk['hzr'].stage_seconds}")
+
+
 def gloo_worker(rank: int, port: int) -> int:
     """One of check_gloo_processes' two workers."""
     import datetime
@@ -3039,6 +3228,9 @@ def main() -> int:
     check_gloo_processes()
     time_shard_path(tc, gd, packers, native, main_streams, shard, ch, ns,
                     dev, smi)
+    # phase 18: the LZ4 plane backend on every packer, and its walls
+    del shard
+    check_lz4_path(packers, ck, sig, native, comp, ch, ns, dev, smi)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

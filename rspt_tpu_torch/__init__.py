@@ -13,11 +13,18 @@ plain PyTorch versions instead)::
     comp = p.compress(native_bytes)
     out, consumed = p.decompress(comp)
 
-The streaming path (BASELINE config 5) is ``rspt_tpu_torch.pipeline``:
-``StreamingCodec(StreamConfig(...)).push(native_bytes)`` gives frames.
-The batch signal ops are ``filters.torch_filters`` (``iir_apply``,
-``fir_apply``) and ``analysis`` (``detect_batch``,
-``detect_offline_batch``, the rolling medians).
+Every packer factory takes ``plane_backend='hzr'`` (the default),
+``'lz4'`` or ``'lz4hc'``: LZ4 planes are coded in the port's host
+runtime (``native``) after pass 1 on the card, and every packer decodes
+both kinds of container. The streaming path (BASELINE config 5) is
+``rspt_tpu_torch.pipeline``: ``StreamingCodec(StreamConfig(...))
+.push(native_bytes)`` gives frames. The batch signal ops are
+``filters.torch_filters`` (``iir_apply``, ``fir_apply``) and
+``analysis`` (``detect_batch``, ``detect_offline_batch``, the rolling
+medians). ``parallel`` shards the hzr block codec over cards or
+processes (``make_mesh``, ``ShardedHzrEncoder``, ``ShardedHzrDecoder``).
+``containers`` holds the host tensors and JSON configs (``Tensor``,
+``to_torch(device)``), ``utils.metrics`` CR, PRDN and throughput.
 
 Streams and containers are byte-identical to ``rspt_tpu``'s.
 """
@@ -26,4 +33,4 @@ from . import packers  # noqa: F401
 
 __version__ = "0.1.0"
 __all__ = ["packers", "formats", "hzr", "ops", "native", "filters", "io",
-           "pipeline", "analysis"]
+           "pipeline", "analysis", "parallel", "containers", "utils"]

@@ -1,1 +1,2 @@
-"""hzr format constants and CRC32C (own copies of rspt_tpu/formats)."""
+"""hzr format constants, CRC32C and the LZ4 block spec codec (own copies
+of rspt_tpu/formats)."""

@@ -7,9 +7,13 @@ as ``hzr.torch_coder.host_tables_plain``, the decoders as
 ``lut_nib_batch`` as ``hzr.gpu_decoder.build_lut_nib`` of
 ``hzr.pyref._recover_tree``, and ``iir_filter_array`` /
 ``iir_filter_channels`` as ``filters.streaming.IirFilter``'s
-``filter_opt`` (opt 1) and ``filter`` (opt 0) loops, bit for bit. Bad
-input raises ValueError, as the plain versions do. The library is built on the first call (``_build``); a
-failed build raises.
+``filter_opt`` (opt 1) and ``filter`` (opt 0) loops, bit for bit. The LZ4
+calls (``lz4_compress``, ``lz4_compress_hc``, ``lz4_decompress`` and the
+plane batches ``lz4_encode_planes`` / ``lz4_decode_planes``) write and
+read the reference runtime's LZ4 block bytes; ``formats.lz4_block`` is
+their spec decoder. Bad input raises ValueError, as the plain versions
+do. The library is built on the first call (``_build``); a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ NIB_CHUNK = 64        # blocks a LUT batch call: 4.3 MB of slot scratch
 _P = ctypes.c_void_p
 _SZ = ctypes.c_size_t
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "rpt_crc32c": (ctypes.c_uint32, [_P, _SZ, ctypes.c_uint32]),
     "rpt_crc32c_sw": (ctypes.c_uint32, [_P, _SZ, ctypes.c_uint32]),
@@ -45,6 +50,12 @@ _SIGNATURES = {
     "rpt_iir_filter_array": (None, [_P, _SZ, _P, _P, _I, _P, _P, _I, _P]),
     "rpt_iir_filter_channels": (None, [_P, _SZ, _SZ, _P, _P, _I, _P, _P, _I,
                                        _P, _I]),
+    "rpt_lz4_max_compressed": (_LL, [_LL]),
+    "rpt_lz4_compress": (_LL, [_P, _LL, _P, _LL]),
+    "rpt_lz4_compress_hc": (_LL, [_P, _LL, _P, _LL, _I]),
+    "rpt_lz4_decompress": (_LL, [_P, _LL, _P, _LL]),
+    "rpt_lz4_encode_planes": (_I, [_P, _I, _SZ, _I, _P, _P]),
+    "rpt_lz4_decode_planes": (_I, [_P, _SZ, _I, _SZ, _P, _P]),
 }
 
 
@@ -251,3 +262,74 @@ def iir_filter_channels(x, n, d, xz: np.ndarray, yz: np.ndarray, opt: int,
                                    _p(xz), _p(yz), int(opt), _p(y),
                                    int(nthreads))
     return y
+
+
+def _lz4_out(n: int) -> np.ndarray:
+    return np.empty(int(_lib().rpt_lz4_max_compressed(n)), np.uint8)
+
+
+def lz4_compress(data) -> bytes:
+    """Greedy LZ4 block compress (the reference runtime's
+    rspt_lz4_compress bytes)."""
+    buf = _u8(data)
+    out = _lz4_out(buf.size)
+    n = _lib().rpt_lz4_compress(_p(buf), buf.size, _p(out), out.size)
+    if n <= 0:
+        raise ValueError("lz4 compress failed")
+    return out[:n].tobytes()
+
+
+def lz4_compress_hc(data, depth: int = 256) -> bytes:
+    """LZ4HC-class block compress: hash chains searched depth entries
+    deep and one-step lazy matching (the reference runtime's
+    rspt_lz4_compress_hc bytes; depth <= 0 means 256)."""
+    buf = _u8(data)
+    out = _lz4_out(buf.size)
+    n = _lib().rpt_lz4_compress_hc(_p(buf), buf.size, _p(out), out.size,
+                                   int(depth))
+    if n <= 0:
+        raise ValueError("lz4 hc compress failed")
+    return out[:n].tobytes()
+
+
+def lz4_decompress(data, out_len: int) -> bytes:
+    """Bounds-checked LZ4 block decompress of exactly out_len bytes;
+    raises ValueError on malformed input or another size."""
+    buf = _u8(data)
+    out = np.empty(max(out_len, 1), np.uint8)
+    n = _lib().rpt_lz4_decompress(_p(buf), buf.size, _p(out), out_len)
+    if n != out_len:
+        raise ValueError(f"lz4 decompress failed (rc={n})")
+    return out[:out_len].tobytes()
+
+
+def lz4_encode_planes(planes: np.ndarray, hc: bool = False) -> List[bytes]:
+    """Each row of planes ((nplanes, plane_len) uint8) as an LZ4 block,
+    the rows in threads: [lz4_compress(row)] or, with hc,
+    [lz4_compress_hc(row)], byte for byte."""
+    a = np.ascontiguousarray(planes, np.uint8)
+    if a.ndim != 2:
+        raise ValueError("lz4: planes must be (nplanes, plane_len)")
+    nplanes, plane_len = a.shape
+    cap = int(_lib().rpt_lz4_max_compressed(plane_len))
+    out = np.empty((nplanes, cap), np.uint8)
+    lens = np.zeros(nplanes, np.int64)
+    if _lib().rpt_lz4_encode_planes(_p(a), nplanes, plane_len, int(hc),
+                                    _p(out), _p(lens)):
+        raise ValueError("lz4 compress failed")
+    return [out[k, :lens[k]].tobytes() for k in range(nplanes)]
+
+
+def lz4_decode_planes(src, nplanes: int, plane_len: int
+                      ) -> Tuple[np.ndarray, int]:
+    """A container's plane section — nplanes times [u32 length][LZ4
+    block of plane_len bytes] — decoded with the planes in threads.
+    Returns ((nplanes, plane_len) uint8, bytes consumed); raises
+    ValueError on a truncated section or a malformed plane."""
+    buf = _u8(src)
+    planes = np.empty((nplanes, plane_len), np.uint8)
+    consumed = ctypes.c_size_t(0)
+    if _lib().rpt_lz4_decode_planes(_p(buf), buf.size, nplanes, plane_len,
+                                    _p(planes), ctypes.addressof(consumed)):
+        raise ValueError("lz4: corrupt or truncated plane streams")
+    return planes, consumed.value

@@ -11,7 +11,10 @@
 //   * the nibble-level decode LUTs of the device decoder, recovered
 //     straight from HUFF payload bits;
 //   * the streaming path's serial f64 IIR filter, one channel or all of
-//     them in threads, in both of the reference's accumulation orders.
+//     them in threads, in both of the reference's accumulation orders;
+//   * the LZ4 block codec of the LZ4 plane backend (greedy and HC
+//     encoders, the bounds-checked decoder), a container's planes in
+//     threads.
 // Tree build, tree recovery and the bit reader are copied unchanged:
 // their order is what keeps every stream byte-identical; the IIR's
 // operation order (and -ffp-contract=off) keeps its f64 bits equal.
@@ -1154,6 +1157,438 @@ void rpt_iir_filter_channels(const double* x, size_t ch, size_t n,
             ts.emplace_back(work, ch * t / nt, ch * (t + 1) / nt);
         for (auto& th : ts) th.join();
     }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// LZ4 block codec, the plane backend of the packers' plane_backend='lz4'
+// and 'lz4hc' (the copy of rspt_tpu/native/rspt_native.cpp:2804-3160).
+//
+// Format (the public LZ4 block format):
+//   sequence := token(1B: hi nibble literal_len, lo nibble match_len-4)
+//               [literal_len ext: 255* then <255] literals
+//               offset(2B LE, 1..65535) [match_len ext: 255* then <255]
+//   last sequence is literals-only; the encoders keep the final 5 bytes
+//   as literals and start no match within the final 12 bytes.
+// The greedy and HC encoders write the reference's bytes; the HC hash
+// chain takes each position once (a watermark), where the reference can
+// link a position into its own chain again and form a cycle.
+// ---------------------------------------------------------------------------
+
+namespace {
+namespace lz4blk {
+
+constexpr int kHashLog = 16;
+constexpr size_t kMinMatch = 4;
+constexpr size_t kLastLiterals = 5;
+constexpr size_t kMfLimit = 12;
+constexpr size_t kMaxOffset = 65535;
+
+static inline uint32_t rd32(const uint8_t* p) {
+    uint32_t v;
+    std::memcpy(&v, p, 4);
+    return v;
+}
+
+static inline uint32_t hash4(uint32_t v) {
+    return (v * 2654435761u) >> (32 - kHashLog);
+}
+
+// 5-byte hash: fewer collisions than 4-byte on low-entropy data, so the
+// stored candidate is likelier to extend into a long match.
+static inline uint32_t hash5(const uint8_t* p) {
+    uint64_t v;
+    std::memcpy(&v, p, 8);
+    return (uint32_t)(((v << 24) * 889523592379ull) >> (64 - kHashLog));
+}
+
+// Length of the common prefix of [a, alimit) and the run at b (b < a).
+static inline size_t run_fwd(const uint8_t* a, const uint8_t* b,
+                             const uint8_t* alimit) {
+    const uint8_t* a0 = a;
+    while (a + 8 <= alimit) {
+        uint64_t xa, xb;
+        std::memcpy(&xa, a, 8);
+        std::memcpy(&xb, b, 8);
+        uint64_t x = xa ^ xb;
+        if (x) return (size_t)(a - a0) + ((size_t)__builtin_ctzll(x) >> 3);
+        a += 8;
+        b += 8;
+    }
+    while (a < alimit && *a == *b) {
+        ++a;
+        ++b;
+    }
+    return (size_t)(a - a0);
+}
+
+// A length nibble's extension bytes: 255* then a byte < 255.
+static inline uint8_t* put_ext(uint8_t* op, size_t l) {
+    while (l >= 255) {
+        *op++ = 255;
+        l -= 255;
+    }
+    *op++ = (uint8_t)l;
+    return op;
+}
+
+// The last, literals-only sequence [anchor, iend); the stream's size, or
+// 0 if dst is too small.
+static long long emit_last(const uint8_t* anchor, const uint8_t* iend,
+                           uint8_t* op, uint8_t* oend, uint8_t* dst) {
+    size_t lit = (size_t)(iend - anchor);
+    if ((size_t)(oend - op) < 1 + lit / 255 + 1 + lit) return 0;
+    if (lit >= 15) {
+        *op++ = 0xF0;
+        op = put_ext(op, lit - 15);
+    } else {
+        *op++ = (uint8_t)(lit << 4);
+    }
+    std::memcpy(op, anchor, lit);
+    op += lit;
+    return (long long)(op - dst);
+}
+
+// One sequence: the literals [anchor, ip), then a match of mlen at
+// offset off. Returns the new output position, or nullptr if the
+// sequence and a last one of kLastLiterals bytes might not fit.
+static uint8_t* emit_seq(uint8_t* op, uint8_t* oend, const uint8_t* anchor,
+                         const uint8_t* ip, size_t mlen, size_t off) {
+    size_t lit = (size_t)(ip - anchor);
+    size_t need = 1 + lit / 255 + 1 + lit + 2 + (mlen - kMinMatch) / 255 +
+                  1 + kLastLiterals + 2;
+    if ((size_t)(oend - op) < need) return nullptr;
+    uint8_t* token = op++;
+    if (lit >= 15) {
+        *token = 0xF0;
+        op = put_ext(op, lit - 15);
+    } else {
+        *token = (uint8_t)(lit << 4);
+    }
+    std::memcpy(op, anchor, lit);
+    op += lit;
+    uint16_t off16 = (uint16_t)off;
+    std::memcpy(op, &off16, 2);
+    op += 2;
+    size_t m = mlen - kMinMatch;
+    if (m >= 15) {
+        *token |= 15;
+        op = put_ext(op, m - 15);
+    } else {
+        *token |= (uint8_t)m;
+    }
+    return op;
+}
+
+// Greedy hash-table compressor (LZ4_compress_default class).
+long long compress_greedy(const uint8_t* src, size_t n, uint8_t* dst,
+                          size_t cap) {
+    uint8_t* op = dst;
+    uint8_t* const oend = dst + cap;
+    const uint8_t* ip = src;
+    const uint8_t* const iend = src + n;
+    const uint8_t* anchor = src;
+    if (n <= kMfLimit) return emit_last(anchor, iend, op, oend, dst);
+
+    std::vector<uint32_t> htab((size_t)1 << kHashLog, 0);
+    const uint8_t* const mflimit = iend - kMfLimit;
+    const uint8_t* const matchlimit = iend - kLastLiterals;
+
+    htab[hash5(ip)] = 0;
+    ++ip;
+
+    for (;;) {
+        // -- find a match (skip-accelerated probe) --
+        const uint8_t* cand;
+        uint32_t probes = 1u << 6;
+        for (;;) {
+            if (ip > mflimit) return emit_last(anchor, iend, op, oend, dst);
+            uint32_t h = hash5(ip);
+            cand = src + htab[h];
+            htab[h] = (uint32_t)(ip - src);
+            if (cand < ip && (size_t)(ip - cand) <= kMaxOffset &&
+                rd32(cand) == rd32(ip))
+                break;
+            ip += (probes++ >> 6);
+        }
+        // -- extend backwards over pending literals --
+        while (ip > anchor && cand > src && ip[-1] == cand[-1]) {
+            --ip;
+            --cand;
+        }
+        size_t mlen =
+            kMinMatch + run_fwd(ip + kMinMatch, cand + kMinMatch, matchlimit);
+        op = emit_seq(op, oend, anchor, ip, mlen, (size_t)(ip - cand));
+        if (!op) return 0;
+        ip += mlen;
+        anchor = ip;
+        if (ip > mflimit) return emit_last(anchor, iend, op, oend, dst);
+        // refresh the table near the match tail so runs keep chaining
+        htab[hash5(ip - 2)] = (uint32_t)(ip - 2 - src);
+    }
+}
+
+// High-compression variant (LZ4HC class): depth-bounded hash-chain
+// candidate search with one-step lazy matching. Each position enters its
+// hash chain once: after a backward extension the reference inserts the
+// positions it walked back over again and can link one into its own
+// chain (a cycle); here a position at or below the highest inserted one
+// is skipped, so the chains stay in decreasing order.
+long long compress_hc(const uint8_t* src, size_t n, uint8_t* dst, size_t cap,
+                      int depth) {
+    if (depth <= 0) depth = 256;
+    uint8_t* op = dst;
+    uint8_t* const oend = dst + cap;
+    const uint8_t* ip = src;
+    const uint8_t* const iend = src + n;
+    const uint8_t* anchor = src;
+    if (n <= kMfLimit) return emit_last(anchor, iend, op, oend, dst);
+    const uint8_t* const mflimit = iend - kMfLimit;
+    const uint8_t* const matchlimit = iend - kLastLiterals;
+
+    std::vector<int32_t> head((size_t)1 << kHashLog, -1);
+    std::vector<int32_t> chain(n, -1);
+    int32_t inserted = -1;     // the highest position in a chain
+    auto insert = [&](const uint8_t* p) {
+        int32_t pos = (int32_t)(p - src);
+        if (pos <= inserted) return;
+        uint32_t h = hash4(rd32(p));
+        chain[pos] = head[h];
+        head[h] = pos;
+        inserted = pos;
+    };
+    auto best_match = [&](const uint8_t* p,
+                          const uint8_t** bcand) -> size_t {
+        size_t best = 0;
+        int32_t cand = head[hash4(rd32(p))];
+        int d = depth;
+        while (cand >= 0 && d-- > 0) {
+            const uint8_t* cp = src + cand;
+            if ((size_t)(p - cp) > kMaxOffset) break;  // older = farther
+            if (rd32(cp) == rd32(p)) {
+                size_t len = kMinMatch + run_fwd(p + kMinMatch,
+                                                 cp + kMinMatch, matchlimit);
+                if (len > best) {
+                    best = len;
+                    *bcand = cp;
+                }
+            }
+            cand = chain[cand];
+        }
+        return best >= kMinMatch ? best : 0;
+    };
+
+    insert(ip);
+    ++ip;
+    while (ip <= mflimit) {
+        const uint8_t* cand = nullptr;
+        size_t mlen = best_match(ip, &cand);
+        if (!mlen) {
+            insert(ip);
+            ++ip;
+            continue;
+        }
+        // one-step lazy deferral: a strictly longer match starting one
+        // byte later buys more than the literal it costs
+        while (ip + 1 <= mflimit) {
+            insert(ip);
+            const uint8_t* cand2 = nullptr;
+            size_t m2 = best_match(ip + 1, &cand2);
+            if (m2 > mlen + 1) {
+                ++ip;
+                mlen = m2;
+                cand = cand2;
+            } else {
+                break;
+            }
+        }
+        while (ip > anchor && cand > src && ip[-1] == cand[-1]) {
+            --ip;
+            --cand;
+        }
+        op = emit_seq(op, oend, anchor, ip, mlen, (size_t)(ip - cand));
+        if (!op) return 0;
+        // index every position the match covered (what makes HC find
+        // overlapping candidates the greedy single-slot table misses)
+        const uint8_t* stop = ip + mlen < mflimit ? ip + mlen : mflimit;
+        for (const uint8_t* p2 = ip + 1; p2 < stop; ++p2) insert(p2);
+        ip += mlen;
+        anchor = ip;
+    }
+    return emit_last(anchor, iend, op, oend, dst);
+}
+
+// Bounds-checked decompressor (LZ4_decompress_safe class): the decoded
+// size, or -1 on malformed input or overflow.
+long long decompress(const uint8_t* src, size_t n, uint8_t* dst,
+                     size_t cap) {
+    if (n == 0) return -1;
+    const uint8_t* ip = src;
+    const uint8_t* const iend = src + n;
+    uint8_t* op = dst;
+    uint8_t* const oend = dst + cap;
+
+    for (;;) {
+        if (ip >= iend) return -1;
+        uint32_t token = *ip++;
+        size_t lit = token >> 4;
+        if (lit == 15) {
+            uint32_t b;
+            do {
+                if (ip >= iend) return -1;
+                b = *ip++;
+                lit += b;
+            } while (b == 255);
+        }
+        if ((size_t)(iend - ip) < lit || (size_t)(oend - op) < lit) return -1;
+        std::memcpy(op, ip, lit);
+        op += lit;
+        ip += lit;
+        if (ip == iend) break;  // last sequence: literals only
+
+        if ((size_t)(iend - ip) < 2) return -1;
+        uint16_t off16;
+        std::memcpy(&off16, ip, 2);
+        ip += 2;
+        size_t off = off16;
+        if (off == 0 || (size_t)(op - dst) < off) return -1;
+
+        size_t mlen = (token & 15) + kMinMatch;
+        if ((token & 15) == 15) {
+            uint32_t b;
+            do {
+                if (ip >= iend) return -1;
+                b = *ip++;
+                mlen += b;
+            } while (b == 255);
+        }
+        if ((size_t)(oend - op) < mlen) return -1;
+        const uint8_t* mp = op - off;
+        if (off >= 8) {
+            size_t i = 0;
+            for (; i + 8 <= mlen; i += 8) std::memcpy(op + i, mp + i, 8);
+            for (; i < mlen; ++i) op[i] = mp[i];
+        } else {
+            for (size_t i = 0; i < mlen; ++i) op[i] = mp[i];
+        }
+        op += mlen;
+    }
+    return (long long)(op - dst);
+}
+
+size_t max_compressed(size_t n) { return n + n / 255 + 16; }
+
+// fn(k) for k in [0, m) on the pool, a plane a slot; false if any call
+// threw (an allocation that failed).
+bool each_plane(int m, const std::function<void(int)>& fn) {
+    std::atomic<bool> ok{true};
+    std::function<void(int)> slot = [&](int k) {
+        try {
+            fn(k);
+        } catch (...) {
+            ok.store(false);
+        }
+    };
+    ThreadPool::inst().run(m, slot);
+    return ok.load();
+}
+
+}  // namespace lz4blk
+}  // namespace
+
+extern "C" {
+
+long long rpt_lz4_max_compressed(long long n) {
+    return (long long)lz4blk::max_compressed((size_t)n);
+}
+
+// Greedy compress of src[0, n) into dst[0, cap): the stream's size, or 0
+// if dst is too small.
+long long rpt_lz4_compress(const uint8_t* src, long long n, uint8_t* dst,
+                           long long cap) {
+    if (n < 0 || cap <= 0) return 0;
+    try {
+        return lz4blk::compress_greedy(src, (size_t)n, dst, (size_t)cap);
+    } catch (...) {
+        return 0;
+    }
+}
+
+// HC compress (hash chains depth entries deep, 256 if depth <= 0).
+long long rpt_lz4_compress_hc(const uint8_t* src, long long n, uint8_t* dst,
+                              long long cap, int depth) {
+    if (n < 0 || cap <= 0) return 0;
+    try {
+        return lz4blk::compress_hc(src, (size_t)n, dst, (size_t)cap, depth);
+    } catch (...) {
+        return 0;
+    }
+}
+
+// Decode of src[0, n) into dst[0, cap): the decoded size, or -1.
+long long rpt_lz4_decompress(const uint8_t* src, long long n, uint8_t* dst,
+                             long long cap) {
+    if (n <= 0 || cap < 0) return -1;
+    return lz4blk::decompress(src, (size_t)n, dst, (size_t)cap);
+}
+
+// Every plane of a container (or of several) in one call, a plane a
+// pool slot: plane k = planes[k * plane_len, (k + 1) * plane_len) goes to
+// out[k * rpt_lz4_max_compressed(plane_len), ...), its size to
+// out_lens[k]; hc selects compress_hc at its default depth (256). Each
+// plane's bytes are the single-plane call's. Returns 0, or 1 if a plane
+// failed.
+int rpt_lz4_encode_planes(const uint8_t* planes, int nplanes,
+                          size_t plane_len, int hc, uint8_t* out,
+                          long long* out_lens) {
+    if (nplanes < 0) return 1;
+    const size_t cap = lz4blk::max_compressed(plane_len);
+    bool ok = lz4blk::each_plane(nplanes, [&](int k) {
+        const uint8_t* src = planes + (size_t)k * plane_len;
+        uint8_t* dst = out + (size_t)k * cap;
+        out_lens[k] = hc ? lz4blk::compress_hc(src, plane_len, dst, cap, 0)
+                         : lz4blk::compress_greedy(src, plane_len, dst, cap);
+    });
+    if (!ok) return 1;
+    for (int k = 0; k < nplanes; ++k)
+        if (out_lens[k] <= 0) return 1;
+    return 0;
+}
+
+// A container's plane section — nplanes times [u32 length][LZ4 block of
+// plane_len bytes] — decoded a plane a pool slot into planes
+// (nplanes, plane_len). Every length is checked before any plane is
+// decoded. Returns 0 with *consumed the section's bytes, or 1 on a
+// truncated section or a plane that is malformed or does not decode to
+// exactly plane_len bytes.
+int rpt_lz4_decode_planes(const uint8_t* in, size_t in_len, int nplanes,
+                          size_t plane_len, uint8_t* planes,
+                          size_t* consumed) {
+    if (nplanes < 0) return 1;
+    std::vector<size_t> starts(nplanes), lens(nplanes);
+    size_t pos = 0;
+    for (int k = 0; k < nplanes; ++k) {
+        if (in_len - pos < 4) return 1;
+        uint32_t l32;
+        std::memcpy(&l32, in + pos, 4);
+        pos += 4;
+        if (in_len - pos < l32) return 1;
+        starts[k] = pos;
+        lens[k] = l32;
+        pos += l32;
+    }
+    std::vector<long long> got(nplanes, -1);
+    bool ok = lz4blk::each_plane(nplanes, [&](int k) {
+        got[k] = lz4blk::decompress(in + starts[k], lens[k],
+                                    planes + (size_t)k * plane_len,
+                                    plane_len);
+    });
+    if (!ok) return 1;
+    for (int k = 0; k < nplanes; ++k)
+        if (got[k] != (long long)plane_len) return 1;
+    *consumed = pos;
+    return 0;
 }
 
 }  // extern "C"

@@ -742,6 +742,7 @@ pack_blocks_tokw.launches = 0
 # ---------------------------------------------------------------------------
 
 def fwht_plain(x: torch.Tensor) -> torch.Tensor:
+    """fwht on the host's torch ops; n = 1 is the identity (a copy)."""
     rows, n = x.shape
     v = x.to(torch.int64) & _M32
     h = n >> 1
@@ -755,8 +756,9 @@ def fwht_plain(x: torch.Tensor) -> torch.Tensor:
 
 def fwht(x: torch.Tensor) -> torch.Tensor:
     """Walsh-Hadamard transform along the rows of x ((rows, n) int32,
-    n = 2^k, 2 <= n <= 2^30), int32 wraparound butterflies
-    (fwht.c:4-28); a new tensor, x unchanged. On the card a row of
+    n = 2^k, 1 <= n <= 2^30), int32 wraparound butterflies
+    (fwht.c:4-28); a new tensor, x unchanged. At n = 1 the transform is
+    the identity: a copy, on the card with no launch. On the card a row of
     n > 2,048 words is a cluster of n / 2,048 CTAs (up to 16); rows
     longer than 2^15 add one global pass per 5 index bits above that: 2
     launches up to n = 2^20."""
@@ -764,10 +766,12 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError("x: need (rows, n)")
     rows, n = x.shape
-    if n < 2 or n & (n - 1) or n > 2**30 or rows >= 2**31:
-        raise ValueError("x: need rows < 2^31 of 2^k words, 2 <= n <= 2^30")
+    if n < 1 or n & (n - 1) or n > 2**30 or rows >= 2**31:
+        raise ValueError("x: need rows < 2^31 of 2^k words, 1 <= n <= 2^30")
     if not _on_cuda(x):
         return fwht_plain(x)
+    if n == 1:
+        return x.clone()
     out = torch.empty_like(x)
     if rows == 0:
         return out

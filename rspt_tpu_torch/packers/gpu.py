@@ -29,13 +29,24 @@ host and the encoder's shards take pass 2 (tpu.py:363-391): its flat
 route where it does not decline, else its compact route, then one
 assembly a stream; compress_with_hints gives no hints there.
 
-decompress decodes every plane's hzr stream on the host, all blocks of
-all planes in one call of the port's host runtime (rspt_tpu_torch/
-native), or, with device_decode, all planes' HUFF blocks in one
-device decode (hzr/gpu_decoder.py: hzr_decode + place_literals), then
-merges planes and undoes the packer's preprocessing as torch ops (and
-fwht, or dct_inverse) on the packer's device. decompress_many puts every
-payload's planes into one device decode.
+With plane_backend 'lz4' or 'lz4hc' (container.PLANE_LZ4 in the method
+byte; packers/host.py:53-72 of the reference), pass 1 runs as above on
+the device without tokenize_planes (the xdelta packer: one xdelta_swizzle
+a plane count probed), the planes are split on the device (plane_split)
+and copied to the host in one copy, and one call of the host runtime
+codes them as LZ4 blocks, a plane a thread (greedy, or hash chains with
+lazy matching): the reference's bytes.
+
+decompress dispatches on the masked method byte, whatever backend the
+packer was built with. It decodes every plane's hzr stream on the host,
+all blocks of all planes in one call of the port's host runtime
+(rspt_tpu_torch/native), or, with device_decode, all planes' HUFF
+blocks in one device decode (hzr/gpu_decoder.py: hzr_decode +
+place_literals); an LZ4 container's planes in one runtime call (with
+device_decode too). Then it merges planes and undoes the packer's
+preprocessing as torch ops (and fwht, or dct_inverse) on the packer's
+device. decompress_many puts every hzr payload's planes into one
+device decode.
 
 ``stage_seconds`` holds the wall time of each stage of the last call.
 """
@@ -55,6 +66,7 @@ from ..hzr import torch_coder as tc
 from ..native import bindings as native
 from ..ops import cuda_kernels as ck
 from ..ops import torch_ops as tops
+from .container import METHOD_MASK, PLANE_BACKENDS, PLANE_LZ4, container
 
 
 @dataclass
@@ -70,14 +82,6 @@ class PackerConfig:
     @property
     def plane_len(self) -> int:
         return self.nr_channels * self.nr_samples
-
-
-def _container(method: int, header: bytes, streams) -> bytes:
-    parts = [bytes([method]), header]
-    for stream in streams:
-        parts.append(len(stream).to_bytes(4, "little"))
-        parts.append(stream)
-    return b"".join(parts)
 
 
 def _as_words(src, bps: int) -> np.ndarray:
@@ -119,16 +123,26 @@ def _xdelta_decode(merged: torch.Tensor) -> torch.Tensor:
 class _GpuPackerBase:
     """What the packers share (tpu.py:659-723): config, device, the
     container's streams and header, and the N-plane entropy encode and
-    decode on the host or the device. A subclass sets METHOD, nr_planes
-    and header_size and writes compress and _postprocess."""
+    decode on the host or the device, with hzr or LZ4 planes. A subclass
+    sets METHOD, nr_planes and header_size and writes compress and
+    _postprocess."""
 
     METHOD = 0
 
     def __init__(self, bytes_per_sample: int, nr_channels: int,
                  nr_samples: int, device=None, device_decode: bool = False,
-                 encoder=None):
+                 encoder=None, plane_backend: str = "hzr"):
+        if plane_backend not in PLANE_BACKENDS:
+            raise ValueError(f"unknown plane backend {plane_backend!r}")
+        if encoder is not None and plane_backend != "hzr":
+            raise ValueError("encoder= shards the hzr plane codec; "
+                             f"plane_backend={plane_backend!r} takes none")
         self.cfg = PackerConfig(bytes_per_sample, nr_channels, nr_samples)
         self.device = resolve_device(device)
+        self.plane_backend = plane_backend
+        # the method byte of this packer's containers
+        self._method = self.METHOD | (0 if plane_backend == "hzr"
+                                      else PLANE_LZ4)
         # pass 2 over a mesh's shards (parallel.mesh.ShardedHzrEncoder)
         self._encoder = encoder
         # entropy-decode on the device (hzr_decode + place_literals)
@@ -143,6 +157,47 @@ class _GpuPackerBase:
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _check_method(self, method: int) -> None:
+        if method & METHOD_MASK != self.METHOD:
+            raise ValueError("unsupported compression method")
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """A uint8 device tensor on the host in one copy (flat; on the
+        card into a pinned buffer that the next fetch reuses)."""
+        t = t.reshape(-1)
+        if self.device.type != "cuda":
+            return t.numpy()
+        host = self._host.take("lz4", t.numel(), torch.uint8)
+        host.copy_(t)
+        return host.numpy()
+
+    def _lz4_streams(self, planes: np.ndarray) -> List[bytes]:
+        """The LZ4 blocks of the host planes' rows, in one runtime call."""
+        t0 = time.perf_counter()
+        streams = native.lz4_encode_planes(
+            planes.reshape(-1, self.cfg.plane_len),
+            self.plane_backend == "lz4hc")
+        self.stage_seconds["lz4"] = time.perf_counter() - t0
+        return streams
+
+    def _entropy(self, flat: torch.Tensor, t0: float, header: bytes = b"",
+                 want_hints: bool = False):
+        """(container, hints) of the flat int32 signal's nr_planes planes;
+        the stage pass1 ends here (t0 its start). hzr: tokenize_planes,
+        then _encode. LZ4: the planes split on the device, one copy to
+        the host (stage fetch), one runtime call; no hints."""
+        if self.plane_backend == "hzr":
+            hist_np, tokw, bwords = self._tokenize(flat.reshape(-1))
+            self.stage_seconds["pass1"] = time.perf_counter() - t0
+            return self._encode(tokw, bwords, hist_np, header, want_hints)
+        planes = tops.plane_split(flat.reshape(-1), self.nr_planes)
+        t1 = time.perf_counter()
+        self.stage_seconds["pass1"] = t1 - t0
+        host = self._fetch(planes)
+        self.stage_seconds["fetch"] = time.perf_counter() - t1
+        return container(self._method, header,
+                         self._lz4_streams(host)), None
 
     def _tokenize(self, flat: torch.Tensor):
         """tokenize_planes of a flat int32 signal; (hist on the host,
@@ -172,21 +227,20 @@ class _GpuPackerBase:
         """Container of the tokenized planes: (container, hints; None
         with an encoder)."""
         if self._encoder is not None:
-            return _container(self.METHOD, header, self._sharded_streams(
+            return container(self.METHOD, header, self._sharded_streams(
                 bwords, self.nr_planes)), None
         streams, hints = tc.entropy_streams(
             tokw, bwords, hist_np.reshape(-1, tc.NUM_SYMBOLS),
             self.cfg.plane_len, self.nr_planes, self.stage_seconds,
             want_hints, self._host)
-        return _container(self.METHOD, header, streams), hints
+        return container(self.METHOD, header, streams), hints
 
     def _streams(self, comp, nr_planes: int, header_size: int
                  ) -> Tuple[bytes, List[bytes], int]:
         """The container's header, its plane streams and the bytes it
         spans."""
         src = memoryview(comp).cast("B")
-        if src[0] != self.METHOD:
-            raise ValueError("unsupported compression method")
+        self._check_method(src[0])
         header = bytes(src[1:1 + header_size])
         pos = 1 + header_size
         streams = []
@@ -211,22 +265,28 @@ class _GpuPackerBase:
 
     def _decode_planes(self, comp) -> Tuple[bytes, torch.Tensor, int]:
         """The container's header, its (nr_planes, plane_len) uint8
-        planes on the device and the bytes it spans, decoded on the
-        device (device_decode) or on the host: every plane's blocks in
-        one call of the host runtime (tpu.py:711-720)."""
-        if self.device_decode:
+        planes on the device and the bytes it spans. LZ4 planes: every
+        plane in one call of the host runtime (stage lz4), then one
+        upload. hzr: decoded on the device (device_decode) or on the
+        host, every plane's blocks in one call of the host runtime
+        (tpu.py:711-720)."""
+        buf = np.frombuffer(memoryview(comp).cast("B"), np.uint8)
+        self._check_method(buf[0])
+        if self.device_decode and not buf[0] & PLANE_LZ4:
             header, streams, pos = self._streams(comp, self.nr_planes,
                                                  self.header_size)
             return header, self._decode_device(streams)[0], pos
         t0 = time.perf_counter()
-        buf = np.frombuffer(memoryview(comp).cast("B"), np.uint8)
-        if buf[0] != self.METHOD:
-            raise ValueError("unsupported compression method")
         start = 1 + self.header_size
-        planes, used = native.decode_planes_blocks(
-            buf[start:], self.nr_planes, self.cfg.plane_len)
+        decode = (native.lz4_decode_planes if buf[0] & PLANE_LZ4
+                  else native.decode_planes_blocks)
+        planes, used = decode(buf[start:], self.nr_planes,
+                              self.cfg.plane_len)
+        t1 = time.perf_counter()
         planes = self._to_dev(planes)
-        self.stage_seconds["decode"] = time.perf_counter() - t0
+        self.stage_seconds.update(
+            {"lz4" if buf[0] & PLANE_LZ4 else "decode": t1 - t0,
+             "upload": time.perf_counter() - t1})
         return buf[1:start].tobytes(), planes, start + used
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
@@ -268,29 +328,37 @@ class _GpuPackerBase:
         return out, pos
 
     def decompress_many(self, comps, hints=None, return_hints: bool = False):
-        """Decompress several containers (rspt_tpu/packers/tpu.py:905-970).
-        With device_decode, every payload's plane streams share one lane
-        batch: one hzr_decode and one place_literals launch in all.
-        Otherwise the payloads decompress one at a time.
+        """Decompress several containers (rspt_tpu/packers/tpu.py:905-970);
+        each output is what decompress gives. With device_decode, every
+        hzr payload's plane streams share one lane batch: one hzr_decode
+        and one place_literals launch in all; an LZ4 payload's planes
+        decode in one host runtime call each. Otherwise the payloads
+        decompress one at a time.
 
         hints / return_hints (device_decode only): DecodeHints from an
-        earlier decode of the same streams, or from compress_with_hints,
-        skip the alignment fixpoint; return_hints=True returns (outs,
-        hints)."""
+        earlier decode of the same hzr streams, or from
+        compress_with_hints, skip the alignment fixpoint; they cover the
+        batch's hzr payloads alone. return_hints=True returns (outs,
+        hints; None when no payload is hzr)."""
         if not self.device_decode:
             outs = [self.decompress(cp)[0] for cp in comps]
             return (outs, None) if return_hints else outs
-        if not comps:
-            return ([], None) if return_hints else []
         self.stage_seconds = {}
-        headers, streams = [], []
-        for comp in comps:
-            header, s, _ = self._streams(comp, self.nr_planes,
-                                         self.header_size)
-            headers.append(header)
+        planes = [None] * len(comps)
+        headers, streams, hzr = [None] * len(comps), [], []
+        for i, comp in enumerate(comps):
+            if memoryview(comp).cast("B")[0] & PLANE_LZ4:
+                headers[i], planes[i], _ = self._decode_planes(comp)
+                continue
+            headers[i], s, _ = self._streams(comp, self.nr_planes,
+                                             self.header_size)
             streams += s
-        planes, h = self._decode_device(streams, hints, return_hints)
-        planes = planes.reshape(len(comps), self.nr_planes, -1)
+            hzr.append(i)
+        h = None
+        if hzr:
+            dec, h = self._decode_device(streams, hints, return_hints)
+            for i, p in zip(hzr, dec.reshape(len(hzr), self.nr_planes, -1)):
+                planes[i] = p
         t1 = time.perf_counter()
         outs = [self._postprocess(p, hd) for p, hd in zip(planes, headers)]
         self.stage_seconds["postprocess"] = time.perf_counter() - t1
@@ -315,9 +383,7 @@ class GpuHzrPacker(_GpuPackerBase):
         raw = self._to_dev(_as_words(src, c.bytes_per_sample))
         sig = tops.native_to_i32(raw, c.nr_samples, c.nr_channels,
                                  c.bytes_per_sample)
-        hist_np, tokw, bwords = self._tokenize(sig.reshape(-1))
-        self.stage_seconds["pass1"] = time.perf_counter() - t0
-        return self._encode(tokw, bwords, hist_np)[0]
+        return self._entropy(sig, t0)[0]
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
         return self._native(tops.plane_merge(planes))
@@ -353,6 +419,15 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         self.stage_seconds = {}
         t0 = time.perf_counter()
         raw = self._to_dev(_as_words(src, c.bytes_per_sample))
+        if self.plane_backend != "hzr":
+            # one xdelta_swizzle a plane count probed, no tokenizer
+            while True:
+                enc, ok = ck.xdelta_swizzle(raw, c.nr_samples, c.nr_channels,
+                                            self.nr_planes,
+                                            c.bytes_per_sample)
+                if ok.item():
+                    return self._entropy(enc, t0)
+                self.nr_planes += 1
         while True:
             small, tokw, bwords = self._pass1(raw)
             if small[-1]:
@@ -400,7 +475,11 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         and touches no device. ``stage_seconds``: pass1 (upload and
         probes), then tables, pack, wait and assemble. With an encoder,
         each level's payload x plane streams go through its shards in
-        one call (stage_seconds shards and assemble)."""
+        one call (stage_seconds shards and assemble). With LZ4 planes, a
+        probe is the xdelta_swizzle_batch alone (the xdelta values do not
+        depend on the plane count), then every payload's planes go to
+        the host in one copy (stage fetch) and through one runtime call
+        (stage lz4)."""
         c = self.cfg
         batch = len(srcs)
         if batch == 0:
@@ -408,6 +487,7 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         self.stage_seconds = {}
         t0 = time.perf_counter()
         raw = self._upload_batch(srcs)
+        lz4 = self.plane_backend != "hzr"
         levels = {}
         minfit = np.full(batch, -1, np.int64)
         p = self.nr_planes
@@ -415,10 +495,13 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
             enc, ok = ck.xdelta_swizzle_batch(raw, c.nr_samples,
                                               c.nr_channels, p,
                                               c.bytes_per_sample)
-            tokw, bwords, hist = ck.tokenize_planes(enc, p)
-            small = torch.cat([hist.reshape(-1), ok]).cpu().numpy()
-            levels[p] = (tokw, bwords,
-                         small[:-batch].reshape(-1, tc.NUM_SYMBOLS))
+            if lz4:
+                small = ok.cpu().numpy()
+            else:
+                tokw, bwords, hist = ck.tokenize_planes(enc, p)
+                small = torch.cat([hist.reshape(-1), ok]).cpu().numpy()
+                levels[p] = (tokw, bwords,
+                             small[:-batch].reshape(-1, tc.NUM_SYMBOLS))
             minfit[(minfit < 0) & (small[-batch:] != 0)] = p
             if (minfit >= 0).all() or p >= 4:
                 minfit[minfit < 0] = p      # 4 planes always fit
@@ -427,6 +510,8 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         # sequential-call semantics: the plane count only ever grows
         plane_of = np.maximum.accumulate(minfit)
         self.nr_planes = int(plane_of[-1])
+        if lz4:     # every probe gives the same xdelta values
+            return self._many_lz4(enc, plane_of, t0)
         self.stage_seconds["pass1"] = time.perf_counter() - t0
 
         nb_per, _ = tc.block_layout(c.plane_len, 1)
@@ -452,9 +537,27 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
                     tokw, bwords, hist_np, c.plane_len, idx.size * lvl,
                     self.stage_seconds, host=self._host)
             for j, b in enumerate(idx):
-                containers[b] = _container(self.METHOD, b"",
-                                           streams[j * lvl:(j + 1) * lvl])
+                containers[b] = container(self.METHOD, b"",
+                                          streams[j * lvl:(j + 1) * lvl])
         return containers
+
+    def _many_lz4(self, enc: torch.Tensor, plane_of: np.ndarray,
+                  t0: float) -> List[bytes]:
+        """compress_many's LZ4 containers: each payload's plane_of planes
+        of its xdelta values (enc (batch, plane_len) on the device) split
+        on the device, all of them copied to the host in one copy and
+        LZ4-coded in one runtime call."""
+        planes = torch.cat([tops.plane_split(e, int(lvl)).reshape(-1)
+                            for e, lvl in zip(enc, plane_of)])
+        t1 = time.perf_counter()
+        self.stage_seconds["pass1"] = t1 - t0
+        host = self._fetch(planes)
+        self.stage_seconds["fetch"] = time.perf_counter() - t1
+        streams = self._lz4_streams(host)
+        ends = np.cumsum(plane_of)
+        return [container(self._method, b"",
+                          streams[e - lvl:e])
+                for e, lvl in zip(ends.tolist(), plane_of.tolist())]
 
     def compress_with_hints(self, src):
         """compress() plus the encode-time decode hints (hzr/sidecar.py):
@@ -464,8 +567,8 @@ class GpuXdeltaHzrPacker(_GpuPackerBase):
         sweep instead of the alignment fixpoint; they are also
         registered with the decoder. Every HUFF block gets hints, COPY
         blocks or not (the JAX packer gives None when a batch has a COPY
-        block); None when no block is HUFF, and with an encoder
-        (tpu.py:345-348)."""
+        block); None when no block is HUFF, with an encoder
+        (tpu.py:345-348), and with LZ4 planes (no HUFF block)."""
         return self._compress(src, True)
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
@@ -483,7 +586,7 @@ class GpuHadamardPacker(_GpuPackerBase):
     QUALITY = 1.0
 
     def __init__(self, bytes_per_sample, nr_channels, nr_samples, **kw):
-        if nr_samples < 2 or nr_samples & (nr_samples - 1):
+        if nr_samples < 1 or nr_samples & (nr_samples - 1):
             raise ValueError("Hadamard packer: nr_samples must be 2^k")
         super().__init__(bytes_per_sample, nr_channels, nr_samples, **kw)
         self.nr_planes = self.NR_PLANES
@@ -496,9 +599,7 @@ class GpuHadamardPacker(_GpuPackerBase):
         centred, means = self._centred(src)
         had = tops.fwht_normalize_pow2(ck.fwht(centred), c.nr_samples,
                                        self.QUALITY)
-        hist_np, tokw, bwords = self._tokenize(had.reshape(-1))
-        self.stage_seconds["pass1"] = time.perf_counter() - t0
-        return self._encode(tokw, bwords, hist_np, _means_header(means))[0]
+        return self._entropy(had, t0, _means_header(means))[0]
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
         c = self.cfg
@@ -548,9 +649,7 @@ class GpuDctPacker(_GpuPackerBase):
         dct = ck.dct_forward(centred, self._cos, self._fwd_scale)
         flat = tops.xor_encode(tops.offset32(
             tops.delta_encode(dct.reshape(-1)), -128))
-        hist_np, tokw, bwords = self._tokenize(flat)
-        self.stage_seconds["pass1"] = time.perf_counter() - t0
-        return self._encode(tokw, bwords, hist_np, _means_header(means))[0]
+        return self._entropy(flat, t0, _means_header(means))[0]
 
     def _postprocess(self, planes: torch.Tensor, header: bytes) -> bytes:
         c = self.cfg
