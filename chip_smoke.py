@@ -149,6 +149,17 @@ the profiler's device operations holding the path's kernels; then the
 walls of compress (with its LZ4 host stage), decompress and
 decompress(device_decode) beside the hzr packer's, in turns, medians of
 5 [min, max], and the CRs.
+
+Phase 19, after phase 18: the all-host engine (engine="native",
+packers/native.py), which launches no kernel: config 2's main signal
+(xdelta at 3 planes, hzr and 'lz4' planes), config 1's sine (hzr),
+config 3's Hadamard at 2^14 and config 4's DCT at 4,096 (bps 4 and 3),
+each native container equal to the card packer's and each native decode
+equal to the card's; config 5's frames through the fused streaming route
+equal to the card codec's over the same pushes; no launch counted and no
+device operation seen by the profiler during the native calls; then the
+walls of each, in turns with the card, beside the host's CPU model,
+os.cpu_count() and the runtime's threads.
 Exits nonzero, with no result line, when there is no CUDA card or any
 check fails. Imports nothing of JAX or of the JAX package.
 """
@@ -2055,6 +2066,169 @@ def time_lz4_path(packers, native, ch, ns, smi):
         f"{pk['hzr'].stage_seconds}")
 
 
+CPUINFO_KEYS = ("model name", "vendor_id", "cpu family", "model",
+                "cpu MHz")
+
+
+def host_cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo names its first processor: model
+    name, vendor, family, model and clock ("not read" without the
+    file)."""
+    try:
+        text = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return "not read"
+    found = {}
+    for line in text.split("\n\n")[0].splitlines():
+        key, _, val = line.partition(":")
+        if key.strip() in CPUINFO_KEYS:
+            found.setdefault(key.strip(), val.strip())
+    return ", ".join(f"{k} {found[k]}" for k in CPUINFO_KEYS if k in found)
+
+
+def native_cases(packers, sig, native, ch, ns, n3=2 ** 14, n4=4096):
+    """Phase 19's configurations: (name, native bytes, factory(**kw)) of
+    config 2's main signal (xdelta at 3 planes, hzr and LZ4 planes),
+    config 1's sine (hzr), config 3's Hadamard at 2^14 and config 4's
+    DCT at 4,096 samples, bps 4 and 3."""
+    sine = (np.sin(np.arange(8192) / 100.0) * 1000.0).astype(
+        np.int32).astype("<i4").tobytes()
+    sig4 = np.ascontiguousarray(sig[:, :n4])
+    return [
+        ("config 2 xdelta", native,
+         lambda **kw: packers.new_xdelta_hzr(4, ch, ns, 3, **kw)),
+        ("config 2 xdelta lz4", native,
+         lambda **kw: packers.new_xdelta_hzr(4, ch, ns, 3,
+                                             plane_backend="lz4", **kw)),
+        ("config 1 sine hzr", sine,
+         lambda **kw: packers.new_hzr(4, 1, 8192, **kw)),
+        ("config 3 Hadamard 2^14", native[:n3 * ch * 4],
+         lambda **kw: packers.new_hadamard(4, ch, n3, **kw)),
+        ("config 4 DCT bps 4", native[:n4 * ch * 4],
+         lambda **kw: packers.new_dct(4, ch, n4, **kw)),
+        ("config 4 DCT bps 3", to_native(sig4 >> 8, 3),
+         lambda **kw: packers.new_dct(3, ch, n4, **kw)),
+    ]
+
+
+def stream_pushes(native, ch):
+    """Config 5's input cut into 3 irregular pushes (2.5, 3.25 and the
+    rest of the main signal's 8.35 blocks)."""
+    blk = STREAM_NS * ch * 4
+    return [native[:5 * blk // 2], native[5 * blk // 2:23 * blk // 4],
+            native[23 * blk // 4:]]
+
+
+def check_native_engine(packers, ck, sig, native, ch, ns, smi):
+    """Phase 19: the all-host engine (engine="native"), which launches no
+    kernel. For each of native_cases, the native container equals the
+    card packer's byte for byte, the native decode equals the card's
+    (the input itself where lossless) and the native packer decodes the
+    card's container; config 5's frames through the fused route (one
+    runtime call a push) equal the card codec's over the same 3 pushes.
+    The wrappers count no launch during the native calls and the
+    profiler sees no device operation (a card compress in the same way
+    shows that it sees them). Then the walls, in turns with the card:
+    compress and decompress of each case, and config 5's steady push
+    (fused against the card codec), medians of 5 [min, max]."""
+    import os
+    from rspt_tpu_torch import pipeline
+    from rspt_tpu_torch.native import bindings as rt
+    log(f"phase 19: host CPU {host_cpu_model()}, os.cpu_count() "
+        f"{os.cpu_count()}, the runtime's threads {rt.threads()}; card {smi}")
+    cases = []
+    for name, nat, make in native_cases(packers, sig, native, ch, ns):
+        card, nv = make(), make(engine="native")
+        c_card = card.compress(nat)
+        want = card.decompress(c_card)[0]
+        (c_nat, rec, rec_card), got = launched_by(ck, lambda: (
+            nv.compress(nat), nv.decompress(c_card)[0],
+            make(engine="native").decompress(c_card)[0]))
+        if c_nat != c_card:
+            raise AssertionError(f"{name}: native and card containers "
+                                 f"differ ({len(c_nat)} / {len(c_card)} B)")
+        lossless = "xdelta" in name or "hzr" in name
+        if rec != want or rec_card != want or (lossless and rec != nat):
+            raise AssertionError(f"{name}: a native decode differs")
+        if got:
+            raise AssertionError(f"{name}: the native engine launched {got}")
+        cases.append((name, nat, card, nv, c_card))
+        log(f"phase 19: {name}: {len(nat)} B -> {len(c_nat)} B, the native "
+            f"container equal to the card's; decodes equal"
+            f"{' to the input' if lossless else ''}; no launch")
+    cfg = stream_config(4, ch)
+    pushes = stream_pushes(native, ch)
+    codecs = {"card": pipeline.StreamingCodec(cfg),
+              "fused": pipeline.StreamingCodec(
+                  cfg, packer=packers.new_xdelta_hzr(4, ch, STREAM_NS, 3,
+                                                     engine="native"))}
+    frames = {}
+    for k, c in codecs.items():
+        frames[k], got = launched_by(ck, lambda c=c: [
+            f for chunk in pushes for f in c.push(chunk)])
+        if k == "fused" and got:
+            raise AssertionError(f"fused stream: launched {got}")
+    if frames["fused"] != frames["card"] or len(frames["card"]) != 8:
+        raise AssertionError(f"config 5: fused and card frames differ "
+                             f"({len(frames['fused'])} / "
+                             f"{len(frames['card'])})")
+    fresh = pipeline.StreamingCodec(cfg, packer=packers.new_xdelta_hzr(
+        4, ch, STREAM_NS, 3, engine="native"))
+
+    def native_calls():
+        for _, nat, _, nv, _ in cases:
+            nv.decompress(nv.compress(nat))
+        for chunk in pushes:
+            fresh.push(chunk)
+
+    # the fullest of up to 4 traces each: the profiler may lose a trace's
+    # events, never add one
+    seen = len(_device_events(native_calls, 1))
+    card_seen = len(_device_events(
+        lambda: cases[0][2].compress(cases[0][1]), 1))
+    if seen or not card_seen:
+        raise AssertionError(f"profiler: {seen} device operations during the"
+                             f" native calls, {card_seen} in a card compress")
+    log(f"phase 19: config 5: {len(pushes)} pushes, {len(frames['card'])} "
+        f"frames through the fused route equal to the card codec's; the "
+        f"profiler saw {seen} device operations during every native call "
+        f"of this phase (a card compress: {card_seen})")
+    time_native_engine(cases, codecs, native, smi)
+
+
+def time_native_engine(cases, codecs, native, smi):
+    """Phase 19's walls, in turns with the card: compress and decompress
+    of each case, then config 5's steady push of the whole main signal
+    (8 frames) through the fused route and the card codec; medians of 5
+    [min, max]."""
+    walls = {}
+    for name, nat, card, nv, comp in cases:
+        w = {k: [] for k in ("compress card", "compress native",
+                             "decompress card", "decompress native")}
+        for _ in range(5):
+            for eng, p in (("card", card), ("native", nv)):
+                w[f"compress {eng}"] += wall_times(lambda: p.compress(nat), 1)
+                w[f"decompress {eng}"] += wall_times(
+                    lambda: p.decompress(comp), 1)
+        walls[name] = w
+        log(f"phase 19: {name} walls on {smi}, s, medians of 5 [min, max] "
+            f"in turns: " + "; ".join(f"{k} {spread(v, 6)}"
+                                      for k, v in w.items()))
+    w = {k: [] for k in codecs}
+    st = {}
+    for _ in range(5):
+        for k, c in codecs.items():
+            w[k] += wall_times(lambda: c.push(native), 1)
+            st[k] = dict(c.stage_seconds)
+    walls["config 5 steady push"] = w
+    log(f"phase 19: config 5 steady push of {len(native)} B on {smi}, s, "
+        f"medians of 5 [min, max] in turns: card {spread(w['card'], 6)}; "
+        f"fused {spread(w['fused'], 6)}; stages of the last {st}")
+    log("phase 19: " + json.dumps({"native_walls": {
+        k: {m: statistics.median(v) for m, v in w.items()}
+        for k, w in walls.items()}}))
+
+
 def gloo_worker(rank: int, port: int) -> int:
     """One of check_gloo_processes' two workers."""
     import datetime
@@ -3231,6 +3405,8 @@ def main() -> int:
     # phase 18: the LZ4 plane backend on every packer, and its walls
     del shard
     check_lz4_path(packers, ck, sig, native, comp, ch, ns, dev, smi)
+    # phase 19: the all-host engine against the card, and its walls
+    check_native_engine(packers, ck, sig, native, ch, ns, smi)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,9 +11,22 @@ as ``hzr.torch_coder.host_tables_plain``, the decoders as
 calls (``lz4_compress``, ``lz4_compress_hc``, ``lz4_decompress`` and the
 plane batches ``lz4_encode_planes`` / ``lz4_decode_planes``) write and
 read the reference runtime's LZ4 block bytes; ``formats.lz4_block`` is
-their spec decoder. Bad input raises ValueError, as the plain versions
-do. The library is built on the first call (``_build``); a failed build
-raises.
+their spec decoder.
+
+The encode half serves the all-host engine (packers/native.py):
+``hzr_encode`` writes ``hzr.torch_coder.encode``'s stream, and
+``encode_planes_blocks`` a container's plane streams, every 64 KiB block
+of every plane in threads; the elementwise ops (``delta_encode`` ...
+``plane_merge``) compute what ``ops.torch_ops``' do; ``xdelta_preprocess``
+/ ``xdelta_postprocess`` the xdelta packer's planes and their inverse,
+with the port's growth rule (``ops.cuda_kernels._fits_planes``);
+``dct_forward`` / ``dct_inverse`` and ``fwht`` the reference's exact
+transforms; ``stream_filter_pack`` a streaming span's frames in one
+call. ``nthreads`` bounds the threads of a call (0: one a hardware
+thread); no thread count changes a byte.
+
+Bad input raises ValueError, as the plain versions do. The library is
+built on the first call (``_build``); a failed build raises.
 """
 
 from __future__ import annotations
@@ -36,6 +49,8 @@ _P = ctypes.c_void_p
 _SZ = ctypes.c_size_t
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_I32 = ctypes.c_int32
+_D = ctypes.c_double
 _SIGNATURES = {
     "rpt_crc32c": (ctypes.c_uint32, [_P, _SZ, ctypes.c_uint32]),
     "rpt_crc32c_sw": (ctypes.c_uint32, [_P, _SZ, ctypes.c_uint32]),
@@ -56,6 +71,28 @@ _SIGNATURES = {
     "rpt_lz4_decompress": (_LL, [_P, _LL, _P, _LL]),
     "rpt_lz4_encode_planes": (_I, [_P, _I, _SZ, _I, _P, _P]),
     "rpt_lz4_decode_planes": (_I, [_P, _SZ, _I, _SZ, _P, _P]),
+    "rpt_threads": (_I, []),
+    "rpt_hzr_max_size": (_SZ, [_SZ]),
+    "rpt_hzr_encode": (_I, [_P, _SZ, _P, _SZ, _P]),
+    "rpt_delta_encode": (None, [_P, _SZ]),
+    "rpt_delta_decode": (None, [_P, _SZ]),
+    "rpt_offset32": (None, [_P, _SZ, _I32]),
+    "rpt_xor_encode": (None, [_P, _SZ]),
+    "rpt_xor_decode": (None, [_P, _SZ]),
+    "rpt_native_to_i32": (None, [_P, _P, _SZ, _SZ, _SZ]),
+    "rpt_i32_to_native": (None, [_P, _P, _SZ, _SZ, _SZ]),
+    "rpt_plane_split": (None, [_P, _SZ, _I, _P]),
+    "rpt_plane_merge": (None, [_P, _SZ, _I, _P]),
+    "rpt_encode_planes_blocks_mt": (_I, [_P, _SZ, _I, _P, _SZ, _P, _I]),
+    "rpt_xdelta_preprocess_mt": (_I, [_P, _SZ, _SZ, _SZ, _I, _P, _I]),
+    "rpt_xdelta_postprocess_mt": (_I, [_P, _SZ, _SZ, _SZ, _I, _P, _I]),
+    "rpt_dct_forward_mt": (_I, [_P, _P, _P, _P, _I, _I, _D, _I]),
+    "rpt_dct_inverse_mt": (_I, [_P, _P, _P, _P, _I, _I, _D, _I]),
+    "rpt_fwht": (_I, [_P, _P, _SZ, _I, _I]),
+    "rpt_fwht_normalize": (None, [_P, _SZ, _I, _D]),
+    "rpt_fwht_normalize2": (None, [_P, _SZ, _D]),
+    "rpt_stream_filter_pack": (_I, [_P, _SZ, _SZ, _SZ, _SZ, _P, _P, _I, _P,
+                                    _P, _I, _I, _P, _SZ, _P, _P, _I]),
 }
 
 
@@ -151,8 +188,8 @@ def hzr_decode_blocks(data) -> bytes:
     return out[:total].tobytes()
 
 
-def decode_planes_blocks(src, nplanes: int, plane_len: int
-                         ) -> Tuple[np.ndarray, int]:
+def decode_planes_blocks(src, nplanes: int, plane_len: int,
+                         nthreads: int = 0) -> Tuple[np.ndarray, int]:
     """A container's plane section — nplanes times [u32 length][hzr
     stream of plane_len bytes] — decoded with every plane's blocks in
     threads. Returns ((nplanes, plane_len) uint8, bytes consumed)."""
@@ -161,7 +198,7 @@ def decode_planes_blocks(src, nplanes: int, plane_len: int
     consumed = ctypes.c_size_t(0)
     if _lib().rpt_decode_planes_blocks_mt(
             _p(buf), buf.size, nplanes, plane_len, _p(planes),
-            ctypes.addressof(consumed), 0):
+            ctypes.addressof(consumed), int(nthreads)):
         raise ValueError("hzr: corrupt or truncated plane streams")
     return planes, consumed.value
 
@@ -333,3 +370,299 @@ def lz4_decode_planes(src, nplanes: int, plane_len: int
                                     _p(planes), ctypes.addressof(consumed)):
         raise ValueError("lz4: corrupt or truncated plane streams")
     return planes, consumed.value
+
+
+# -- the encode half (the all-host engine) ------------------------------------
+
+def _i32(a) -> np.ndarray:
+    """A contiguous int32 copy of a (the in-place runtime ops write it)."""
+    return np.array(a, dtype=np.int32, order="C", copy=True)
+
+
+def _check_bps(bps: int) -> None:
+    if not 1 <= bps <= 4:
+        raise ValueError(f"bytes_per_sample must be 1-4, not {bps}")
+
+
+def _check_planes(nr_planes: int) -> None:
+    if not 1 <= nr_planes <= 4:
+        raise ValueError(f"planes must be 1-4, not {nr_planes}")
+
+
+def threads() -> int:
+    """The threads of a runtime call at nthreads = 0: one a hardware
+    thread."""
+    return int(_lib().rpt_threads())
+
+
+def hzr_encode(data) -> bytes:
+    """One hzr stream of data (hzr_encode; block after block, each FILL,
+    HUFF or COPY as the reference chooses)."""
+    buf = _u8(data)
+    lib = _lib()
+    out = np.empty(int(lib.rpt_hzr_max_size(buf.size)), np.uint8)
+    size = ctypes.c_size_t(0)
+    if lib.rpt_hzr_encode(_p(buf), buf.size, _p(out), out.size,
+                          ctypes.addressof(size)):
+        raise ValueError("hzr: encode failed")
+    return out[:size.value].tobytes()
+
+
+def delta_encode(a) -> np.ndarray:
+    """a[i] - a[i - 1] (a[-1] = 0), int32 wrap."""
+    out = _i32(a)
+    _lib().rpt_delta_encode(_p(out), out.size)
+    return out
+
+
+def delta_decode(a) -> np.ndarray:
+    """The running sum of a, int32 wrap."""
+    out = _i32(a)
+    _lib().rpt_delta_decode(_p(out), out.size)
+    return out
+
+
+def offset32(a, val: int) -> np.ndarray:
+    out = _i32(a)
+    _lib().rpt_offset32(_p(out), out.size, int(val))
+    return out
+
+
+def xor_encode(a) -> np.ndarray:
+    """a[i] ^ a[i - 1] (a[-1] = 0)."""
+    out = _i32(a)
+    _lib().rpt_xor_encode(_p(out), out.size)
+    return out
+
+
+def xor_decode(a) -> np.ndarray:
+    """The running xor of a."""
+    out = _i32(a)
+    _lib().rpt_xor_decode(_p(out), out.size)
+    return out
+
+
+def native_to_i32(native, nr_samples: int, nr_channels: int,
+                  bytes_per_sample: int) -> np.ndarray:
+    """Interleaved little-endian samples [s0c0][s0c1]... → (channels,
+    samples) int32, sign-extended from bit 8 * bps - 1."""
+    _check_bps(bytes_per_sample)
+    buf = _u8(native)
+    if buf.size < nr_samples * nr_channels * bytes_per_sample:
+        raise ValueError(f"native: {buf.size} B for {nr_channels} x "
+                         f"{nr_samples} samples of {bytes_per_sample} B")
+    out = np.empty((nr_channels, nr_samples), np.int32)
+    _lib().rpt_native_to_i32(_p(out), _p(buf), nr_samples, nr_channels,
+                             bytes_per_sample)
+    return out
+
+
+def i32_to_native(arr, bytes_per_sample: int) -> bytes:
+    """(channels, samples) int32 → interleaved native low bytes."""
+    _check_bps(bytes_per_sample)
+    a = np.ascontiguousarray(arr, np.int32)
+    if a.ndim != 2:
+        raise ValueError("i32_to_native: arr must be (channels, samples)")
+    ch, n = a.shape
+    out = np.empty(n * ch * bytes_per_sample, np.uint8)
+    _lib().rpt_i32_to_native(_p(out), _p(a), n, ch, bytes_per_sample)
+    return out.tobytes()
+
+
+def plane_split(flat, nr_planes: int) -> np.ndarray:
+    """(nr_planes, n) uint8: plane k holds byte k of every value."""
+    _check_planes(nr_planes)
+    a = np.ascontiguousarray(flat, np.int32).reshape(-1)
+    out = np.empty((nr_planes, a.size), np.uint8)
+    _lib().rpt_plane_split(_p(a), a.size, nr_planes, _p(out))
+    return out
+
+
+def plane_merge(planes) -> np.ndarray:
+    """The inverse of plane_split, sign-extended from 8 * nr_planes
+    bits."""
+    pl = np.ascontiguousarray(planes, np.uint8)
+    if pl.ndim != 2:
+        raise ValueError("plane_merge: planes must be (nr_planes, n)")
+    _check_planes(pl.shape[0])
+    out = np.empty(pl.shape[1], np.int32)
+    _lib().rpt_plane_merge(_p(pl), pl.shape[1], pl.shape[0], _p(out))
+    return out
+
+
+def _stream_capacity(n: int) -> int:
+    """A plane chunk's room: [u32 length] and a stream of n bytes."""
+    return 4 + int(_lib().rpt_hzr_max_size(n))
+
+
+def encode_planes_blocks(planes, nthreads: int = 0) -> List[bytes]:
+    """Each row of planes ((nplanes, plane_len) uint8) as an hzr stream,
+    every 64 KiB block of every row in threads: [hzr_encode(row)], byte
+    for byte."""
+    a = np.ascontiguousarray(planes, np.uint8)
+    if a.ndim != 2:
+        raise ValueError("hzr: planes must be (nplanes, plane_len)")
+    nplanes, plane_len = a.shape
+    stride = _stream_capacity(plane_len)
+    out = np.empty((nplanes, stride), np.uint8)
+    lens = np.zeros(nplanes, np.uint64)
+    if _lib().rpt_encode_planes_blocks_mt(_p(a), plane_len, nplanes,
+                                          _p(out), stride, _p(lens),
+                                          int(nthreads)):
+        raise ValueError("hzr: plane encode failed")
+    return [out[k, 4:4 + int(lens[k])].tobytes() for k in range(nplanes)]
+
+
+def xdelta_preprocess(native, nr_samples: int, nr_channels: int,
+                      bytes_per_sample: int, nr_planes: int,
+                      nthreads: int = 0) -> Tuple[np.ndarray, bool]:
+    """The xdelta packer's pass 1 on the native samples: their flat
+    channel-major values through delta, offset -128 and xor, as
+    nr_planes byte planes ((nr_planes, channels * samples) uint8), and
+    whether those planes keep every sample (the port's growth rule)."""
+    _check_bps(bytes_per_sample)
+    _check_planes(nr_planes)
+    buf = _u8(native)
+    n = nr_samples * nr_channels
+    if buf.size < n * bytes_per_sample:
+        raise ValueError(f"native: {buf.size} B for {n} samples of "
+                         f"{bytes_per_sample} B")
+    planes = np.empty((nr_planes, n), np.uint8)
+    fit = _lib().rpt_xdelta_preprocess_mt(_p(buf), nr_samples, nr_channels,
+                                          bytes_per_sample, nr_planes,
+                                          _p(planes), int(nthreads))
+    if fit < 0:
+        raise ValueError("xdelta: bad arguments")
+    return planes, bool(fit)
+
+
+def xdelta_postprocess(planes, nr_samples: int, nr_channels: int,
+                       bytes_per_sample: int, nthreads: int = 0) -> bytes:
+    """The inverse of xdelta_preprocess: the planes merged (sign-extended),
+    xor decoded, offset +128, delta decoded, as native bytes."""
+    _check_bps(bytes_per_sample)
+    pl = np.ascontiguousarray(planes, np.uint8)
+    if pl.ndim != 2 or pl.shape[1] != nr_samples * nr_channels:
+        raise ValueError("xdelta: planes must be (nr_planes, channels * "
+                         "samples)")
+    _check_planes(pl.shape[0])
+    out = np.empty(pl.shape[1] * bytes_per_sample, np.uint8)
+    if _lib().rpt_xdelta_postprocess_mt(_p(pl), nr_samples, nr_channels,
+                                        bytes_per_sample, pl.shape[0],
+                                        _p(out), int(nthreads)):
+        raise ValueError("xdelta: bad arguments")
+    return out.tobytes()
+
+
+def _dct_operands(x, table, cs):
+    a = np.ascontiguousarray(x, np.int32)
+    a = a.reshape(1, -1) if a.ndim == 1 else a
+    ch, n = a.shape
+    t = np.ascontiguousarray(table, np.float32)
+    c = np.ascontiguousarray(cs, np.float32)
+    if n < 1 or t.shape != (n, n) or c.shape != (n,):
+        raise ValueError(f"dct: a ({n}, {n}) table and {n} factors needed "
+                         f"for rows of {n}")
+    return a, t, c, ch, n
+
+
+def dct_forward(src, cos_table, cs, quality: float,
+                nthreads: int = 0) -> np.ndarray:
+    """The reference's DCT-II with its quantization of each row of src
+    ((channels, n) int32): output i the serial f64 sum over x of the
+    float products src[x] * COS[x][i], times cs[i] * sqrt(2 / n) /
+    quality, converted as x86 does (INT32_MIN out of range). cos_table is
+    ops.torch_ops.dct_cos_table(n)."""
+    a, t, c, ch, n = _dct_operands(src, cos_table, cs)
+    out = np.empty((ch, n), np.int32)
+    if _lib().rpt_dct_forward_mt(_p(a), _p(out), _p(t), _p(c), ch, n,
+                                 float(quality), int(nthreads)):
+        raise ValueError("dct: bad arguments")
+    return out
+
+
+def dct_inverse(coef, cos_table_t, cs, quality: float,
+                nthreads: int = 0) -> np.ndarray:
+    """The reference's inverse of each row of coef ((channels, n) int32):
+    output i the serial f64 sum over x of the float products
+    (cs[x] * coef[x]) * COS[i][x], times sqrt(2 / n) * quality, converted
+    as x86 does. cos_table_t is the forward table transposed."""
+    a, t, c, ch, n = _dct_operands(coef, cos_table_t, cs)
+    out = np.empty((ch, n), np.int32)
+    if _lib().rpt_dct_inverse_mt(_p(a), _p(out), _p(t), _p(c), ch, n,
+                                 float(quality), int(nthreads)):
+        raise ValueError("dct: bad arguments")
+    return out
+
+
+def fwht(src, nthreads: int = 0) -> np.ndarray:
+    """The Walsh-Hadamard transform of each row of src ((rows, n) int32,
+    n = 2^k; a 1-D array is one row), int32 wraparound butterflies in the
+    reference's order; same shape out."""
+    a = np.ascontiguousarray(src, np.int32)
+    rows = a.reshape(-1, a.shape[-1])
+    out = np.empty_like(rows)
+    if _lib().rpt_fwht(_p(rows), _p(out), rows.shape[0], rows.shape[1],
+                       int(nthreads)):
+        raise ValueError("fwht: rows of 2^k values needed")
+    return out.reshape(a.shape)
+
+
+def fwht_normalize(a, n: int, ratio: float) -> np.ndarray:
+    """The encode quantization (int)(a / (n / ratio)), as x86 converts."""
+    out = _i32(a)
+    _lib().rpt_fwht_normalize(_p(out), out.size, int(n), float(ratio))
+    return out
+
+
+def fwht_normalize2(a, ratio: float) -> np.ndarray:
+    """The decode's (int)(a / ratio), as x86 converts."""
+    out = _i32(a)
+    _lib().rpt_fwht_normalize2(_p(out), out.size, float(ratio))
+    return out
+
+
+def stream_filter_pack(span, nr_samples: int, nframes: int, nr_channels: int,
+                       bytes_per_sample: int, n, d, xz, yz, opt: int,
+                       nr_planes: int, nthreads: int = 0
+                       ) -> Tuple[List[bytes], int]:
+    """A streaming span (nframes blocks of nr_samples interleaved native
+    samples) → each block's xdelta_hzr container, in one call: every
+    channel through its serial IIR (n feedback, d feedforward, opt as in
+    iir_filter_array; state xz / yz (channels, p) float64, updated in
+    place; n None: no filter), each output converted as x86 does and kept
+    as its low bytes_per_sample bytes, then each frame's xdelta planes
+    from nr_planes up, growing as sequential compress calls on one packer
+    grow, and their hzr streams. Returns (frames, the final plane
+    count)."""
+    _check_bps(bytes_per_sample)
+    _check_planes(nr_planes)
+    buf = _u8(span)
+    f = nr_samples * nr_channels
+    if nr_samples < 1 or nframes < 1 or nr_channels < 1 or \
+            buf.size < nframes * f * bytes_per_sample:
+        raise ValueError("stream: the span holds no whole frame")
+    if n is None:
+        p = 0
+        na = da = np.zeros(1, np.float64)
+        xz = yz = np.zeros((nr_channels, 1), np.float64)
+    else:
+        na, da = _iir_coefficients(n, d)
+        p = na.size
+        for st in (xz, yz):
+            if (not isinstance(st, np.ndarray) or st.dtype != np.float64
+                    or st.shape != (nr_channels, p)
+                    or not st.flags.c_contiguous):
+                raise ValueError(f"iir: state must be C-contiguous float64 "
+                                 f"({nr_channels}, {p})")
+    stride = 1 + 4 * _stream_capacity(f)
+    out = np.empty((nframes, stride), np.uint8)
+    lens = np.zeros(nframes, np.uint64)
+    planes = np.zeros(nframes, np.int32)
+    rc = _lib().rpt_stream_filter_pack(
+        _p(buf), nr_samples, nframes, nr_channels, bytes_per_sample, _p(na),
+        _p(da), p, _p(xz), _p(yz), int(opt), nr_planes, _p(out), stride,
+        _p(lens), _p(planes), int(nthreads))
+    if rc < 0:
+        raise ValueError("stream: span pack failed")
+    return [out[k, :int(lens[k])].tobytes() for k in range(nframes)], rc

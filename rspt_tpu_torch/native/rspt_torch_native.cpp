@@ -14,18 +14,30 @@
 //     them in threads, in both of the reference's accumulation orders;
 //   * the LZ4 block codec of the LZ4 plane backend (greedy and HC
 //     encoders, the bounds-checked decoder), a container's planes in
-//     threads.
+//     threads;
+//   * the encode half of the all-host engine (packers/native.py): the
+//     hzr block encoder, every 64 KiB block of every plane a work item,
+//     the elementwise scans, swizzles and byte planes, the fused xdelta
+//     preprocess (with the port's plane-growth rule) and its inverse,
+//     the exact serial-f64 DCT, the FWHT, and the fused streaming span
+//     (filter, xdelta, verify-and-grow and encode of every frame in one
+//     call).
 // Tree build, tree recovery and the bit reader are copied unchanged:
-// their order is what keeps every stream byte-identical; the IIR's
-// operation order (and -ffp-contract=off) keeps its f64 bits equal.
+// their order is what keeps every stream byte-identical; the IIR's and
+// the DCT's operation order (and -ffp-contract=off) keep their f64 bits
+// equal. Every f64 -> int32 conversion is written out as x86's
+// cvttsd2si (INT32_MIN outside the range, NaN included), which is what
+// the reference's (int32_t) casts give on its machines.
 //
 // Built by rspt_tpu_torch/native/_build.py with g++ at first use.
 
 #include <cstdint>
 #include <cstddef>
 #include <cstring>
+#include <climits>
 #include <condition_variable>
 #include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <utility>
@@ -139,6 +151,30 @@ inline void pool_ranges(size_t n, size_t nt,
         fn(n * (size_t)t / nt, n * ((size_t)t + 1) / nt);
     };
     ThreadPool::inst().run((int)nt, slot);
+}
+
+// fn(i) for every i in [0, m) on at most nt pool slots (nt <= 0: one a
+// hardware thread), the items handed out in order by a shared counter:
+// items of unequal cost (a COPY block beside a Huffman one) balance.
+inline void pool_items(size_t m, int nt, const std::function<void(size_t)>& fn) {
+    if (nt <= 0) nt = (int)std::thread::hardware_concurrency();
+    if (nt < 1) nt = 1;
+    if ((size_t)nt > m) nt = (int)m;
+    if (nt <= 1) {
+        for (size_t i = 0; i < m; ++i) fn(i);
+        return;
+    }
+    std::atomic<size_t> next(0);
+    std::function<void(int)> slot = [&](int) {
+        size_t i;
+        while ((i = next.fetch_add(1)) < m) fn(i);
+    };
+    ThreadPool::inst().run(nt, slot);
+}
+
+inline int resolve_threads(int nthreads) {
+    if (nthreads <= 0) nthreads = (int)std::thread::hardware_concurrency();
+    return nthreads < 1 ? 1 : nthreads;
 }
 
 // ---------------------------------------------------------------------------
@@ -322,6 +358,41 @@ constexpr int kNumSyms = 261;
 constexpr int kMaxNodes = kNumSyms * 2 - 1;  // 521
 constexpr int kSymBits = 9;
 constexpr uint32_t kMaxZeroRun = 16662;
+
+// RLE classification: run length -> (symbol, extra value, extra bits)
+inline void classify_run(uint32_t len, uint16_t& sym, uint16_t& extra,
+                         uint8_t& ebits) {
+    if (len == 1)       { sym = 0;   extra = 0;          ebits = 0; }
+    else if (len == 2)  { sym = 256; extra = 0;          ebits = 0; }
+    else if (len <= 6)  { sym = 257; extra = len - 3;    ebits = 2; }
+    else if (len <= 22) { sym = 258; extra = len - 7;    ebits = 4; }
+    else if (len <= 278){ sym = 259; extra = len - 23;   ebits = 8; }
+    else                { sym = 260; extra = len - 279;  ebits = 14; }
+}
+
+// x86's (int32_t) of a double (cvttsd2si): truncation inside the int32
+// range, INT32_MIN outside it, positive overflow and NaN included. A C++
+// cast of an out-of-range double is undefined, so it is never relied on.
+inline int32_t x86_i32(double v) {
+    return (v > -2147483649.0 && v < 2147483648.0) ? (int32_t)v : INT32_MIN;
+}
+
+// The low `bits` bits of v, sign-extended (bits 8..32).
+inline int32_t sext(uint32_t v, int bits) {
+    int sh = 32 - bits;
+    return (int32_t)(v << sh) >> sh;
+}
+
+// The xdelta packer's plane-growth rule (ops/cuda_kernels._fits_planes):
+// npl planes keep a bps-byte sample iff sign-extending the value's low
+// 8 * npl bits leaves its low 8 * bps bits unchanged (the reference's
+// compress -> decompress -> compare of the native samples); always at
+// npl >= bps.
+inline bool planes_keep(uint32_t x, int npl, int bps) {
+    if (npl >= bps) return true;
+    uint32_t keep = bps >= 4 ? 0xFFFFFFFFu : ((1u << (8 * bps)) - 1);
+    return (((uint32_t)sext(x, 8 * npl) ^ x) & keep) == 0;
+}
 
 
 // ---------------------------------------------------------------------------
@@ -551,6 +622,172 @@ bool only_single_code(const uint32_t* hist) {
     for (int s = 1; s < 256; ++s)
         if (hist[s] > 0 && ++nonzero + has_zeros > 1) return false;
     return (nonzero + has_zeros) == 1;
+}
+
+// ---------------------------------------------------------------------------
+// Block encode (rspt_native.cpp:436-748): a histogram pass over the raw
+// bytes, then the runs re-derived and the codes emitted directly.
+// ---------------------------------------------------------------------------
+
+// Length of the zero run at in[k] (capped, never crossing the block
+// edge), with 8-byte word skipping for long runs.
+static inline size_t zero_run_len(const uint8_t* in, size_t n, size_t k) {
+    size_t lim = n - k;
+    if (lim > kMaxZeroRun) lim = kMaxZeroRun;
+    size_t z = 1;
+    while (z + 8 <= lim) {
+        uint64_t w;
+        memcpy(&w, in + k + z, 8);
+        if (w != 0) return z + (size_t)(__builtin_ctzll(w) >> 3);
+        z += 8;
+    }
+    while (z < lim && in[k + z] == 0) ++z;
+    return z;
+}
+
+// The block's 261-symbol histogram without materializing tokens (4-way
+// split literal counters dodge store-forward stalls on repeated bytes).
+static void histogram_runs(const uint8_t* in, size_t n, uint32_t* hist) {
+    uint32_t h[4][256];
+    memset(h, 0, sizeof(h));
+    memset(hist, 0, kNumSyms * sizeof(uint32_t));
+    size_t k = 0;
+    while (k < n) {
+        while (k + 4 <= n) {
+            uint8_t b0 = in[k], b1 = in[k + 1], b2 = in[k + 2],
+                    b3 = in[k + 3];
+            if (!(b0 && b1 && b2 && b3)) break;
+            h[0][b0]++;
+            h[1][b1]++;
+            h[2][b2]++;
+            h[3][b3]++;
+            k += 4;
+        }
+        if (k >= n) break;
+        uint8_t b = in[k];
+        if (b != 0) {
+            h[0][b]++;
+            ++k;
+            continue;
+        }
+        size_t z = zero_run_len(in, n, k);
+        uint16_t sym, extra;
+        uint8_t ebits;
+        classify_run((uint32_t)z, sym, extra, ebits);
+        hist[sym]++;
+        k += z;
+    }
+    for (int s = 1; s < 256; ++s)
+        hist[s] += h[0][s] + h[1][s] + h[2][s] + h[3][s];
+}
+
+inline void write_block_header(uint8_t* hdr, uint16_t size_minus_1,
+                               uint32_t crc, uint8_t mode) {
+    hdr[0] = (uint8_t)size_minus_1;
+    hdr[1] = (uint8_t)(size_minus_1 >> 8);
+    memcpy(hdr + 2, &crc, 4);
+    hdr[6] = mode;
+}
+
+// One block (1 <= in_size <= 64 KiB) with its histogram: FILL for one
+// code class, else HUFF unless its payload reaches in_size or 64 KiB
+// (then COPY). Returns the encoded size with the header, or 0 if cap is
+// too small.
+size_t encode_block_hist(const uint8_t* in, size_t in_size,
+                         const uint32_t* hist, uint8_t* out, size_t cap) {
+    if (only_single_code(hist)) {  // FILL
+        if (cap < kBlockHeaderSize + 1) return 0;
+        write_block_header(out, 0, crc32c(in, 1), kModeFill);
+        out[kBlockHeaderSize] = in[0];
+        return kBlockHeaderSize + 1;
+    }
+    size_t payload_cap = in_size;
+    if (cap < kBlockHeaderSize) return 0;
+    if (cap - kBlockHeaderSize < payload_cap)
+        payload_cap = cap - kBlockHeaderSize;
+
+    TreeCtx tree;
+    build_tree(hist, tree);
+    uint32_t codes[kNumSyms];
+    uint8_t code_bits[kNumSyms];
+    BitWriter bw(out + kBlockHeaderSize, payload_cap);
+    store_tree(tree, bw, codes, code_bits);
+
+    if (!bw.failed) {
+        size_t k = 0;
+        while (k < in_size && !bw.failed) {
+            // four (or two) adjacent literal codes merged into one put64:
+            // the same bits, LSB-first fields side by side
+            while (k + 4 <= in_size) {
+                uint8_t b0 = in[k], b1 = in[k + 1], b2 = in[k + 2],
+                        b3 = in[k + 3];
+                if (!(b0 && b1 && b2 && b3)) break;
+                int n01 = code_bits[b0] + code_bits[b1];
+                int n23 = code_bits[b2] + code_bits[b3];
+                uint64_t v01 = (uint64_t)codes[b0] |
+                               ((uint64_t)codes[b1] << code_bits[b0]);
+                uint64_t v23 = (uint64_t)codes[b2] |
+                               ((uint64_t)codes[b3] << code_bits[b2]);
+                if (n01 + n23 <= 56) {
+                    bw.put64(v01 | (v23 << n01), n01 + n23);
+                } else {
+                    bw.put64(v01, n01);
+                    bw.put64(v23, n23);
+                }
+                if (bw.failed) break;
+                k += 4;
+            }
+            while (k + 2 <= in_size && !bw.failed) {
+                uint8_t b0 = in[k], b1 = in[k + 1];
+                if (!(b0 && b1)) break;
+                bw.put64((uint64_t)codes[b0] |
+                             ((uint64_t)codes[b1] << code_bits[b0]),
+                         code_bits[b0] + code_bits[b1]);
+                k += 2;
+            }
+            if (k >= in_size || bw.failed) break;
+            uint8_t b = in[k];
+            if (b != 0) {
+                bw.put64(codes[b], code_bits[b]);
+                ++k;
+                continue;
+            }
+            size_t z = zero_run_len(in, in_size, k);
+            uint16_t sym, extra;
+            uint8_t ebits;
+            classify_run((uint32_t)z, sym, extra, ebits);
+            bw.put64((uint64_t)codes[sym] |
+                         ((uint64_t)extra << code_bits[sym]),
+                     code_bits[sym] + ebits);
+            k += z;
+        }
+    }
+    if (!bw.failed) bw.flush_partial();
+
+    size_t payload = bw.bytes_written();
+    if (bw.failed || payload >= kMaxBlockSize) {  // COPY fallback
+        if (cap < kBlockHeaderSize + in_size) return 0;
+        write_block_header(out, (uint16_t)(in_size - 1), crc32c(in, in_size),
+                           kModeCopy);
+        memcpy(out + kBlockHeaderSize, in, in_size);
+        return kBlockHeaderSize + in_size;
+    }
+    write_block_header(out, (uint16_t)(payload - 1),
+                       crc32c(out + kBlockHeaderSize, payload), kModeHuffRle);
+    return kBlockHeaderSize + payload;
+}
+
+size_t encode_block(const uint8_t* in, size_t in_size, uint8_t* out,
+                    size_t cap) {
+    uint32_t hist[kNumSyms];
+    histogram_runs(in, in_size, hist);
+    return encode_block_hist(in, in_size, hist, out, cap);
+}
+
+// Worst case of a stream of n bytes: its header, and each block COPY.
+size_t hzr_max_size(size_t n) {
+    size_t blocks = (n + kMaxBlockSize - 1) / kMaxBlockSize;
+    return kHeaderSize + blocks * kBlockHeaderSize + n;
 }
 
 // ---------------------------------------------------------------------------
@@ -1589,6 +1826,688 @@ int rpt_lz4_decode_planes(const uint8_t* in, size_t in_len, int nplanes,
         if (got[k] != (long long)plane_len) return 1;
     *consumed = pos;
     return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The encode half of the all-host engine (packers/native.py), copied from
+// rspt_tpu/native/rspt_native.cpp:1176-1740 and :1963-2783 with these
+// changes: the xdelta plane-growth test is the port's rule (planes_keep),
+// not "every value sign-extends from N bytes"; every f64 -> int32
+// conversion is x86_i32; every threaded entry runs on the serialized pool
+// and returns an error code; no environment knob and no thread_local
+// arena.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Four channels' serial IIRs advanced through one loop, each with its own
+// register state: their f64 dependency chains interleave in the pipeline.
+// Each channel's operation order is iir_arr_P's, so its bits are too.
+#define RPT_IIR_UNROLL4(P)                                                \
+static void iir_arr4_##P(const double* const* xs4, size_t n,              \
+                         const double* nc, const double* dc,              \
+                         double* const* xz4, double* const* yz4,          \
+                         int opt, double* const* ys4) {                   \
+    double xs[4][P], ys[4][P];                                            \
+    for (int c = 0; c < 4; ++c)                                           \
+        for (int i = 0; i < P; ++i) {                                     \
+            xs[c][i] = xz4[c][i];                                         \
+            ys[c][i] = yz4[c][i];                                         \
+        }                                                                 \
+    for (size_t t = 0; t < n; ++t) {                                      \
+        double acc[4];                                                    \
+        for (int c = 0; c < 4; ++c) {                                     \
+            for (int i = P - 1; i > 0; --i) {                             \
+                xs[c][i] = xs[c][i - 1];                                  \
+                ys[c][i] = ys[c][i - 1];                                  \
+            }                                                             \
+            xs[c][0] = xs4[c][t];                                         \
+            acc[c] = dc[0] * xs[c][0];                                    \
+        }                                                                 \
+        if (opt) {                                                        \
+            for (int i = 1; i < P; ++i)                                   \
+                for (int c = 0; c < 4; ++c)                               \
+                    acc[c] = acc[c] + dc[i] * xs[c][i];                   \
+            for (int i = 1; i < P; ++i)                                   \
+                for (int c = 0; c < 4; ++c)                               \
+                    acc[c] = acc[c] - nc[i] * ys[c][i];                   \
+        } else {                                                          \
+            for (int i = 1; i < P; ++i)                                   \
+                for (int c = 0; c < 4; ++c) {                             \
+                    acc[c] += dc[i] * xs[c][i];                           \
+                    acc[c] -= nc[i] * ys[c][i];                           \
+                }                                                         \
+        }                                                                 \
+        for (int c = 0; c < 4; ++c) {                                     \
+            ys[c][0] = acc[c];                                            \
+            ys4[c][t] = acc[c];                                           \
+        }                                                                 \
+    }                                                                     \
+    for (int c = 0; c < 4; ++c)                                           \
+        for (int i = 0; i < P; ++i) {                                     \
+            xz4[c][i] = xs[c][i];                                         \
+            yz4[c][i] = ys[c][i];                                         \
+        }                                                                 \
+}
+
+RPT_IIR_UNROLL4(2)
+RPT_IIR_UNROLL4(3)
+RPT_IIR_UNROLL4(4)
+RPT_IIR_UNROLL4(5)
+
+// A group of nch <= 4 channels: interleaved when there are 4 and the
+// order has a fixed body, else channel by channel.
+void iir_channels4(const double* const* xs4, size_t nch, size_t n,
+                   const double* nc, const double* dc, int p,
+                   double* const* xz4, double* const* yz4, int opt,
+                   double* const* ys4) {
+    if (nch == 4) {
+        switch (p) {
+            case 2: iir_arr4_2(xs4, n, nc, dc, xz4, yz4, opt, ys4); return;
+            case 3: iir_arr4_3(xs4, n, nc, dc, xz4, yz4, opt, ys4); return;
+            case 4: iir_arr4_4(xs4, n, nc, dc, xz4, yz4, opt, ys4); return;
+            case 5: iir_arr4_5(xs4, n, nc, dc, xz4, yz4, opt, ys4); return;
+            default: break;
+        }
+    }
+    for (size_t c = 0; c < nch; ++c)
+        iir_filter_array(xs4[c], n, nc, dc, p, xz4[c], yz4[c], opt, ys4[c]);
+}
+
+// One little-endian bps-byte sample, sign-extended.
+inline int32_t load_sample(const uint8_t* q, size_t bps) {
+    uint32_t v = 0;
+    for (size_t k = 0; k < bps; ++k) v |= (uint32_t)q[k] << (8 * k);
+    return sext(v, 8 * (int)bps);
+}
+
+// The xdelta values of a flat int32 run (delta from 0, offset -128, xor
+// with the previous delta) written as npl byte planes of stride
+// plane_stride, from v[lo] on (v[lo - 1], v[lo - 2] read where they
+// exist). Returns whether npl planes keep every bps-byte sample.
+bool xdelta_planes(const int32_t* v, size_t lo, size_t hi, int npl, int bps,
+                   uint8_t* planes, size_t plane_stride) {
+    uint32_t vm1 = lo >= 1 ? (uint32_t)v[lo - 1] : 0u;
+    uint32_t vm2 = lo >= 2 ? (uint32_t)v[lo - 2] : 0u;
+    bool fits = true;
+    for (size_t i = lo; i < hi; ++i) {
+        uint32_t vi = (uint32_t)v[i];
+        uint32_t d = vi - vm1 - 128u;
+        uint32_t dm1 = i >= 1 ? vm1 - vm2 - 128u : 0u;
+        uint32_t x = d ^ dm1;
+        fits &= planes_keep(x, npl, bps);
+        for (int k = 0; k < npl; ++k)
+            planes[(size_t)k * plane_stride + i] = (uint8_t)(x >> (8 * k));
+        vm2 = vm1;
+        vm1 = vi;
+    }
+    return fits;
+}
+
+// DCT-II / its inverse a tile of kDctTile outputs at a time: each output
+// a serial f64 sum over x of float products, in the reference's order
+// (signal_packer_dct.cpp:76-100, rspt_native.cpp:1313-1349).
+constexpr int kDctTile = 16;
+
+void dct_fwd_tile(const int32_t* src, int32_t* dst, const float* cosines,
+                  const float* cs, int n, double quality, double ratio1,
+                  int i0, int i1) {
+    double acc[kDctTile];
+    for (int t = 0; t < i1 - i0; ++t) acc[t] = 0;
+    for (int x = 0; x < n; ++x) {
+        float s = (float)src[x];
+        const float* row = cosines + (size_t)x * n + i0;
+        for (int t = 0; t < i1 - i0; ++t) acc[t] += (double)(s * row[t]);
+    }
+    for (int t = 0; t < i1 - i0; ++t) {
+        double sum = acc[t];
+        sum *= cs[i0 + t] * ratio1 / quality;
+        dst[i0 + t] = x86_i32(sum);
+    }
+}
+
+void dct_inv_tile(const float* q, int32_t* out, const float* cosines_t,
+                  int n, double quality, double ratio1, int i0, int i1) {
+    double acc[kDctTile];
+    for (int t = 0; t < i1 - i0; ++t) acc[t] = 0;
+    for (int x = 0; x < n; ++x) {
+        float s = q[x];
+        const float* row = cosines_t + (size_t)x * n + i0;
+        for (int t = 0; t < i1 - i0; ++t) acc[t] += (double)(s * row[t]);
+    }
+    for (int t = 0; t < i1 - i0; ++t) {
+        double sum = acc[t];
+        sum *= ratio1 * quality;
+        out[i0 + t] = x86_i32(sum);
+    }
+}
+
+// FWHT of one row of n = 2^k values, int32 wraparound butterflies
+// (lib_fwht/fwht.c:4-28, rspt_native.cpp:1398-1416).
+void fwht_row(const int32_t* src, int32_t* dst, int32_t* other, int n) {
+    const int32_t* a = src;
+    int32_t* b = dst;
+    for (int i = n >> 1; i > 0; i >>= 1) {
+        for (int base = 0; base < n; base += 2 * i) {
+            for (int j = 0; j < i; ++j) {
+                uint32_t u = (uint32_t)a[base + j];
+                uint32_t v = (uint32_t)a[base + i + j];
+                b[base + j] = (int32_t)(u + v);
+                b[base + i + j] = (int32_t)(u - v);
+            }
+        }
+        if (a == src) { a = b; b = other; }
+        else { int32_t* t = (int32_t*)a; a = b; b = t; }
+    }
+    if (a != dst) memcpy(dst, a, sizeof(int32_t) * n);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The threads a call runs on at nthreads = 0 (the pool's workers and the
+// caller).
+int rpt_threads() { return resolve_threads(0); }
+
+size_t rpt_hzr_max_size(size_t n) { return hzr_max_size(n); }
+
+// One hzr stream of in[0, in_size): [u32 size][blocks], block after
+// block. Returns 0 with *out_len its size, or 1 if cap is too small.
+int rpt_hzr_encode(const uint8_t* in, size_t in_size, uint8_t* out,
+                   size_t cap, size_t* out_len) {
+    if (cap < kHeaderSize || in_size > 0xFFFFFFFFu) return 1;
+    uint32_t sz = (uint32_t)in_size;
+    memcpy(out, &sz, 4);
+    size_t pos = kHeaderSize;
+    for (size_t start = 0; start < in_size; start += kMaxBlockSize) {
+        size_t bs = in_size - start;
+        if (bs > kMaxBlockSize) bs = kMaxBlockSize;
+        size_t e = encode_block(in + start, bs, out + pos, cap - pos);
+        if (e == 0) return 1;
+        pos += e;
+    }
+    *out_len = pos;
+    return 0;
+}
+
+// --- scans, int32 wraparound (utils.cpp:193-236) ---------------------------
+
+void rpt_delta_encode(int32_t* a, size_t n) {
+    uint32_t last = 0;
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t cur = (uint32_t)a[i];
+        a[i] = (int32_t)(cur - last);
+        last = cur;
+    }
+}
+
+void rpt_delta_decode(int32_t* a, size_t n) {
+    uint32_t last = 0;
+    for (size_t i = 0; i < n; ++i) {
+        last += (uint32_t)a[i];
+        a[i] = (int32_t)last;
+    }
+}
+
+void rpt_offset32(int32_t* a, size_t n, int32_t v) {
+    for (size_t i = 0; i < n; ++i)
+        a[i] = (int32_t)((uint32_t)a[i] + (uint32_t)v);
+}
+
+void rpt_xor_encode(int32_t* a, size_t n) {
+    int32_t last = 0;
+    for (size_t i = 0; i < n; ++i) {
+        int32_t d = last ^ a[i];
+        last = a[i];
+        a[i] = d;
+    }
+}
+
+void rpt_xor_decode(int32_t* a, size_t n) {
+    for (size_t i = 1; i < n; ++i) a[i] = a[i - 1] ^ a[i];
+}
+
+// --- layout swizzles (utils.cpp:51-191) and byte planes --------------------
+
+// Interleaved little-endian bps-byte samples [s0c0][s0c1]... -> channel-
+// major int32 (ch, nr_samples), sign-extended.
+void rpt_native_to_i32(int32_t* dst, const uint8_t* native, size_t nr_samples,
+                       size_t ch, size_t bps) {
+    for (size_t s = 0; s < nr_samples; ++s)
+        for (size_t c = 0; c < ch; ++c)
+            dst[c * nr_samples + s] =
+                load_sample(native + (s * ch + c) * bps, bps);
+}
+
+void rpt_i32_to_native(uint8_t* native, const int32_t* src, size_t nr_samples,
+                       size_t ch, size_t bps) {
+    for (size_t s = 0; s < nr_samples; ++s)
+        for (size_t c = 0; c < ch; ++c) {
+            uint32_t v = (uint32_t)src[c * nr_samples + s];
+            uint8_t* p = native + (s * ch + c) * bps;
+            for (size_t k = 0; k < bps; ++k) p[k] = (uint8_t)(v >> (8 * k));
+        }
+}
+
+void rpt_plane_split(const int32_t* flat, size_t n, int planes, uint8_t* out) {
+    for (int k = 0; k < planes; ++k) {
+        uint8_t* o = out + (size_t)k * n;
+        for (size_t i = 0; i < n; ++i)
+            o[i] = (uint8_t)((uint32_t)flat[i] >> (8 * k));
+    }
+}
+
+// Planes (p, n) -> int32, sign-extended from 8 * p bits.
+void rpt_plane_merge(const uint8_t* planes, size_t n, int p, int32_t* out) {
+    for (size_t i = 0; i < n; ++i) {
+        uint32_t v = 0;
+        for (int k = 0; k < p; ++k)
+            v |= (uint32_t)planes[(size_t)k * n + i] << (8 * k);
+        out[i] = sext(v, 8 * p);
+    }
+}
+
+// --- threaded encode --------------------------------------------------------
+
+// Every 64 KiB block of every plane (nplanes, plane_len) one pool item;
+// plane k's chunk [u32 stream length][hzr stream] goes to out + k * stride,
+// its stream length to lens[k]. Returns 0, or 1 if a chunk passes stride.
+int rpt_encode_planes_blocks_mt(const uint8_t* planes, size_t plane_len,
+                                int nplanes, uint8_t* out, size_t stride,
+                                size_t* lens, int nthreads) {
+    if (nplanes < 0 || plane_len > 0xFFFFFFFFu) return 1;
+    size_t nb_per = (plane_len + kMaxBlockSize - 1) / kMaxBlockSize;
+    size_t nb = nb_per * (size_t)nplanes;
+    size_t bmax = plane_len < kMaxBlockSize ? plane_len : kMaxBlockSize;
+    size_t bcap = bmax + kBlockHeaderSize + 16;
+    std::vector<uint8_t> scratch(nb * bcap);
+    std::vector<size_t> blens(nb, 0);
+    pool_items(nb, nthreads, [&](size_t i) {
+        size_t plane = i / nb_per;
+        size_t off = (i % nb_per) * kMaxBlockSize;
+        size_t blen = plane_len - off < kMaxBlockSize ? plane_len - off
+                                                      : kMaxBlockSize;
+        blens[i] = encode_block(planes + plane * plane_len + off, blen,
+                                scratch.data() + i * bcap, bcap);
+    });
+    for (size_t i = 0; i < nb; ++i)
+        if (!blens[i]) return 1;
+    for (int p = 0; p < nplanes; ++p) {
+        uint8_t* dst = out + (size_t)p * stride;
+        size_t pos = 4 + kHeaderSize;  // chunk length + stream header
+        if (pos > stride) return 1;
+        for (size_t b = 0; b < nb_per; ++b) {
+            size_t i = (size_t)p * nb_per + b;
+            if (pos + blens[i] > stride) return 1;
+            memcpy(dst + pos, scratch.data() + i * bcap, blens[i]);
+            pos += blens[i];
+        }
+        uint32_t total = (uint32_t)plane_len;
+        memcpy(dst + 4, &total, 4);
+        uint32_t clen = (uint32_t)(pos - 4);
+        memcpy(dst, &clen, 4);
+        lens[p] = pos - 4;
+    }
+    return 0;
+}
+
+// Interleaved native samples -> nr_planes byte planes (nr_planes, ch * n)
+// of their flat channel-major xdelta values, in threads over ranges of
+// the flat index. Returns 1 if the planes keep every sample (the port's
+// rule), 0 if not, -1 on bad arguments.
+int rpt_xdelta_preprocess_mt(const uint8_t* native, size_t nr_samples,
+                             size_t ch, size_t bps, int nr_planes,
+                             uint8_t* planes, int nthreads) {
+    if (bps < 1 || bps > 4 || nr_planes < 1 || nr_planes > 4) return -1;
+    const size_t N = nr_samples * ch;
+    const size_t nt = (size_t)resolve_threads(nthreads);
+    std::vector<int32_t> v(N);
+    pool_ranges(N, nt, [&](size_t lo, size_t hi) {
+        for (size_t i = lo; i < hi; ++i)
+            v[i] = load_sample(
+                native + ((i % nr_samples) * ch + i / nr_samples) * bps, bps);
+    });
+    std::atomic<int> fit(1);
+    pool_ranges(N, nt, [&](size_t lo, size_t hi) {
+        if (!xdelta_planes(v.data(), lo, hi, nr_planes, (int)bps, planes, N))
+            fit.store(0);
+    });
+    return fit.load();
+}
+
+// The inverse: byte planes -> interleaved native bytes. The decode is a
+// prefix xor then a prefix sum over the flat values, run as chunk-local
+// scans and carries: pass A the chunks' xor totals, pass B the deltas
+// and the chunks' sums, pass C the values into the native layout.
+// Returns 0, or 1 on bad arguments.
+int rpt_xdelta_postprocess_mt(const uint8_t* planes, size_t nr_samples,
+                              size_t ch, size_t bps, int nr_planes,
+                              uint8_t* native_out, int nthreads) {
+    if (bps < 1 || bps > 4 || nr_planes < 1 || nr_planes > 4) return 1;
+    const size_t N = nr_samples * ch;
+    if (N == 0) return 0;
+    size_t nt = (size_t)resolve_threads(nthreads);
+    if (nt > N) nt = N;
+    std::vector<uint32_t> tmp(N);
+    std::vector<uint32_t> xtot(nt, 0), stot(nt, 0);
+    auto lo = [&](size_t t) { return N * t / nt; };
+    auto merge_at = [&](size_t i) -> uint32_t {
+        uint32_t v = 0;
+        for (int k = 0; k < nr_planes; ++k)
+            v |= (uint32_t)planes[(size_t)k * N + i] << (8 * k);
+        return (uint32_t)sext(v, 8 * nr_planes);
+    };
+    auto run = [&](const std::function<void(size_t)>& fn) {
+        pool_items(nt, (int)nt, fn);
+    };
+    run([&](size_t t) {
+        uint32_t x = 0;
+        for (size_t i = lo(t); i < lo(t + 1); ++i) x ^= merge_at(i);
+        xtot[t] = x;
+    });
+    std::vector<uint32_t> xcarry(nt, 0), scarry(nt, 0);
+    for (size_t t = 1; t < nt; ++t) xcarry[t] = xcarry[t - 1] ^ xtot[t - 1];
+    run([&](size_t t) {
+        uint32_t lx = 0, s = 0;
+        for (size_t i = lo(t); i < lo(t + 1); ++i) {
+            lx ^= merge_at(i);
+            uint32_t d = (xcarry[t] ^ lx) + 128u;
+            tmp[i] = d;
+            s += d;
+        }
+        stot[t] = s;
+    });
+    for (size_t t = 1; t < nt; ++t) scarry[t] = scarry[t - 1] + stot[t - 1];
+    run([&](size_t t) {
+        uint32_t v = scarry[t];
+        for (size_t i = lo(t); i < lo(t + 1); ++i) {
+            v += tmp[i];
+            uint8_t* p = native_out +
+                         ((i % nr_samples) * ch + i / nr_samples) * bps;
+            for (size_t k = 0; k < bps; ++k) p[k] = (uint8_t)(v >> (8 * k));
+        }
+    });
+    return 0;
+}
+
+// --- transforms ---------------------------------------------------------------
+
+// DCT-II of ch channel-major rows of n samples with the folded
+// quantization (signal_packer_dct.cpp:76-87), threaded over (channel,
+// output tile): every output's serial sum is the reference's. cosines is
+// COS[i][x] stored at [i * n + x] (the forward reads [x * n + i]).
+// Returns 0, or 1 on bad arguments.
+int rpt_dct_forward_mt(const int32_t* src, int32_t* dst, const float* cosines,
+                       const float* cs, int ch, int n, double quality,
+                       int nthreads) {
+    if (ch < 0 || n < 1) return 1;
+    double ratio1 = __builtin_sqrt(2.0 / n);
+    size_t tiles = (size_t)(n + kDctTile - 1) / kDctTile;
+    pool_items((size_t)ch * tiles, nthreads, [&](size_t slot) {
+        size_t c = slot / tiles;
+        int i0 = (int)(slot % tiles) * kDctTile;
+        int i1 = i0 + kDctTile < n ? i0 + kDctTile : n;
+        dct_fwd_tile(src + c * n, dst + c * n, cosines, cs, n, quality,
+                     ratio1, i0, i1);
+    });
+    return 0;
+}
+
+// The inverse (signal_packer_dct.cpp:89-100): cosines_t is the forward
+// table transposed, so that the tile loop reads contiguous rows; each
+// term's float prefactor Cs[x] * dct[x] is computed once a channel.
+int rpt_dct_inverse_mt(const int32_t* dct, int32_t* out,
+                       const float* cosines_t, const float* cs, int ch,
+                       int n, double quality, int nthreads) {
+    if (ch < 0 || n < 1) return 1;
+    double ratio1 = __builtin_sqrt(2.0 / n);
+    size_t tiles = (size_t)(n + kDctTile - 1) / kDctTile;
+    std::vector<float> q((size_t)ch * n);
+    for (size_t i = 0; i < q.size(); ++i)
+        q[i] = cs[i % n] * (float)dct[i];
+    pool_items((size_t)ch * tiles, nthreads, [&](size_t slot) {
+        size_t c = slot / tiles;
+        int i0 = (int)(slot % tiles) * kDctTile;
+        int i1 = i0 + kDctTile < n ? i0 + kDctTile : n;
+        dct_inv_tile(q.data() + c * n, out + c * n, cosines_t, n, quality,
+                     ratio1, i0, i1);
+    });
+    return 0;
+}
+
+// FWHT of rows rows of n = 2^k int32 values, a row a pool item. Returns
+// 0, or 1 unless n is a power of two.
+int rpt_fwht(const int32_t* src, int32_t* dst, size_t rows, int n,
+             int nthreads) {
+    if (n < 1 || (n & (n - 1))) return 1;
+    pool_items(rows, nthreads, [&](size_t r) {
+        std::vector<int32_t> other((size_t)n);
+        fwht_row(src + r * n, dst + r * n, other.data(), n);
+    });
+    return 0;
+}
+
+// The encode quantization a[i] = (int)(a[i] / (n / ratio)) (fwht.c:30-34)
+// and the decode's a[i] = (int)(a[i] / ratio) (fwht.c:36-40), over count
+// values.
+void rpt_fwht_normalize(int32_t* a, size_t count, int n, double ratio) {
+    double d = n / ratio;
+    for (size_t i = 0; i < count; ++i) a[i] = x86_i32(a[i] / d);
+}
+
+void rpt_fwht_normalize2(int32_t* a, size_t count, double ratio) {
+    for (size_t i = 0; i < count; ++i) a[i] = x86_i32(a[i] / ratio);
+}
+
+// --- the fused streaming span -----------------------------------------------
+
+// A span of nframes blocks of ns interleaved bps-byte samples -> each
+// block's xdelta_hzr container ([method 0][per plane: u32 length, hzr
+// stream]), byte for byte what the streaming codec's unfused route gives:
+// each channel through its serial f64 IIR (p coefficients, state xz / yz
+// (ch, p) carried in and out; p == 0: no filter), each output converted
+// as x86 does and stored as the low bps bytes of a sample (read back
+// sign-extended), then per frame the xdelta planes with sequential
+// verify-and-grow (the port's rule; a frame that grows the plane count
+// grows it for every later frame) and every (frame, plane, 64 KiB block)
+// encoded. With a filter one pool slot filters frame after frame while
+// the others preprocess the filtered frames and encode the blocks of the
+// frames that fit; frames from the first that does not fit are redone at
+// the grown count after the pipeline ends. Frame f goes to out + f *
+// frame_stride, its size to frame_lens[f], its plane count to
+// frame_planes[f]. Returns the final plane count, or -1 on bad arguments
+// or a frame that passes frame_stride.
+int rpt_stream_filter_pack(const uint8_t* src, size_t ns, size_t nframes,
+                           size_t ch, size_t bps, const double* nc,
+                           const double* dc, int p, double* xz, double* yz,
+                           int opt, int nr_planes_in, uint8_t* out,
+                           size_t frame_stride, size_t* frame_lens,
+                           int32_t* frame_planes, int nthreads) {
+    if (ns == 0 || nframes == 0 || ch == 0 || bps < 1 || bps > 4 || p < 0 ||
+        nr_planes_in < 1 || nr_planes_in > 4 || frame_stride < 1)
+        return -1;
+    nthreads = resolve_threads(nthreads);
+    const size_t N = ns * nframes;  // samples a channel in the span
+    const size_t F = ch * ns;       // flat values a frame
+    const int vbits = 8 * (int)bps;
+    if (F > 0xFFFFFFFFu) return -1;
+
+    // with a filter: the span's samples as doubles, channel-major
+    std::vector<double> xall(p > 0 ? ch * N : 0);
+    if (p > 0)
+        pool_ranges(N, (size_t)nthreads, [&](size_t t0, size_t t1) {
+            for (size_t t = t0; t < t1; ++t)
+                for (size_t j = 0; j < ch; ++j)
+                    xall[j * N + t] =
+                        (double)load_sample(src + (t * ch + j) * bps, bps);
+        });
+    // each frame's samples, channel-major: the filter's stored outputs,
+    // or (no filter) the native samples, loaded by the preprocess
+    std::vector<int32_t> sig(nframes * F);
+    std::vector<uint8_t> planes(nframes * 4 * F);
+    const size_t nb_per = (F + kMaxBlockSize - 1) / kMaxBlockSize;
+    const size_t ipf = 4 * nb_per;  // item stride of a frame (4 planes)
+    std::vector<uint32_t> hists(nframes * ipf * kNumSyms);
+    const size_t bcap = (F < kMaxBlockSize ? F : kMaxBlockSize) +
+                        kBlockHeaderSize + 16;
+    std::vector<uint8_t> scratch(nframes * ipf * bcap);
+    std::vector<size_t> blens(nframes * ipf, 0);
+
+    // frame f's planes at npl and each block's histogram; its fit
+    auto preprocess = [&](size_t f, int npl) -> bool {
+        int32_t* v = sig.data() + f * F;
+        if (p == 0)
+            for (size_t c = 0; c < ch; ++c)
+                for (size_t s = 0; s < ns; ++s)
+                    v[c * ns + s] = load_sample(
+                        src + ((f * ns + s) * ch + c) * bps, bps);
+        uint8_t* pl = planes.data() + f * 4 * F;
+        bool fits = xdelta_planes(v, 0, F, npl, (int)bps, pl, F);
+        for (int k = 0; k < npl; ++k)
+            for (size_t b = 0; b < nb_per; ++b) {
+                size_t off = b * kMaxBlockSize;
+                size_t blen = F - off < kMaxBlockSize ? F - off
+                                                      : kMaxBlockSize;
+                histogram_runs(pl + (size_t)k * F + off, blen,
+                               hists.data() + (f * ipf + (size_t)k * nb_per +
+                                               b) * kNumSyms);
+            }
+        return fits;
+    };
+    // item i: frame i / ipf, plane (i % ipf) / nb_per, block i % nb_per
+    auto encode_item = [&](size_t i) {
+        size_t f = i / ipf, k = (i % ipf) / nb_per, b = i % nb_per;
+        size_t off = b * kMaxBlockSize;
+        size_t blen = F - off < kMaxBlockSize ? F - off : kMaxBlockSize;
+        blens[i] = encode_block_hist(planes.data() + f * 4 * F + k * F + off,
+                                     blen, hists.data() + i * kNumSyms,
+                                     scratch.data() + i * bcap, bcap);
+    };
+
+    // the pipeline: frames [0, filtered) are ready to preprocess; frame f's
+    // state 2 if its planes fit, 3 if not; [0, settled) fit, so their
+    // items may be encoded, item after item in order
+    int np = nr_planes_in;
+    std::unique_ptr<std::atomic<int>[]> state(new std::atomic<int>[nframes]);
+    for (size_t f = 0; f < nframes; ++f) state[f].store(0);
+    std::atomic<size_t> filtered(p > 0 ? 0 : nframes), next_pre(0),
+        settled(0), next_enc(0), enc_done(0), pre_done(0);
+    std::vector<double> ybuf(p > 0 ? F : 0);  // the filter's frame
+    auto produce = [&]() {
+        for (size_t f = 0; f < nframes; ++f) {
+            for (size_t j0 = 0; j0 < ch; j0 += 4) {
+                size_t nch = ch - j0 < 4 ? ch - j0 : 4;
+                const double* xs4[4];
+                double *xz4[4], *yz4[4], *ys4[4];
+                for (size_t c = 0; c < nch; ++c) {
+                    xs4[c] = xall.data() + (j0 + c) * N + f * ns;
+                    xz4[c] = xz + (j0 + c) * (size_t)p;
+                    yz4[c] = yz + (j0 + c) * (size_t)p;
+                    ys4[c] = ybuf.data() + (j0 + c) * ns;
+                }
+                iir_channels4(xs4, nch, ns, nc, dc, p, xz4, yz4, opt, ys4);
+            }
+            int32_t* v = sig.data() + f * F;
+            for (size_t i = 0; i < F; ++i)
+                v[i] = sext((uint32_t)x86_i32(ybuf[i]), vbits);
+            filtered.store(f + 1, std::memory_order_release);
+        }
+    };
+    std::function<void(int)> worker = [&](int slot) {
+        if (slot == 0 && p > 0) produce();
+        for (;;) {
+            size_t s = settled.load(std::memory_order_acquire);
+            while (s < nframes &&
+                   state[s].load(std::memory_order_acquire) == 2) {
+                settled.compare_exchange_weak(s, s + 1);
+                s = settled.load(std::memory_order_acquire);
+            }
+            // preprocess first: it unlocks encode work
+            size_t f = next_pre.load(std::memory_order_relaxed);
+            bool worked = false;
+            while (f < nframes &&
+                   f < filtered.load(std::memory_order_acquire)) {
+                if (next_pre.compare_exchange_weak(f, f + 1)) {
+                    bool fits = preprocess(f, np);
+                    state[f].store(fits ? 2 : 3, std::memory_order_release);
+                    pre_done.fetch_add(1, std::memory_order_acq_rel);
+                    worked = true;
+                    break;
+                }
+            }
+            if (worked) continue;
+            size_t e = next_enc.load(std::memory_order_relaxed);
+            while (e < s * ipf) {
+                if (next_enc.compare_exchange_weak(e, e + 1)) {
+                    if ((e % ipf) < (size_t)np * nb_per) encode_item(e);
+                    enc_done.fetch_add(1, std::memory_order_acq_rel);
+                    worked = true;
+                    break;
+                }
+            }
+            if (worked) continue;
+            if (pre_done.load(std::memory_order_acquire) == nframes) {
+                size_t s2 = settled.load(std::memory_order_acquire);
+                bool stalled = s2 >= nframes ||
+                               state[s2].load(std::memory_order_acquire) == 3;
+                if (stalled &&
+                    enc_done.load(std::memory_order_acquire) >= s2 * ipf)
+                    break;
+            }
+            std::this_thread::yield();
+        }
+    };
+    ThreadPool::inst().run(nthreads, worker);
+
+    // the verify-and-grow tail: from the first frame that did not fit, the
+    // frames are preprocessed again one plane up, and those before the
+    // next that does not fit are encoded at that count
+    size_t f0 = settled.load();
+    for (size_t f = 0; f < f0; ++f) frame_planes[f] = np;
+    while (f0 < nframes) {
+        if (++np > 4) return -1;  // 4 planes keep any sample
+        std::vector<char> fit(nframes, 1);
+        pool_items(nframes - f0, nthreads, [&](size_t i) {
+            fit[f0 + i] = preprocess(f0 + i, np);
+        });
+        size_t fail = f0;
+        while (fail < nframes && fit[fail]) ++fail;
+        std::vector<size_t> items;
+        for (size_t f = f0; f < fail; ++f) {
+            frame_planes[f] = np;
+            for (size_t j = 0; j < (size_t)np * nb_per; ++j)
+                items.push_back(f * ipf + j);
+        }
+        pool_items(items.size(), nthreads,
+                   [&](size_t q) { encode_item(items[q]); });
+        f0 = fail;
+    }
+
+    for (size_t f = 0; f < nframes; ++f) {
+        uint8_t* dst = out + f * frame_stride;
+        size_t pos = 0;
+        dst[pos++] = 0;  // method byte (signal_packer_hzr.cpp:54)
+        for (int k = 0; k < frame_planes[f]; ++k) {
+            size_t chunk = pos;
+            if (pos + 8 > frame_stride) return -1;
+            uint32_t total = (uint32_t)F;
+            memcpy(dst + pos + 4, &total, 4);
+            pos += 8;
+            for (size_t b = 0; b < nb_per; ++b) {
+                size_t i = f * ipf + (size_t)k * nb_per + b;
+                if (!blens[i] || pos + blens[i] > frame_stride) return -1;
+                memcpy(dst + pos, scratch.data() + i * bcap, blens[i]);
+                pos += blens[i];
+            }
+            uint32_t clen = (uint32_t)(pos - chunk - 4);
+            memcpy(dst + chunk, &clen, 4);
+        }
+        frame_lens[f] = pos;
+    }
+    return np;
 }
 
 }  // extern "C"

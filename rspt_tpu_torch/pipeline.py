@@ -18,11 +18,21 @@ convert native → filter each channel sample by sample with
         blocks (one K1 and one K2 launch a plane count probed), or
         compress for a single block.
 
-There is no native fused packer here and no fallback: a failed runtime
-build or kernel launch raises. Every stage's carry state is plain data,
-so checkpoint/resume is get_state()/set_state(), in the reference's dict
-layout: a state taken from rspt_tpu.pipeline.StreamingCodec loads here
-and continues with equal frames.
+When the packer is the all-host engine's xdelta packer
+(packers.native.NativeXdeltaHzrPacker with hzr planes), each push takes
+the fused route instead (pipeline.py:150-196 of the reference): the
+filter's warm-up on the span's first samples, then the whole span in
+ONE runtime call (native.stream_filter_pack: the IIR with the state
+(xz, yz) carried in and out, the f64 → int32 conversion, each frame's
+xdelta planes with sequential verify-and-grow, every block encoded),
+and the packer's plane count taken from the call. Both routes give the
+same frames, and a state from either loads into the other.
+
+There is no fallback: a failed runtime build or kernel launch raises.
+Every stage's carry state is plain data, so checkpoint/resume is
+get_state()/set_state(), in the reference's dict layout: a state that
+rspt_tpu.pipeline.StreamingCodec gives loads here and continues with
+equal frames.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from . import packers
 from .filters.streaming import IirFilter
 from .io.ring import ContinuousRing
 from .native import bindings as native
+from .packers.native import NativeXdeltaHzrPacker
 
 
 @dataclass
@@ -90,7 +101,8 @@ def state_from_reference(st) -> dict:
 class StreamingCodec:
     """Push native interleaved bytes in, get compressed frames out. The
     packer runs on ``device`` (default: the card; raises without one;
-    "cpu": the kernels' plain versions)."""
+    "cpu": the kernels' plain versions); a given packer of the all-host
+    engine takes the fused route."""
 
     def __init__(self, cfg: StreamConfig, packer=None, device=None):
         self.cfg = cfg
@@ -109,7 +121,8 @@ class StreamingCodec:
         self.frames_out = 0
         self.bytes_in = 0
         self.bytes_out = 0
-        # wall seconds of the last push's stages: filter, pack
+        # wall seconds of the last push's stages: filter, pack (the fused
+        # route: span)
         self.stage_seconds = {}
 
     @property
@@ -135,36 +148,74 @@ class StreamingCodec:
         self._warmed = st["warmed"]
         self.frames_out, self.bytes_in, self.bytes_out = st["counters"]
 
+    def _warm_up(self, sig: np.ndarray) -> None:
+        """The first time: each filter's warm-up on its channel's first
+        sample (sig (channels, >= 1) int32; the generic order,
+        4·sampling_rate samples)."""
+        if not self._warmed:
+            for f, row in zip(self._filters, sig):
+                f.init_history_values(float(row[0]),
+                                      int(self.cfg.sampling_rate))
+            self._warmed = True
+
+    def _filter_state(self):
+        """The filters' (xz, yz) as (channels, p) float64 arrays."""
+        return (np.array([f.xz for f in self._filters], np.float64),
+                np.array([f.yz for f in self._filters], np.float64))
+
+    def _set_filter_state(self, xz: np.ndarray, yz: np.ndarray) -> None:
+        for j, f in enumerate(self._filters):
+            f.xz, f.yz = xz[j].tolist(), yz[j].tolist()
+
     def _filter_span(self, span: np.ndarray, nblocks: int) -> np.ndarray:
         """Every channel of the span through its filter_opt recurrence in
-        one threaded runtime call, after the warm-up on each channel's
-        first sample (the generic order, 4·sampling_rate samples) the
-        first time: the reference's pre-filter loop (rspt_test.cpp:
-        120-136), bit for bit. Returns the filtered native bytes."""
+        one threaded runtime call, after the warm-up: the reference's
+        pre-filter loop (rspt_test.cpp:120-136), bit for bit. Returns the
+        filtered native bytes."""
         c = self.cfg
         sig = native_to_i32(span, nblocks * c.nr_samples, c.nr_channels,
                             c.bytes_per_sample)
-        if not self._warmed:
-            for j in range(c.nr_channels):
-                self._filters[j].init_history_values(
-                    float(sig[j][0]), int(c.sampling_rate))
-            self._warmed = True
+        self._warm_up(sig)
         f0 = self._filters[0]
-        xz = np.array([f.xz for f in self._filters], np.float64)
-        yz = np.array([f.yz for f in self._filters], np.float64)
+        xz, yz = self._filter_state()
         y = native.iir_filter_channels(sig.astype(np.float64), f0.n, f0.d,
                                        xz, yz, 1)
-        for j, f in enumerate(self._filters):
-            f.xz, f.yz = xz[j].tolist(), yz[j].tolist()
+        self._set_filter_state(xz, yz)
         with np.errstate(invalid="ignore"):
             out = y.astype(np.int32)
         return i32_to_native(out, c.bytes_per_sample)
+
+    def _fused(self) -> bool:
+        """Whether pushes take the fused route: the packer is the
+        all-host engine's xdelta packer with hzr planes."""
+        return (isinstance(self.packer, NativeXdeltaHzrPacker)
+                and self.packer.plane_backend == "hzr")
+
+    def _push_fused(self, span: np.ndarray, nblocks: int) -> List[bytes]:
+        """The span's frames in one runtime call (stream_filter_pack),
+        after the warm-up on its first samples; the filters' state and
+        the packer's plane count come back from the call."""
+        c = self.cfg
+        n = d = xz = yz = None
+        if self._filters is not None:
+            self._warm_up(native_to_i32(span, 1, c.nr_channels,
+                                        c.bytes_per_sample))
+            n, d = self._filters[0].n, self._filters[0].d
+            xz, yz = self._filter_state()
+        frames, planes = native.stream_filter_pack(
+            span, c.nr_samples, nblocks, c.nr_channels, c.bytes_per_sample,
+            n, d, xz, yz, 1, self.packer.nr_planes, self.packer.nthreads)
+        self.packer.nr_planes = planes
+        if self._filters is not None:
+            self._set_filter_state(xz, yz)
+        return frames
 
     def push(self, data) -> List[bytes]:
         """Feed native bytes; returns 0+ compressed frames. Every complete
         block after the push is one span: filtered in one runtime call,
         then compressed in one compress_many call (compress for a single
-        block)."""
+        block); on the fused route, filtered and compressed in one
+        runtime call."""
         buf = (np.frombuffer(memoryview(data).cast("B"), np.uint8)
                if not isinstance(data, np.ndarray) else data.reshape(-1))
         self.bytes_in += buf.size
@@ -178,6 +229,10 @@ class StreamingCodec:
         span = self._ring.data[:nblocks * self.block_bytes]
         self._ring.pop_elements_front(nblocks * self.block_bytes)
         t0 = time.perf_counter()
+        if self._fused():
+            frames = self._push_fused(span, nblocks)
+            self.stage_seconds = {"span": time.perf_counter() - t0}
+            return self._count(frames)
         if self._filters is not None:
             span = self._filter_span(span, nblocks)
         t1 = time.perf_counter()
@@ -189,6 +244,9 @@ class StreamingCodec:
             frames = [self.packer.compress(blocks[0])]
         self.stage_seconds = {"filter": t1 - t0,
                               "pack": time.perf_counter() - t1}
+        return self._count(frames)
+
+    def _count(self, frames: List[bytes]) -> List[bytes]:
         for comp in frames:
             self.bytes_out += len(comp)
             self.frames_out += 1

@@ -213,6 +213,46 @@ def test_runtime_loaded_is_the_ports():
                    timeout=120)
 
 
+def test_native_engine_process_loads_neither_jax_nor_reference_runtime():
+    """A process that compresses and decompresses through every packer of
+    engine="native" (hzr and LZ4 planes) and pushes a span through the
+    fused streaming route has the port's runtime mapped and not the
+    reference's, imports no jax and nothing of rspt_tpu, and never
+    initialises CUDA."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "from rspt_tpu_torch import packers, pipeline\n"
+        "nat = np.arange(3 * 256, dtype='<i4').tobytes()\n"
+        "for be in ('hzr', 'lz4'):\n"
+        "    for p in (packers.new_xdelta_hzr(4, 3, 256, 1, engine='native',"
+        " plane_backend=be),\n"
+        "              packers.new_hzr(4, 3, 256, engine='native', "
+        "plane_backend=be),\n"
+        "              packers.new_dct(4, 3, 256, engine='native', "
+        "plane_backend=be),\n"
+        "              packers.new_hadamard(4, 3, 256, engine='native', "
+        "plane_backend=be)):\n"
+        "        c = p.compress(nat)\n"
+        "        assert len(p.decompress(c)[0]) == len(nat)\n"
+        "cfg = pipeline.StreamConfig(2, 2, 64, filter_coeffs=("
+        "[1.0, -0.5], [0.5, 0.5]))\n"
+        "codec = pipeline.StreamingCodec(cfg, packer=packers.new_xdelta_hzr("
+        "2, 2, 64, 3, engine='native'))\n"
+        "assert len(codec.push(bytes(2 * 2 * 64 * 3))) == 3\n"
+        "assert codec.stage_seconds.keys() == {'span'}\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'librspt_torch_native.so' in maps\n"
+        "assert 'librspt_native.so' not in maps\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'rspt_tpu' or m.startswith('rspt_tpu.')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
 @pytest.mark.parametrize("compiler", ["missing", "failing"])
 def test_runtime_build_failure_raises(tmp_path, monkeypatch, compiler):
     """A build in a fresh directory with a compiler that is not there, or

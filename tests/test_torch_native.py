@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 # processes on the same cores, where more threads each contend
 torch.set_num_threads(1)
 
+from conftest import to_native  # noqa: E402
 from rspt_tpu.hzr import pyref as jref  # noqa: E402
 from rspt_tpu.native import bindings as ref_native  # noqa: E402
 from rspt_tpu_torch import packers  # noqa: E402
@@ -24,6 +25,10 @@ from rspt_tpu_torch.hzr import gpu_decoder as gd  # noqa: E402
 from rspt_tpu_torch.hzr import pyref, walk  # noqa: E402
 from rspt_tpu_torch.hzr import torch_coder as tc  # noqa: E402
 from rspt_tpu_torch.native import bindings as native  # noqa: E402
+from rspt_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from rspt_tpu_torch.ops import torch_ops as tops  # noqa: E402
+from test_torch_cuda import (DCT_EDGE_CASES, dct_edge_batch,  # noqa: E402
+                             dct_tables)
 
 B = 65536
 
@@ -422,3 +427,207 @@ def test_lut_nib_batch_from_many_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert bad == []
+
+
+# -- the encode half (the all-host engine) -------------------------------------
+
+def _encode_case(name):
+    rng = np.random.default_rng(23)
+    if name == "empty":
+        return b""
+    if name == "one_byte":
+        return b"\x07"
+    if name.startswith("random_"):
+        return rng.integers(0, 256, int(name[7:])).astype(np.uint8).tobytes()
+    if name == "zeros":
+        return bytes(3 * B + 11)
+    if name == "periodic":
+        return bytes(range(7)) * 40000
+    if name == "sparse":     # runs of every length class, literals between
+        a = rng.integers(1, 9, 2 * B + 99).astype(np.uint8)
+        a[rng.random(a.size) < 0.6] = 0
+        a[5000:25000] = 0
+        return a.tobytes()
+    assert name == "single_literal"
+    return bytes([9]) * (B + 5)
+
+
+ENCODE_CASES = ["empty", "one_byte", "random_65535", "random_65536",
+                "random_65537", "zeros", "periodic", "sparse",
+                "single_literal"]
+
+
+@pytest.mark.parametrize("name", ENCODE_CASES)
+def test_hzr_encode_matches_reference_and_torch_coder(name):
+    """hzr_encode (FILL for one code class, HUFF, the COPY fallback, the
+    empty stream) gives the reference runtime's stream and
+    torch_coder.encode's on the CPU, byte for byte; encode_planes_blocks
+    gives each row's stream, at 1 and 4 threads."""
+    data = _encode_case(name)
+    got = native.hzr_encode(data)
+    assert got == ref_native.hzr_encode(data)
+    assert got == tc.encode(data, device="cpu")
+    assert pyref.decode(got) == data
+    if data:
+        rows = np.frombuffer(data[:len(data) // 2 * 2], np.uint8).reshape(
+            2, -1)
+        want = [native.hzr_encode(r) for r in rows]
+        for nt in (1, 4):
+            assert native.encode_planes_blocks(rows, nt) == want
+
+
+def test_elementwise_ops_match_reference_and_torch_ops():
+    """The scans, the swizzles and the byte planes equal the reference
+    runtime's and the port's torch ops on int32 extremes and random
+    values, at bps 1-4 and 1-4 planes."""
+    rng = np.random.default_rng(31)
+    x = rng.integers(-2 ** 31, 2 ** 31, 3 * 997, dtype=np.int64).astype(
+        np.int32)
+    x[:4] = [-2 ** 31, 2 ** 31 - 1, 0, -1]
+    t = torch.from_numpy(x)
+    ops = {"delta_encode": tops.delta_encode, "xor_encode": tops.xor_encode,
+           "xor_decode": tops.xor_decode}
+    for name, op in ops.items():
+        got = getattr(native, name)(x)
+        np.testing.assert_array_equal(got, getattr(ref_native, name)(x))
+        np.testing.assert_array_equal(got, op(t).numpy())
+    np.testing.assert_array_equal(native.delta_decode(x),
+                                  tops.delta_decode(t).numpy())
+    np.testing.assert_array_equal(native.delta_decode(x),
+                                  ref_native.delta_decode(x, 0))
+    for v in (-128, 128):
+        np.testing.assert_array_equal(native.offset32(x, v),
+                                      tops.offset32(t, v).numpy())
+    for bps in (1, 2, 3, 4):
+        nat = rng.integers(0, 256, 3 * 997 * bps).astype(np.uint8)
+        sig = native.native_to_i32(nat, 997, 3, bps)
+        np.testing.assert_array_equal(
+            sig, ref_native.native_to_i32(nat, 997, 3, bps))
+        np.testing.assert_array_equal(sig, tops.native_to_i32(
+            torch.from_numpy(nat), 997, 3, bps).numpy())
+        assert native.i32_to_native(x.reshape(3, 997), bps) == \
+            ref_native.i32_to_native(x.reshape(3, 997), bps)
+        assert native.i32_to_native(sig, bps) == nat.tobytes()
+    for p in (1, 2, 3, 4):
+        planes = native.plane_split(x, p)
+        np.testing.assert_array_equal(planes, ref_native.plane_split(x, p))
+        np.testing.assert_array_equal(planes, tops.plane_split(t, p).numpy())
+        np.testing.assert_array_equal(native.plane_merge(planes),
+                                      tops.plane_merge(torch.from_numpy(
+                                          planes)).numpy())
+
+
+def _xdelta_input(rng, bps, kind):
+    n = 3 * 700
+    if kind == "quiet":
+        sig = np.cumsum(rng.integers(-2, 3, n), dtype=np.int64)
+    elif kind == "wrap":            # a ramp through the bps range and round
+        sig = np.arange(n, dtype=np.int64) * (2 ** (8 * bps) // 600 + 1)
+    else:
+        sig = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+    return np.frombuffer(to_native(sig.astype(np.int32).reshape(3, 700),
+                                   bps), np.uint8)
+
+
+@pytest.mark.parametrize("bps", [1, 2, 3, 4])
+def test_xdelta_preprocess_matches_plain(bps):
+    """xdelta_preprocess gives the planes and the growth flag of the card
+    packer's pass 1 (ck.xdelta_swizzle_plain: the flag is _fits_planes,
+    the port's rule) at 1-4 planes, at 1 and 4 threads, on quiet, wrapping
+    and full-range samples; xdelta_postprocess gives the samples back
+    from any count that fits, and equals the reference runtime's
+    postprocess."""
+    rng = np.random.default_rng(bps)
+    for kind in ("quiet", "wrap", "full"):
+        nat = _xdelta_input(rng, bps, kind)
+        for p in (1, 2, 3, 4):
+            enc, ok = ck.xdelta_swizzle_plain(torch.from_numpy(nat.copy()),
+                                              700, 3, p, bps, True)
+            want = tops.plane_split(enc, p).numpy()
+            for nt in (1, 4):
+                planes, fits = native.xdelta_preprocess(nat, 700, 3, bps, p,
+                                                        nt)
+                np.testing.assert_array_equal(planes, want)
+                assert fits == bool(ok.item()), (kind, p)
+            if fits:
+                back = native.xdelta_postprocess(planes, 700, 3, bps, 3)
+                assert back == nat.tobytes(), (kind, p)
+                assert back == ref_native.xdelta_postprocess_mt(
+                    planes, 700, 3, bps, 3)
+
+
+@pytest.mark.parametrize("case", DCT_EDGE_CASES)
+def test_dct_matches_plain_and_reference(case):
+    """dct_forward and dct_inverse (tiles of outputs in threads) equal the
+    card kernels' plain versions and the reference runtime's serial
+    kernels on the card tests' dct_edge_batch, out-of-range sums
+    (INT32_MIN, x86's conversion) included, at 1 and 4 threads."""
+    x = dct_edge_batch(np.random.default_rng(14), case)
+    n = x.shape[1]
+    cos, cos_t, cs, fwd, inv = dct_tables(n, torch.device("cpu"))
+    t = torch.from_numpy(x)
+    want_f = ck.dct_forward_plain(t, cos, fwd).numpy()
+    want_i = ck.dct_inverse_plain(t, cos_t, cs, inv).numpy()
+    for nt in (1, 4):
+        got_f = native.dct_forward(x, cos.numpy(), cs.numpy(), 128.0, nt)
+        got_i = native.dct_inverse(x, cos_t.numpy(), cs.numpy(), 128.0, nt)
+        np.testing.assert_array_equal(got_f, want_f)
+        np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_f[:1], ref_native.dct_forward_mt(
+        x[:1], cos.numpy(), cs.numpy(), 128.0))
+    np.testing.assert_array_equal(got_i[:1], ref_native.dct_inverse_mt(
+        x[:1], cos_t.numpy(), cs.numpy(), 128.0))
+
+
+def test_fwht_matches_plain_and_reference():
+    """fwht of rows at n = 1, 2, 64 and 2^14 (int32 extremes among the
+    values) equals ck.fwht_plain and the reference runtime's rn_fwht row
+    by row; fwht_normalize and fwht_normalize2 equal the reference's,
+    INT32_MIN included."""
+    rng = np.random.default_rng(44)
+    for n in (1, 2, 64, 1 << 14):
+        x = rng.integers(-2 ** 31, 2 ** 31, (3, n), dtype=np.int64).astype(
+            np.int32)
+        x[0, 0] = -2 ** 31
+        for nt in (1, 4):
+            got = native.fwht(x, nt)
+            np.testing.assert_array_equal(got, ck.fwht_plain(
+                torch.from_numpy(x)).numpy())
+        for row, g in zip(x, got):
+            np.testing.assert_array_equal(g, ref_native.fwht(row))
+        np.testing.assert_array_equal(
+            native.fwht_normalize(got, n, 1.0),
+            np.stack([ref_native.fwht_normalize(r, n, 1.0) for r in got]))
+        np.testing.assert_array_equal(native.fwht_normalize2(got, 1.0), got)
+    assert native.fwht_normalize([-2 ** 31, 5, -5], 4, 1.0).tolist() == [
+        -2 ** 29, 1, -1]
+
+
+def test_encode_half_rejects_bad_arguments():
+    """Bad sizes, sample widths, plane counts and shapes raise ValueError
+    before the runtime is called."""
+    with pytest.raises(ValueError):
+        native.native_to_i32(bytes(11), 4, 3, 1)
+    with pytest.raises(ValueError):
+        native.native_to_i32(bytes(12), 4, 3, 5)
+    with pytest.raises(ValueError):
+        native.xdelta_preprocess(bytes(12), 4, 3, 1, 0)
+    with pytest.raises(ValueError):
+        native.xdelta_preprocess(bytes(11), 4, 3, 1, 1)
+    with pytest.raises(ValueError):
+        native.xdelta_postprocess(np.zeros((2, 11), np.uint8), 4, 3, 1)
+    with pytest.raises(ValueError):
+        native.plane_split(np.zeros(4, np.int32), 5)
+    with pytest.raises(ValueError, match="2\\^k"):
+        native.fwht(np.zeros((2, 6), np.int32))
+    with pytest.raises(ValueError, match="dct"):
+        native.dct_forward(np.zeros((2, 6), np.int32),
+                           np.zeros((5, 5), np.float32),
+                           np.zeros(6, np.float32), 128.0)
+    with pytest.raises(ValueError, match="whole frame"):
+        native.stream_filter_pack(bytes(11), 4, 1, 3, 1, None, None, None,
+                                  None, 1, 1)
+    with pytest.raises(ValueError, match="state"):
+        native.stream_filter_pack(bytes(12), 4, 1, 3, 1, [1.0, 0.5],
+                                  [0.5, 0.5], np.zeros((3, 1)),
+                                  np.zeros((3, 2)), 1, 1)

@@ -1,7 +1,9 @@
 """The port's streaming path (BASELINE config 5) on the CPU: the filter
 design and the runtime's serial IIR against the reference's, and
 rspt_tpu_torch.pipeline.StreamingCodec(device="cpu") frames against
-rspt_tpu.pipeline.StreamingCodec's on the same pushes.
+rspt_tpu.pipeline.StreamingCodec's on the same pushes; the fused route
+(a codec whose packer is the all-host engine's xdelta packer) against
+both.
 
 The IIR is bit-exact f64 and the frames a byte format: every comparison
 is exact (tolerance 0).
@@ -16,9 +18,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from rspt_tpu import pipeline as rpipe  # noqa: E402
+from rspt_tpu.packers import host as hpack  # noqa: E402
 from rspt_tpu.filters import design as rdesign  # noqa: E402
 from rspt_tpu.filters import streaming as rstreaming  # noqa: E402
 from rspt_tpu.native import bindings as ref_native  # noqa: E402
+from rspt_tpu_torch import packers as gpack  # noqa: E402
 from rspt_tpu_torch import pipeline as gpipe  # noqa: E402
 from rspt_tpu_torch.filters import design, streaming  # noqa: E402
 from rspt_tpu_torch.native import bindings as native  # noqa: E402
@@ -236,3 +240,119 @@ def test_state_resume(rng, source):
     frames += _push_all(resumed, [data[cut:]])
     assert frames == whole
     assert resumed.flush_stats()["frames"] == 5
+
+
+# -- the fused route (the all-host engine) ---------------------------------------
+
+def _fused_codec(cfg, nthreads=2):
+    """A codec on the all-host engine's xdelta packer: its pushes take the
+    fused route (one runtime call a span)."""
+    p = gpack.new_xdelta_hzr(cfg.bytes_per_sample, cfg.nr_channels,
+                             cfg.nr_samples, cfg.nr_bytes_to_encode,
+                             engine="native", nthreads=nthreads)
+    return gpipe.StreamingCodec(cfg, packer=p)
+
+
+def _growing_stream(rng, bps, ch, ns, nblocks):
+    """Three quiet blocks, then loud ones: from one plane, the count grows
+    in the fourth block (at bps > 1), and the band-pass's output leaves
+    the bps range on the loud part."""
+    n = nblocks * ns + 300
+    t = np.arange(n)
+    amp = np.where(t < 3 * ns, 2.0, 2.0 ** (8 * bps - 2))
+    sig = (amp * np.sin(t / 9.0)[None, :]
+           + rng.normal(0, 1.0, (ch, n)) * amp / 40).astype(np.int64)
+    return gpipe.i32_to_native(sig.astype(np.int32), bps)
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("bps", [1, 2, 3, 4])
+def test_fused_frames_match_unfused_and_reference(bps, filtered):
+    """From 1 plane, pushes cut at 0.5, 4.5 and 6.2 blocks (the growth
+    falls inside a span, after frames that fit) and the rest: the fused
+    route's frames equal the port's unfused codec on device="cpu" and the
+    reference codec on rspt_tpu.packers.host's packer; so do the plane
+    count and the filters' state; the port's decoder on the native packer
+    gives back the packed signal."""
+    ch, ns, nblocks = 3, 512, 8
+    gcfg, rcfg = _configs(bps, ch, ns, filtered, planes=1)
+    data = _growing_stream(np.random.default_rng(70 + bps), bps, ch, ns,
+                           nblocks)
+    blk = ch * ns * bps
+    cuts = [blk // 2, 9 * blk // 2, 31 * blk // 5]
+    chunks = np.split(data, cuts)
+    fused = _fused_codec(gcfg)
+    got = _push_all(fused, chunks)
+    cpu = gpipe.StreamingCodec(gcfg, device="cpu")
+    ref = rpipe.StreamingCodec(rcfg, packer=hpack.new_xdelta_hzr(
+        bps, ch, ns, 1))
+    assert len(got) == nblocks
+    assert got == _push_all(cpu, chunks) == _push_all(ref, chunks)
+    assert fused.packer.nr_planes == cpu.packer.nr_planes == \
+        ref.packer.nr_planes
+    assert fused.packer.nr_planes == (1 if bps == 1 else bps)
+    assert fused.stage_seconds.keys() == {"span"}
+    if filtered:
+        assert [f.xz for f in fused._filters] == [f.xz for f in cpu._filters]
+        assert [f.yz for f in fused._filters] == [f.yz for f in cpu._filters]
+    dec = gpipe.StreamingDecoder(gcfg, packer=gpack.new_xdelta_hzr(
+        bps, ch, ns, fused.packer.nr_planes, engine="native"))
+    rdec = gpipe.StreamingDecoder(gcfg, device="cpu")
+    rdec.packer.nr_planes = fused.packer.nr_planes
+    tail = b"".join(dec.push(f) for f in got[4:])
+    assert tail == b"".join(rdec.push(f) for f in got[4:])
+    if not filtered:
+        assert tail == data[4 * blk:nblocks * blk].tobytes()
+
+
+@pytest.mark.parametrize("first", ["fused", "unfused"])
+def test_fused_state_hand_over(first):
+    """A state taken mid-stream (a partial block in the ring, the filters
+    warmed) from one route and loaded into a codec of the other
+    continues with the frames of an uninterrupted run."""
+    bps, ch, ns = 3, 2, 1024
+    gcfg, _ = _configs(bps, ch, ns, True)
+    data = _stream(np.random.default_rng(5), bps, ch, 5 * ns)
+    cut = (2 * ns + 333) * ch * bps
+    make = {"fused": _fused_codec,
+            "unfused": lambda c: gpipe.StreamingCodec(c, device="cpu")}
+    second = "unfused" if first == "fused" else "fused"
+    whole = _push_all(make[second](gcfg), [data])
+    a = make[first](gcfg)
+    frames = _push_all(a, [data[:cut]])
+    b = make[second](gcfg)
+    b.set_state(a.get_state())
+    frames += _push_all(b, [data[cut:]])
+    assert len(frames) == 5 and frames == whole
+    assert b.flush_stats()["frames"] == 5
+
+
+def test_fused_out_of_range_filter_output():
+    """The full-scale square wave at bps 4 through the fused route: the
+    band-pass's out-of-range outputs convert to INT32_MIN as x86 does,
+    and the frames equal the unfused codec's, at 1 and 4 threads."""
+    bps, ch, ns = 4, 2, 1024
+    gcfg, _ = _configs(bps, ch, ns, True, planes=4)
+    sq = np.where((np.arange(3 * ns) // 7) % 2, 2 ** 31 - 1, -2 ** 31)
+    data = gpipe.i32_to_native(np.stack([sq, -sq - 1]).astype(np.int32), bps)
+    want = _push_all(gpipe.StreamingCodec(gcfg, device="cpu"), [data])
+    for nt in (1, 4):
+        assert _push_all(_fused_codec(gcfg, nt), [data]) == want
+    out = np.frombuffer(b"".join(gpipe.StreamingDecoder(
+        gcfg, device="cpu").push(f) for f in want), np.uint8)
+    assert (gpipe.native_to_i32(out, 3 * ns, ch, bps) == -2 ** 31).any()
+
+
+def test_fused_route_needs_hzr_planes():
+    """A native xdelta packer with LZ4 planes takes the unfused route
+    (compress_many on the native packer), with the host packer's
+    frames."""
+    bps, ch, ns = 2, 2, 256
+    gcfg, rcfg = _configs(bps, ch, ns, True)
+    data = _stream(np.random.default_rng(8), bps, ch, 3 * ns, amp=3000.0)
+    codec = gpipe.StreamingCodec(gcfg, packer=gpack.new_xdelta_hzr(
+        bps, ch, ns, 3, engine="native", plane_backend="lz4"))
+    ref = rpipe.StreamingCodec(rcfg, packer=hpack.new_xdelta_hzr(
+        bps, ch, ns, 3, plane_backend="lz4"))
+    assert _push_all(codec, [data]) == _push_all(ref, [data])
+    assert codec.stage_seconds.keys() == {"filter", "pack"}
