@@ -917,19 +917,18 @@ def check_dct_path(packers, ck, edges, sig, native, ch, dev, n4=4096):
             f"{cr:.4f}), PRDN {prd:.6f}%, container equal to the CPU's, "
             f"decompress on the host, with device_decode and "
             f"decompress_many of 3 equal to the CPU's; "
-            f"{pdd.decode_info['device_blocks']} device blocks; tables "
-            f"built and uploaded in {pd.table_seconds:.3f} s")
+            f"{pdd.decode_info['device_blocks']} device blocks")
         out[bps] = dict(packer=pd, packer_dd=pdd, native=nat, comp=comp,
                         launches=launches)
     return out
 
 
-def time_dct(ck, tops, dct_path, ch, dev):
+def time_dct(ck, dct_path):
     """Phase 4's DCT part: D1 and D2 at config 4 (12 x 4,096) beside
     their bound, plain versions and an f64 torch.matmul over the same
     operands (not exact: another summation order), in turns; the DCT
-    walls (medians of 3 [min, max], with the stages of the last call) and
-    the packer's table construction. Returns the two kernels JSON lines."""
+    walls (medians of 3 [min, max], with the stages of the last call).
+    Returns the two kernels JSON lines."""
     # the DCT pair at config 4 (12 x 4,096): the centred signal its
     # compress gives dct_forward and the coefficients its decompress
     # gives dct_inverse; the bound is the table read once, or the f64
@@ -973,7 +972,7 @@ def time_dct(ck, tops, dct_path, ch, dev):
         f"{4 * n4 * n4 / HBM_BYTES_PER_S * 1e3:.6f} ms; "
         f"{ck._lib().rspt_dct_ctas(ch4, n4)} CTAs")
     # the DCT path at config 4: walls, medians of 3 [min, max], with the
-    # stages of the last call; the packer's table construction
+    # stages of the last call
     for bps, d in dct_path.items():
         dc = wall_times(lambda: d["packer"].compress(d["native"]))
         dc_st = dict(d["packer"].stage_seconds)
@@ -984,15 +983,6 @@ def time_dct(ck, tops, dct_path, ch, dev):
         log(f"phase 4: DCT bps {bps} compress {spread(dc)} s {dc_st}; "
             f"decompress {spread(dd)} s {dd_st}; device-decode decompress "
             f"{spread(ddd)} s {ddd_st}")
-    from rspt_tpu_torch.packers import GpuDctPacker
-    tab_s = [GpuDctPacker(4, ch, 4096, device=dev).table_seconds
-             for _ in range(3)]
-    t_host = time.perf_counter()
-    tops.dct_cos_table(4096)
-    t_host = time.perf_counter() - t_host
-    log(f"phase 4: DCT tables (two 64 MiB float32 tables built on the host "
-        f"and uploaded, cs and the factors) {spread(tab_s)} s a packer; the "
-        f"host's cosine table alone {t_host:.4f} s")
     kernels = []
     for name in ("dct_forward", "dct_inverse"):
         kernels.append(measure_row(name, rows[name], launches))
@@ -3384,7 +3374,7 @@ def main() -> int:
     # phase 14 and its timings last, so that the DCT packers' 64 MiB
     # tables (host and device) are built after the earlier paths' walls
     dct_path = check_dct_path(packers, ck, edges, sig, native, ch, dev)
-    kernels += time_dct(ck, tops, dct_path, ch, dev)
+    kernels += time_dct(ck, dct_path)
     # phase 15 and its timings: the streaming path at BASELINE config 5
     stream = check_stream_path(ck, edges, sig, native, ch, dev)
     kernels += time_stream(ck, stream, native, ch, dev)

@@ -27,6 +27,7 @@ from ..device import resolve_device
 from ..filters.design import FilterKind, FilterType, create_filter_iir
 from ..filters.torch_filters import iir_apply, iir_warmup_state
 from ..ops import cuda_kernels as ck
+from ..utils import tracing
 
 
 def _coeffs(sr: float, order2: bool = True):
@@ -42,9 +43,13 @@ def _coeffs(sr: float, order2: bool = True):
 
 
 def _signal(x, dev: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.float32))
+    if x.device.type != "cpu":
         return x.to(dev, torch.float32)
-    return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    # a copy from host memory: the host waits for the stream
+    with tracing.sync("input_copy", dev):
+        return x.to(dev, torch.float32)
 
 
 def _gate_scan(sig, thr, sampling_rate, marker_val, attenuation):
@@ -55,9 +60,16 @@ def _gate_scan(sig, thr, sampling_rate, marker_val, attenuation):
     nr_slope = int((100.0 * sr) / 1000.0)
     atten = np.float32(1.0 / (1.0 + attenuation / sr))
     T = sig.shape[-1]
-    peaks = ck.peak_gate(sig.reshape(-1, T).contiguous(),
-                         thr.reshape(-1, T).contiguous(), nr_slope,
-                         float(atten), float(np.float32(marker_val)))
+    with tracing.span("peak_gate"):
+        peaks = ck.peak_gate(sig.reshape(-1, T).contiguous(),
+                             thr.reshape(-1, T).contiguous(), nr_slope,
+                             float(atten), float(np.float32(marker_val)))
+        if tracing.enabled():
+            # the chunks S4 re-ran a row, summed on the card (the plain
+            # version's serial walk re-runs none)
+            reruns = ck.peak_gate.last_reruns
+            tracing.count("gate_reruns",
+                          0 if reruns is None else reruns[:, 0])
     return peaks.reshape(sig.shape), nr_slope
 
 
@@ -67,17 +79,18 @@ def detect_batch(x, sampling_rate: float, marker_val: float = 1.0,
     device (jax_peaks.detect_batch, :34-85). The band-pass stage starts
     from the reference's first-sample warm-up (peak_detector.h:86-88), in
     closed form (iir_warmup_state)."""
-    (bp_b, bp_a), (in_b, in_a), (th_b, th_a) = _coeffs(sampling_rate,
-                                                        order2)
-    sr = float(sampling_rate)
-    dev = resolve_device(device)
-    x = _signal(x, dev)
-    zi = iir_warmup_state(x[..., 0], bp_a, bp_b, 4 * int(sr), device=dev)
-    v, _ = iir_apply(x, bp_a, bp_b, zi=zi, mode="assoc", device=dev)
-    sig, _ = iir_apply(v * v, in_a, in_b, mode="assoc", device=dev)
-    thr, _ = iir_apply(sig, th_a, th_b, mode="assoc", device=dev)
-    peaks, _ = _gate_scan(sig, thr, sr, marker_val, 25.0)
-    return peaks, sig, thr
+    with tracing.span("detect_batch"):
+        (bp_b, bp_a), (in_b, in_a), (th_b, th_a) = _coeffs(sampling_rate,
+                                                            order2)
+        sr = float(sampling_rate)
+        dev = resolve_device(device)
+        x = _signal(x, dev)
+        zi = iir_warmup_state(x[..., 0], bp_a, bp_b, 4 * int(sr), device=dev)
+        v, _ = iir_apply(x, bp_a, bp_b, zi=zi, mode="assoc", device=dev)
+        sig, _ = iir_apply(v * v, in_a, in_b, mode="assoc", device=dev)
+        thr, _ = iir_apply(sig, th_a, th_b, mode="assoc", device=dev)
+        peaks, _ = _gate_scan(sig, thr, sr, marker_val, 25.0)
+        return peaks, sig, thr
 
 
 def _move_back(peaks: torch.Tensor, nr_slope: int) -> torch.Tensor:

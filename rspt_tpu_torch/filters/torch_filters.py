@@ -40,6 +40,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import cuda_kernels as ck
+from ..utils import tracing
 
 IIR_TILE = 512      # S2's samples a tile
 
@@ -67,28 +68,29 @@ def iir_apply(x, n: Sequence[float], d: Sequence[float],
     2..8 coefficients on the card). zi: optional (xz, yz), each (..., p−1),
     the newest first. Returns (y, (xz_out, yz_out)) on the device
     (jax_filters.iir_apply, :68-131)."""
-    if mode not in ("scan", "assoc"):
-        raise ValueError(f"mode must be 'scan' or 'assoc', got {mode!r}")
-    m = ck.check_iir_coefficients(n, d) - 1
-    dev = resolve_device(device)
-    x = _tensor(x, dev)
-    dtype = _float_type(x)
-    x = x.to(dtype)
-    lead, T = x.shape[:-1], x.shape[-1]
-    if zi is None:
-        xz = x.new_zeros(lead + (m,))
-        yz = x.new_zeros(lead + (m,))
-    else:
-        xz, yz = (_tensor(z, dev).to(dtype) for z in zi)
-    if T == 0:      # nothing to filter, no launch: the state passes on
-        y = x.new_empty(lead + (0,))
-    else:
-        args = (_rows(x, T), n, d, _rows(xz, m), _rows(yz, m))
-        y = (ck.iir_scan(*args) if mode == "scan"
-             else ck.iir_assoc(*args, IIR_TILE)).reshape(lead + (T,))
-    xz_out = torch.cat([xz.flip(-1), x], -1)[..., -m:].flip(-1)
-    yz_out = torch.cat([yz.flip(-1), y], -1)[..., -m:].flip(-1)
-    return y, (xz_out, yz_out)
+    with tracing.span("iir_apply"):
+        if mode not in ("scan", "assoc"):
+            raise ValueError(f"mode must be 'scan' or 'assoc', got {mode!r}")
+        m = ck.check_iir_coefficients(n, d) - 1
+        dev = resolve_device(device)
+        x = _tensor(x, dev)
+        dtype = _float_type(x)
+        x = x.to(dtype)
+        lead, T = x.shape[:-1], x.shape[-1]
+        if zi is None:
+            xz = x.new_zeros(lead + (m,))
+            yz = x.new_zeros(lead + (m,))
+        else:
+            xz, yz = (_tensor(z, dev).to(dtype) for z in zi)
+        if T == 0:      # nothing to filter, no launch: the state passes on
+            y = x.new_empty(lead + (0,))
+        else:
+            args = (_rows(x, T), n, d, _rows(xz, m), _rows(yz, m))
+            y = (ck.iir_scan(*args) if mode == "scan"
+                 else ck.iir_assoc(*args, IIR_TILE)).reshape(lead + (T,))
+        xz_out = torch.cat([xz.flip(-1), x], -1)[..., -m:].flip(-1)
+        yz_out = torch.cat([yz.flip(-1), y], -1)[..., -m:].flip(-1)
+        return y, (xz_out, yz_out)
 
 
 def fir_apply(x, kernel, window=None, device=None):
@@ -119,24 +121,27 @@ def iir_warmup_state(x0, n: Sequence[float], d: Sequence[float], iters: int,
     jax_filters.py's order (:165-203): s_K = A^K·s₀ + (Σ_{j<K} A^j)·b, from a
     zero state. x0: (...,) the constant sample. Returns (xz, yz) for
     iir_apply, on the device."""
-    dev = resolve_device(device)
-    x0 = _tensor(x0, dev)
-    dtype = torch.float64 if x0.dtype == torch.float64 else torch.float32
-    x0 = x0.to(dtype)
-    m = len(n) - 1
-    u = x0 * float(np.sum(np.asarray(d, np.float64)))
-    b = x0.new_zeros(x0.shape + (m,))
-    b[..., 0] = u
-    A = torch.from_numpy(ck.companion_matrix(n)).to(dev, dtype)
-    cur_M = A.expand(x0.shape + (m, m))
-    acc_v = torch.zeros_like(b)
-    cur_v = b
-    k = int(iters)
-    while k > 0:
-        if k & 1:
-            acc_v = torch.einsum("...ij,...j->...i", cur_M, acc_v) + cur_v
-        cur_v = torch.einsum("...ij,...j->...i", cur_M, cur_v) + cur_v
-        cur_M = torch.einsum("...ij,...jk->...ik", cur_M, cur_M)
-        k >>= 1
-    xz = x0[..., None].expand(x0.shape + (m,)).contiguous()
-    return xz, acc_v
+    with tracing.span("iir_warmup_state"):
+        dev = resolve_device(device)
+        x0 = _tensor(x0, dev)
+        dtype = torch.float64 if x0.dtype == torch.float64 else torch.float32
+        x0 = x0.to(dtype)
+        m = len(n) - 1
+        u = x0 * float(np.sum(np.asarray(d, np.float64)))
+        b = x0.new_zeros(x0.shape + (m,))
+        b[..., 0] = u
+        # a copy from pageable memory: the host waits for the stream
+        with tracing.sync("companion_copy", dev):
+            A = torch.from_numpy(ck.companion_matrix(n)).to(dev, dtype)
+        cur_M = A.expand(x0.shape + (m, m))
+        acc_v = torch.zeros_like(b)
+        cur_v = b
+        k = int(iters)
+        while k > 0:
+            if k & 1:
+                acc_v = torch.einsum("...ij,...j->...i", cur_M, acc_v) + cur_v
+            cur_v = torch.einsum("...ij,...j->...i", cur_M, cur_v) + cur_v
+            cur_M = torch.einsum("...ij,...jk->...ik", cur_M, cur_M)
+            k >>= 1
+        xz = x0[..., None].expand(x0.shape + (m,)).contiguous()
+        return xz, acc_v

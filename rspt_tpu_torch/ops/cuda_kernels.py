@@ -72,6 +72,7 @@ import torch
 
 from . import _build
 from . import torch_ops as tops
+from ..utils import tracing
 
 B = 65536             # positions per slab (hzr MAX_BLOCK_SIZE)
 NUM_SYMBOLS = 261
@@ -1603,8 +1604,11 @@ def _iir_tables(n: Tuple[float, ...], L: int, dtype: torch.dtype,
         pw[j] = row
         row = row @ A
     al = np.linalg.matrix_power(A, L)
-    return (torch.from_numpy(al).to(dtype).contiguous().to(device),
-            torch.from_numpy(pw).to(dtype).contiguous().to(device))
+    # copies from pageable memory: the host waits for the stream (on a
+    # miss of the cache only)
+    with tracing.sync("iir_tables", device):
+        return (torch.from_numpy(al).to(dtype).contiguous().to(device),
+                torch.from_numpy(pw).to(dtype).contiguous().to(device))
 
 
 def iir_tables(n: Sequence[float], L: int, dtype: torch.dtype,

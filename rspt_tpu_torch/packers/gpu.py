@@ -615,9 +615,9 @@ class GpuDctPacker(_GpuPackerBase):
     output a serial f64 sum in its order): dct_forward and dct_inverse,
     one launch each on the card. The packer builds its cosine tables on
     the host once (float32 from np.cos in f64, as the reference builds
-    them; 64 MiB each at 4,096 samples) and uploads them once:
-    ``table_seconds``. The tail is xdelta's over the flat (channels *
-    samples) coefficients, across channel borders (tpu.py:308-310)."""
+    them; 64 MiB each at 4,096 samples) and uploads them once. The tail
+    is xdelta's over the flat (channels * samples) coefficients, across
+    channel borders (tpu.py:308-310)."""
 
     METHOD = 1
     NR_PLANES = 2
@@ -629,7 +629,6 @@ class GpuDctPacker(_GpuPackerBase):
         super().__init__(bytes_per_sample, nr_channels, nr_samples, **kw)
         self.nr_planes = self.NR_PLANES
         self.header_size = 3 * nr_channels
-        t0 = time.perf_counter()
         cos = tops.dct_cos_table(nr_samples)
         cs = tops.dct_cs(nr_samples)
         self._cos = self._to_dev(cos)
@@ -638,9 +637,6 @@ class GpuDctPacker(_GpuPackerBase):
         self._fwd_scale = self._to_dev(tops.dct_forward_scale(
             cs, self.QUALITY))
         self._inv_scale = tops.dct_inverse_scale(nr_samples, self.QUALITY)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.table_seconds = time.perf_counter() - t0
 
     def compress(self, src) -> bytes:
         self.stage_seconds = {}

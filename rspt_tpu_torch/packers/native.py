@@ -23,7 +23,6 @@ compress_with_hints) do not exist here.
 
 from __future__ import annotations
 
-import time
 from typing import List, Tuple
 
 import numpy as np
@@ -201,9 +200,9 @@ class NativeDctPacker(_NativeBase):
     planes, quality 128, a 24-bit per-channel means header; any
     nr_samples >= 1. The transform is the reference's exact one (each
     output a serial f64 sum in its order). The packer builds its float32
-    cosine table (and its transpose) once, as the card packer does:
-    ``table_seconds``. The tail is xdelta's over the flat coefficients,
-    across channel borders."""
+    cosine table (and its transpose) once, as the card packer does. The
+    tail is xdelta's over the flat coefficients, across channel
+    borders."""
 
     METHOD = 1
     NR_PLANES = 2
@@ -215,11 +214,9 @@ class NativeDctPacker(_NativeBase):
         super().__init__(bytes_per_sample, nr_channels, nr_samples, **kw)
         self.nr_planes = self.NR_PLANES
         self.header_size = 3 * nr_channels
-        t0 = time.perf_counter()
         self._cos = tops.dct_cos_table(nr_samples)
         self._cos_t = np.ascontiguousarray(self._cos.T)  # COS[i][x] at [x][i]
         self._cs = tops.dct_cs(nr_samples)
-        self.table_seconds = time.perf_counter() - t0
 
     def compress(self, src) -> bytes:
         centred, means = self._centred(src)
